@@ -4,13 +4,27 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc, plain
-C interface), holds every kernel against its plain PyTorch version on the
-card, replays the hybrid keep-alive policy over a 1M-app, 14-day trace
-through ``repro_torch.core.experiment.run(engine="kernel")`` and checks it
-against the float64 engine and the scalar oracle, runs the 32-config policy
-sweep, and times the kernel beside its bound. Each phase prints one JSON
-line; any mismatch raises. The last lines are the kernel table, the card's
-name and power limit (``nvidia-smi``), and ``{"ok": true, "device": ...}``.
+C interface, one nvcc per source, all started together) and holds every
+kernel against its plain PyTorch version on the card. Then it drives the
+port's two main paths:
+
+  * the policy simulator: the hybrid keep-alive policy replayed over a
+    1M-app, 14-day trace through ``repro_torch.core.experiment.run(
+    engine="kernel")``, checked against the float64 engine and the scalar
+    oracle, and the 34-config policy sweep;
+  * serving: full-width RecurrentGemma-2B (``use_kernels=True``, bf16) in
+    two endpoints behind a ``WarmPool`` driven by the hybrid policy, with a
+    short periodic request stream of ``generate([2, 4096], max_new=16)``
+    calls (cold, warm, and a reload after the keep-alive ran out); every
+    prefill must launch the attention kernel 8 times and the RG-LRU scan
+    18 times, and the kernel path's logits must agree with the plain
+    branches (``use_kernels=False``).
+
+Then it times each kernel at its path's shapes beside its bound, its plain
+version and, where one exists, the one PyTorch call computing the same
+function. Each phase prints one JSON line; any mismatch raises. The last
+lines are the kernel table, the card's name and power limit
+(``nvidia-smi``), and ``{"ok": true, "device": ...}``.
 
 Exits non-zero without a result where there is no CUDA device or no
 ``src/repro_torch`` beside this file. Imports nothing of JAX or ``repro``.
@@ -28,6 +42,8 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
+BF16_TENSOR_OPS_PER_S = 989e12   # H100 SXM dense bf16 tensor cores
+F32_CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 # H100 SXM rate of plain scalar instructions outside the tensor cores: the
 # data sheet's 67e12 float32 rate counts a fused multiply-add as two
 # operations, and the step's multiplies, compares and adds (mostly int32)
@@ -35,6 +51,24 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 SCALAR_OPS_PER_S = 33.5e12
 SCALE_APPS = 1_000_000
 SWEEP_APPS = 100_000
+
+# The serving path: RecurrentGemma-2B's attention (B=2 prompts of 4,096
+# tokens, 10 q heads, 1 KV head, head dim 256, window 2,048) and RG-LRU
+# width (2,560).
+SERVE_BATCH, SERVE_SEQ, SERVE_NEW = 2, 4096, 16
+ATTN_SHAPE = dict(B=SERVE_BATCH, S=SERVE_SEQ, Hq=10, Hkv=1, D=256, W=2048)
+RGLRU_SHAPE = (SERVE_BATCH, SERVE_SEQ, 2560)
+ATTN_PER_PREFILL, RGLRU_PER_PREFILL = 8, 18
+# (minute, endpoint): both cold first, both warm 30 minutes on, and the
+# first again after its 240-minute standard keep-alive ran out (a reload)
+SERVE_STREAM = ((0.0, "rg2b-0"), (1.0, "rg2b-1"), (30.0, "rg2b-0"),
+                (31.0, "rg2b-1"), (400.0, "rg2b-0"))
+# Kernel path vs plain branches (use_kernels=False) on the same prompt and
+# weights, bf16 through 26 layers: the attention and the scan round their
+# f32 results to bf16 where the plain versions do too, but a value near a
+# rounding edge can land one ulp apart and the difference carries on; the
+# last-token logits must agree within 5% of their largest magnitude.
+SERVE_LOGITS_REL_TOL = 5e-2
 
 
 def emit(phase: str, **fields) -> None:
@@ -189,6 +223,264 @@ def event_stream_parity(device):
             raise AssertionError(f"S=1 kernel stream != scalar path at "
                                  f"event {k} (it={it})")
     emit("event_stream_parity", events=len(its), n_bins=n_bins, equal=True)
+
+
+def attention_inputs(B, S, Hq, Hkv, D, dtype, device, seed):
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(B, S, h, D, generator=g, device=device).to(dtype)
+            for h in (Hq, Hkv, Hkv)]
+
+
+def rglru_inputs(B, L, D, device, seed):
+    """Decays in (0, 0.98) as the model's sigmoid gates give, and a normal
+    gated input; both float32 as the model hands them over."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    b_in = torch.randn(B, L, D, generator=g, device=device)
+    a = 0.98 * torch.sigmoid(torch.randn(B, L, D, generator=g,
+                                         device=device))
+    return b_in, a
+
+
+def attention_parity(device):
+    """The attention kernel against its plain version: the serving path's
+    shape in bf16 (2e-2), f32 cases within 2e-5 (IEEE f32 on both sides;
+    the sums run in another order), and S=640, which the TPU kernel gets
+    wrong. Returns the largest absolute difference seen."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+
+    a = ATTN_SHAPE
+    cases = [((a["B"], a["S"], a["Hq"], a["Hkv"], a["D"]), torch.bfloat16,
+              a["W"], 2e-2),
+             ((2, 1024, 8, 2, 128), torch.float32, 0, 2e-5),
+             ((2, 1024, 8, 2, 128), torch.float32, 256, 2e-5),
+             ((1, 640, 10, 1, 256), torch.float32, 128, 2e-5),
+             ((2, 640, 10, 1, 256), torch.bfloat16, 2048, 2e-2)]
+    worst = 0.0
+    for k, (shape, dtype, window, tol) in enumerate(cases):
+        q, kk, v = attention_inputs(*shape, dtype, device, seed=10 + k)
+        got = FA.flash_attention(q, kk, v, window=window)
+        want = FA.flash_attention_plain(q, kk, v, window=window)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+        worst = max(worst, err)
+        emit("attention_parity", shape=list(shape), dtype=str(dtype),
+             window=window, tol=tol, max_abs_err=err)
+    return worst
+
+
+def rglru_parity(device):
+    """The scan kernel against its plain version (the doubling scan) within
+    atol 2e-5, rtol 2e-4: the path's width over 4,096 steps, and L=384,
+    which the TPU kernel gets wrong. Returns the largest absolute
+    difference seen."""
+    import torch
+    from repro_torch.kernels import rglru_scan as R
+
+    worst = 0.0
+    for k, shape in enumerate((RGLRU_SHAPE, (2, 384, 2560), (3, 1000, 200))):
+        b_in, a = rglru_inputs(*shape, device, seed=20 + k)
+        h, h_last = R.rglru_scan(b_in, a)
+        want_h, want_last = R.rglru_scan_plain(b_in, a)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(h, want_h, atol=2e-5, rtol=2e-4)
+        torch.testing.assert_close(h_last, want_last, atol=2e-5, rtol=2e-4)
+        if not torch.equal(h_last, h[:, -1]):
+            raise AssertionError("rglru_scan: h_last != h[:, -1]")
+        err = float((h - want_h).abs().max())
+        share = float(((h - want_h).abs() / (2e-5 + 2e-4 * want_h.abs()))
+                      .max())
+        worst = max(worst, err)
+        emit("rglru_parity", shape=list(shape), max_abs_err=err,
+             worst_share_of_tolerance=share)
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# Serving: RecurrentGemma-2B behind the warm pool
+# ---------------------------------------------------------------------------
+
+
+def serve(device):
+    """Two full-width RecurrentGemma-2B endpoints (seeds 0 and 1) behind a
+    WarmPool(HybridSpec(use_arima=False)); the pool's residency decisions
+    are mirrored onto the engine after every pool call. Returns the kernel
+    launches of the stream."""
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.core.experiment import HybridSpec
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rglru_scan as R
+    from repro_torch.models import build
+    from repro_torch.serving import (ModelEndpoint, Registry, ServeEngine,
+                                     WarmPool)
+
+    cfg = get("recurrentgemma-2b").with_(use_kernels=True)
+    reg = Registry()
+    for i in range(2):
+        reg.register(ModelEndpoint(f"rg2b-{i}", cfg, seed=i))
+    engine = ServeEngine(reg, device=device)
+    pool = WarmPool(reg, HybridSpec(use_arima=False))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_SEQ))).to(device)
+    loads = []                            # (app, seconds, first)
+
+    def mirror():
+        for ep in reg:
+            st = pool.state.get(ep.app_id)
+            resident = st is not None and st.loaded
+            if resident and not engine.is_loaded(ep.app_id):
+                first = ep.app_id not in engine._weights
+                loads.append((ep.app_id, engine.load(ep.app_id), first))
+            elif not resident and engine.is_loaded(ep.app_id):
+                engine.unload(ep.app_id)
+
+    torch.cuda.reset_peak_memory_stats()
+    FA.LAUNCHES = R.LAUNCHES = 0          # count the serving path's launches
+    requests = []
+    for minute, app in SERVE_STREAM:
+        now = minute * 60.0
+        n_loads = len(loads)
+        pool.tick(now)                    # expiries and pre-warms first
+        mirror()
+        cold, _ = pool.on_request(app, now)
+        mirror()
+        load_s = sum(s for a, s, _ in loads[n_loads:] if a == app)
+        fa0, r0 = FA.LAUNCHES, R.LAUNCHES
+        out, gen_s = engine.generate(app, tokens, max_new=SERVE_NEW,
+                                     max_len=SERVE_SEQ + SERVE_NEW)
+        fa, r = FA.LAUNCHES - fa0, R.LAUNCHES - r0
+        if (fa, r) != (ATTN_PER_PREFILL, RGLRU_PER_PREFILL):
+            raise AssertionError(f"a prefill launched {fa} attention and {r} "
+                                 f"scan kernels, not {ATTN_PER_PREFILL} and "
+                                 f"{RGLRU_PER_PREFILL}")
+        if tuple(out.shape) != (SERVE_BATCH, SERVE_NEW) or \
+                not bool(((out >= 0) & (out < cfg.vocab)).all()):
+            raise AssertionError(f"bad tokens {tuple(out.shape)}")
+        pool.on_request_end(app, now)
+        mirror()
+        requests.append(dict(minute=minute, app=app, cold=cold,
+                             load_s=load_s, generate_s=gen_s,
+                             latency_s=load_s + gen_s, **engine.last_times,
+                             attention_launches=fa, rglru_launches=r))
+        emit("serve_request", **requests[-1])
+    launches = {"flash_attention": FA.LAUNCHES, "rglru_scan": R.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the serving path launched {launches}")
+    st = pool.stats
+    if len(loads) != st.cold_starts + st.prewarms:
+        raise AssertionError(f"{len(loads)} engine loads for "
+                             f"{st.cold_starts} cold starts and "
+                             f"{st.prewarms} pre-warms")
+    colds = [q for q in requests if q["cold"]]
+    warms = [q for q in requests if not q["cold"]]
+    if not colds or not warms:
+        raise AssertionError("the stream needs a cold and a warm request")
+
+    # the same prompt through the plain branches, on the same weights
+    app = SERVE_STREAM[-1][1]
+    params = engine._loaded[app]
+    with torch.inference_mode():
+        got, _ = build(cfg).prefill(params, tokens)
+        want, _ = build(cfg.with_(use_kernels=False)).prefill(params, tokens)
+    got, want = got.float(), want.float()
+    diff = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if not (torch.isfinite(got).all() and diff <= SERVE_LOGITS_REL_TOL * scale):
+        raise AssertionError(f"kernel-path logits differ from the plain "
+                             f"branches by {diff} (largest logit {scale})")
+    same_argmax = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+
+    warm_prefill = [q["prefill_s"] for q in warms]
+    warm_decode = [q["decode_s"] for q in warms]
+    profile = serve_profile(build(cfg), params, tokens,
+                            prefill_s=min(warm_prefill),
+                            decode_step_s=min(warm_decode) / (SERVE_NEW - 1))
+    emit("serve", arch=cfg.arch_id, n_params=build(cfg).n_params(),
+         dtype=cfg.dtype, batch=SERVE_BATCH, prompt=SERVE_SEQ,
+         max_new=SERVE_NEW, requests=len(requests),
+         cold=len(colds), warm=len(warms),
+         pool_cold_starts=st.cold_starts, pool_warm_starts=st.warm_starts,
+         pool_prewarms=st.prewarms, engine_loads=len(loads),
+         first_load_s=[s for _, s, first in loads if first],
+         reload_s=[s for _, s, first in loads if not first],
+         cold_latency_s=[q["latency_s"] for q in colds],
+         warm_latency_s=[q["latency_s"] for q in warms],
+         prefill_tokens_per_s=[SERVE_BATCH * SERVE_SEQ / s
+                               for s in warm_prefill],
+         decode_ms_per_step=[1e3 * s / (SERVE_NEW - 1) for s in warm_decode],
+         peak_device_bytes=peak, launches=launches,
+         logits_max_abs_diff_vs_plain=diff, logits_max_abs=scale,
+         logits_rel_tol=SERVE_LOGITS_REL_TOL,
+         argmax_agreement_vs_plain=same_argmax, profile=profile)
+    return launches, len(requests)
+
+
+def _kernel_class(name: str) -> str:
+    if "flash_attention" in name:
+        return "attention_kernel"
+    if "chunk_summary" in name or "chunk_carry" in name \
+            or "chunk_replay" in name:
+        return "scan_kernel"
+    if any(s in name.lower() for s in ("gemm", "cutlass", "xmma", "nvjet")):
+        return "matmul"
+    return "other"
+
+
+def serve_profile(model, params, tokens, *, prefill_s, decode_step_s):
+    """Device time by kernel class (torch.profiler) of one prefill and of
+    four decode steps, and the device's idle share against the wall
+    seconds of the same work in the unprofiled stream (the profiler slows
+    the host, so its own wall clock is not used). Device times are null
+    where the profiler records no device events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_ms(run):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        by_class = {}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            k = _kernel_class(e.key)
+            by_class[k] = by_class.get(k, 0.0) + us / 1e3
+        return by_class or None
+
+    steps = 4
+    with torch.inference_mode():
+        logits, cache = model.prefill(params, tokens)
+        tok = logits.argmax(-1)[:, 0]
+        torch.cuda.synchronize()
+        pre = device_ms(lambda: model.prefill(params, tokens))
+        state = {"cache": cache, "tok": tok}
+
+        def decode():
+            for _ in range(steps):
+                lg, state["cache"] = model.decode_step(params, state["tok"],
+                                                       state["cache"])
+                state["tok"] = lg.argmax(-1)
+        dec = device_ms(decode)
+    out = {"prefill_device_ms": pre, "decode_step_device_ms": None,
+           "prefill_idle_share": None, "decode_idle_share": None}
+    if pre:
+        out["prefill_idle_share"] = 1.0 - sum(pre.values()) / 1e3 / prefill_s
+    if dec:
+        out["decode_step_device_ms"] = {k: v / steps for k, v in dec.items()}
+        out["decode_idle_share"] = \
+            1.0 - sum(dec.values()) / steps / 1e3 / decode_step_s
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -391,6 +683,86 @@ def time_kernel(host: np.ndarray, device):
     return kernel_ms, plain_ms, bound_ms, bound_by
 
 
+def cuda_ms(fn, reps: int) -> float:
+    """Mean ms per call of ``fn`` over ``reps`` calls (CUDA events), after
+    one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def time_attention(device):
+    """The attention kernel at the serving path's shape, its plain version,
+    and scaled_dot_product_attention with the same boolean band mask and
+    enable_gqa (timed here only; the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+
+    a = ATTN_SHAPE
+    B, S, Hq, Hkv, D, W = (a[k] for k in ("B", "S", "Hq", "Hkv", "D", "W"))
+    q, k, v = attention_inputs(B, S, Hq, Hkv, D, torch.bfloat16, device,
+                               seed=30)
+    n0 = FA.LAUNCHES
+    kernel_ms = cuda_ms(lambda: FA.flash_attention(q, k, v, window=W), 10)
+    plain_ms = cuda_ms(lambda: FA.flash_attention_plain(q, k, v, window=W), 3)
+    i = torch.arange(S, device=device)
+    band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - W)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=band, enable_gqa=True), 10)
+    FA.LAUNCHES = n0                     # timing launches do not count
+    # live (query, key) pairs per (b, h): sum over i of min(i + 1, W)
+    pairs = sum(min(r + 1, W) for r in range(S))
+    ops = 4.0 * B * Hq * D * pairs
+    nbytes = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
+    ops_ms = ops / BF16_TENSOR_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    emit("times_attention", shape=[B, S, Hq, Hkv, D], window=W,
+         dtype="bfloat16", kernel_ms=kernel_ms, plain_ms=plain_ms,
+         library_ms=library_ms,
+         library="scaled_dot_product_attention(attn_mask=band, "
+                 "enable_gqa=True)",
+         live_pairs_per_head=pairs, operations=ops, bytes=nbytes,
+         bound_ms=max(ops_ms, bytes_ms),
+         bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+         ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms,
+         cuda_core_ops_bound_ms=ops / F32_CUDA_CORE_OPS_PER_S * 1e3,
+         launches_per_request=ATTN_PER_PREFILL)
+    return kernel_ms, plain_ms, max(ops_ms, bytes_ms), \
+        "operations" if ops_ms >= bytes_ms else "bytes", library_ms
+
+
+def time_rglru(device):
+    """The scan kernel at the path's width over a 4,096-step prompt and its
+    plain version; no single PyTorch call computes this recurrence."""
+    from repro_torch.kernels import rglru_scan as R
+
+    B, L, D = RGLRU_SHAPE
+    b_in, a = rglru_inputs(B, L, D, device, seed=31)
+    n0 = R.LAUNCHES
+    kernel_ms = cuda_ms(lambda: R.rglru_scan(b_in, a), 20)
+    plain_ms = cuda_ms(lambda: R.rglru_scan_plain(b_in, a), 5)
+    R.LAUNCHES = n0                      # timing launches do not count
+    # a and b_in read once, h and h_last written once; ~6 operations per
+    # element are far below the bytes
+    nbytes = 4 * (3 * B * L * D + B * D)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    emit("times_rglru", shape=[B, L, D], kernel_ms=kernel_ms,
+         plain_ms=plain_ms, bytes=nbytes, bound_ms=bound_ms,
+         bound_by="bytes", library_ms=None,
+         library_note="no single PyTorch call computes this recurrence",
+         launches_per_request=RGLRU_PER_PREFILL)
+    return kernel_ms, plain_ms, bound_ms
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -405,6 +777,9 @@ def main() -> int:
     sys.path.insert(0, src)
     from repro_torch.kernels import build
     device = torch.device("cuda")
+    # the plain versions' f32 products in full f32, as the kernels compute
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
@@ -419,22 +794,45 @@ def main() -> int:
 
     max_err = kernel_parity(np.random.default_rng(0), device)
     event_stream_parity(device)
+    attn_err = attention_parity(device)
+    rglru_err = rglru_parity(device)
     trace, launches, e2e = scale_point(device)
     policy_sweep(device)
+    t_serve = time.perf_counter()
+    serve_launches, n_requests = serve(device)
+    serve_s = time.perf_counter() - t_serve
     # time the kernel on the scale trace's columns, as the main path ran it
     times, counts = trace.to_padded()
     kernel_ms, plain_ms, bound_ms, bound_by = time_kernel(
         times[:, :int(counts.max())].astype(np.float64), device)
+    fa_ms, fa_plain_ms, fa_bound_ms, fa_bound_by, fa_lib_ms = \
+        time_attention(device)
+    rg_ms, rg_plain_ms, rg_bound_ms = time_rglru(device)
 
+    csrc = "src/repro_torch/kernels/csrc/"
     print(json.dumps({"kernels": [{
         "name": "fused_hybrid_sweep_step", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/hybrid_sweep_step.cu",
+        "source": csrc + "hybrid_sweep_step.cu",
         "replaces": "src/repro/kernels/histogram.py:245",
         "launches": launches, "max_abs_err": max_err, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}]}), flush=True)
+        "library_ms": None}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": csrc + "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:104",
+        "launches": serve_launches["flash_attention"],
+        "max_abs_err": attn_err, "ms": fa_ms, "plain_ms": fa_plain_ms,
+        "bound_ms": fa_bound_ms, "bound_by": fa_bound_by,
+        "library_ms": fa_lib_ms}, {
+        "name": "rglru_scan", "route": "cuda",
+        "source": csrc + "rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan.py:73",
+        "launches": serve_launches["rglru_scan"], "max_abs_err": rglru_err,
+        "ms": rg_ms, "plain_ms": rg_plain_ms, "bound_ms": rg_bound_ms,
+        "bound_by": "bytes", "library_ms": None}]}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start,
-         scale_point_seconds=e2e["seconds"])
+         scale_point_seconds=e2e["seconds"], serve_seconds=serve_s,
+         serve_requests=n_requests)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

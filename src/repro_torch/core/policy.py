@@ -19,6 +19,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional
 
+import numpy as np
+
 from . import policy_math
 from .histogram import AppHistogram, HistogramConfig
 
@@ -161,3 +163,35 @@ class HybridHistogramPolicy(Policy):
         w = self._decide(app_id)
         self._windows[app_id] = w
         return w
+
+    # -- checkpointing (the serving fleet persists learned windows) ----------
+
+    def state_dict(self) -> dict:
+        """The learned state, in the reference's layout (``arima`` stays
+        empty: the ARIMA path is not ported)."""
+        return {
+            "cfg": dataclasses.asdict(self.cfg),
+            "hist": {
+                k: {"counts": h.counts.tolist(), "oob": h.oob,
+                    "total": h.total, "cv_sum": h._cv_sum,
+                    "cv_sum_sq": h._cv_sum_sq}
+                for k, h in self._hist.items()
+            },
+            "arima": {},
+            "windows": {k: (w.prewarm, w.keep_alive)
+                        for k, w in self._windows.items()},
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        if state.get("arima"):
+            raise NotImplementedError(ARIMA_NOT_PORTED)
+        for k, hs in state["hist"].items():
+            h = AppHistogram(self.cfg.histogram)
+            h.counts = np.asarray(hs["counts"], np.int64)
+            h.oob = int(hs["oob"])
+            h.total = int(hs["total"])
+            h._cv_sum = float(hs["cv_sum"])
+            h._cv_sum_sq = float(hs["cv_sum_sq"])
+            self._hist[k] = h
+        for k, (p, ka) in state.get("windows", {}).items():
+            self._windows[k] = PolicyWindows(p, ka)

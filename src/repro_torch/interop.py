@@ -1,21 +1,25 @@
-"""Carry inputs and scan state across from the JAX reference as numpy.
+"""Carry inputs, scan state and model weights across from the JAX reference
+as numpy.
 
-This system has no model weights: its inputs (traces) and its scan state
-take their place. The tests make both with numpy from a seed and hand the
-same arrays to the reference and, through these functions, to the port.
+The policy simulator's inputs are traces and its state the scan state; the
+serving slice's models have weights (the reference's parameter pytree). The
+tests make traces and state with numpy from a seed, take the weights from
+the reference's own ``Model.init``, and hand the same arrays to the
+reference and, through these functions, to the port.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+from typing import Dict, Iterator, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from .configs.base import ModelConfig
 from .core.workload import Trace
 from .device import resolve_device
 
 __all__ = ["trace_from_numpy", "step_state_from_numpy",
-           "cfg_blocks_from_numpy"]
+           "cfg_blocks_from_numpy", "model_params_from_numpy"]
 
 _STEP_DTYPES = (torch.float32, torch.int32, torch.int32, torch.float32,
                 torch.float32, torch.float32, torch.float32, torch.int32,
@@ -62,3 +66,51 @@ def cfg_blocks_from_numpy(cfg_i32, cfg_f32, *, device="cuda"
     return (torch.tensor(np.asarray(cfg_i32), dtype=torch.int32, device=dev),
             torch.tensor(np.asarray(cfg_f32), dtype=torch.float32,
                          device=dev))
+
+
+def _flatten(tree: Dict, prefix: str = "") -> Iterator[Tuple[str, object]]:
+    for key, val in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(val, dict):
+            yield from _flatten(val, path + ".")
+        else:
+            yield path, val
+
+
+def model_params_from_numpy(cfg: ModelConfig, tree: Dict, *,
+                            device="cuda") -> torch.nn.Module:
+    """The reference's parameter pytree (nested dicts of numpy arrays, the
+    super-blocks stacked on a leading ``[n_super, ...]`` axis under
+    ``blocks``) as the port's fp32 parameter module on ``device``.
+
+    Names map one to one (``blocks/rec1/wx/w``[i] -> ``blocks.i.rec1.wx.w``);
+    linear weights keep the reference's ``[d_in, d_out]`` layout, which the
+    port multiplies the same way (``x @ w``). Raises ``ValueError`` on a
+    missing or extra leaf or a shape that differs."""
+    from .models import build
+    from .models.rglru import HybridParams
+
+    build(cfg)                      # raises for a family not ported yet
+    dev = resolve_device(device)
+    flat = {}
+    for path, arr in _flatten(tree):
+        arr = np.asarray(arr)
+        if path.startswith("blocks."):
+            for i in range(arr.shape[0]):
+                flat[f"blocks.{i}.{path[len('blocks.'):]}"] = arr[i]
+        else:
+            flat[path] = arr
+    with torch.device("meta"):
+        params = HybridParams(cfg)
+    params = params.to_empty(device=dev).requires_grad_(False)
+    names = dict(params.named_parameters())
+    if set(flat) != set(names):
+        raise ValueError(
+            f"parameter names differ: missing {sorted(set(names) - set(flat))}"
+            f", extra {sorted(set(flat) - set(names))}")
+    for name, p in names.items():
+        if tuple(flat[name].shape) != tuple(p.shape):
+            raise ValueError(f"{name}: shape {flat[name].shape} != "
+                             f"{tuple(p.shape)}")
+        p.copy_(torch.from_numpy(np.array(flat[name], dtype=np.float32)))
+    return params

@@ -1,7 +1,7 @@
 """Build the CUDA sources under ``csrc/`` with nvcc and load them with ctypes.
 
 Each ``csrc/*.cu`` becomes a shared library with a plain C interface in
-``build/`` next to this file, named by a hash of its source and the flags,
+``build/`` next to this file, named by a hash of its source and its flags,
 so a changed source rebuilds and an unchanged one is reused. The build runs
 at first use (never at import), one nvcc per source, all started together.
 """
@@ -16,18 +16,26 @@ import time
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "SOURCE_FLAGS", "flags",
+           "build_all", "load"]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 
-# -fmad=false: no multiply-add contraction (the decision layer is compared
-# bit for bit); nvcc's default IEEE division and square root stay on.
+# nvcc's default IEEE division and square root stay on for every source.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Flags of one source only. -fmad=false: no multiply-add contraction in the
+# sweep step, whose decision layer is compared bit for bit; the attention
+# and scan kernels keep contraction (they are held to a tolerance).
+SOURCE_FLAGS = {"hybrid_sweep_step": ("-fmad=false",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def flags(stem: str) -> tuple:
+    """nvcc's flags for ``csrc/<stem>.cu``."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(stem, ())
 
 
 def _nvcc() -> str:
@@ -42,7 +50,7 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(src.read_bytes() + " ".join(flags(src.stem)).encode())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
@@ -60,7 +68,7 @@ def build_all() -> Dict[str, dict]:
         if dst.exists():
             continue
         tmp = dst.with_name(f"{dst.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [_nvcc(), *flags(src.stem), "-o", str(tmp), str(src)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         running.append((src.stem, proc, tmp, dst, time.perf_counter()))

@@ -1,7 +1,12 @@
 """Public front of the port's kernels (the counterpart of
-``repro/kernels/ops.py``; PyTorch runs eagerly, so nothing is jitted)."""
+``repro/kernels/ops.py``; PyTorch runs eagerly, so nothing is jitted).
+
+Each takes the model's layout and dispatches on the device of its inputs:
+the CUDA kernel on the card, its plain PyTorch version on the CPU."""
 from __future__ import annotations
 
+from .flash_attention import flash_attention
 from .histogram import fused_hybrid_step
+from .rglru_scan import rglru_scan
 
-__all__ = ["fused_hybrid_step"]
+__all__ = ["flash_attention", "fused_hybrid_step", "rglru_scan"]

@@ -1,0 +1,184 @@
+"""Shared layers of the hybrid family, as functions on parameter modules.
+
+The counterpart of ``repro/models/layers.py``, kept to what the hybrid
+(RecurrentGemma) serving path needs. Conventions, as in the reference:
+
+  * parameters are ``nn.Module`` trees whose names follow the reference's
+    parameter pytree (``interop.model_params_from_numpy`` maps one onto
+    the other); linear weights are ``[d_in, d_out]`` (``x @ w``);
+  * activations flow in ``cfg.dtype``; parameters are stored fp32 and cast
+    to the activation dtype at use (linear weights and biases, the
+    embedding table), while ``rmsnorm`` scales stay fp32 and ``rmsnorm``
+    computes in fp32 before the final cast;
+  * attention is GQA with RoPE; ``window > 0`` masks to a local band.
+
+Left out (not on the hybrid path): the KV-cache (dense decode) and
+distributed-decode branches of ``attention_apply``, the cross-entropy
+losses, and ``scan_blocks`` (the port loops over layers in Python).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..configs.base import ModelConfig
+from ..kernels import ops as kops
+from ..kernels.flash_attention import sdpa
+
+__all__ = ["FP32_AT_USE", "compute_dtype", "Linear", "RMSNorm", "Attention", "MLP",
+           "Embedding", "normal_", "linear", "rmsnorm", "rope",
+           "attention_apply", "mlp_apply", "embed", "unembed", "_sdpa"]
+
+#: Parameter names (the last part) that stay fp32 at use: the ``rmsnorm``
+#: scales and the RG-LRU ``lam``. Every other parameter is cast to the
+#: activation dtype where it is used.
+FP32_AT_USE = ("scale", "lam")
+
+#: The reference's plain attention (``layers._sdpa``, with its query-blocked
+#: form from 8,192 query rows): the model's branch when the kernels are
+#: off, and the function the attention kernel computes.
+_sdpa = sdpa
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def normal_(t: torch.Tensor, gen: torch.Generator, scale=None) -> None:
+    """The reference's ``_init``: normal times ``scale``, by default
+    1/sqrt(fan_in) with fan_in the first dimension of a matrix (1 for a
+    vector)."""
+    fan_in = t.shape[0] if t.dim() > 1 else 1
+    scale = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
+    with torch.no_grad():
+        t.normal_(generator=gen).mul_(scale)
+
+
+# ---------------------------------------------------------------------------
+# Parameter modules (names as in the reference's pytree)
+# ---------------------------------------------------------------------------
+
+
+class Linear(nn.Module):
+    def __init__(self, d_in: int, d_out: int, bias: bool = False):
+        super().__init__()
+        self.w = nn.Parameter(torch.empty(d_in, d_out))
+        if bias:
+            self.b = nn.Parameter(torch.zeros(d_out))
+
+    def init_(self, gen: torch.Generator) -> None:
+        normal_(self.w, gen)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, d: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(d))
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        hd = cfg.hd
+        self.wq = Linear(cfg.d_model, cfg.n_heads * hd, cfg.qkv_bias)
+        self.wk = Linear(cfg.d_model, cfg.n_kv_heads * hd, cfg.qkv_bias)
+        self.wv = Linear(cfg.d_model, cfg.n_kv_heads * hd, cfg.qkv_bias)
+        self.wo = Linear(cfg.n_heads * hd, cfg.d_model)
+
+    def init_(self, gen: torch.Generator) -> None:
+        for lin in (self.wq, self.wk, self.wv, self.wo):
+            lin.init_(gen)
+
+
+class MLP(nn.Module):
+    """SwiGLU: ``wo(silu(wg x) * wi x)``."""
+
+    def __init__(self, d_model: int, d_ff: int):
+        super().__init__()
+        self.wi = Linear(d_model, d_ff)
+        self.wg = Linear(d_model, d_ff)
+        self.wo = Linear(d_ff, d_model)
+
+    def init_(self, gen: torch.Generator) -> None:
+        for lin in (self.wi, self.wg, self.wo):
+            lin.init_(gen)
+
+
+class Embedding(nn.Module):
+    def __init__(self, vocab: int, d_model: int):
+        super().__init__()
+        self.table = nn.Parameter(torch.empty(vocab, d_model))
+
+    def init_(self, gen: torch.Generator) -> None:
+        # GPT-style 0.02 scale: keeps tied-unembedding logits O(1) at init
+        normal_(self.table, gen, scale=0.02)
+
+
+# ---------------------------------------------------------------------------
+# Functions
+# ---------------------------------------------------------------------------
+
+
+def linear(p: Linear, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p.w.to(x.dtype)
+    if hasattr(p, "b"):
+        y = y + p.b.to(x.dtype)
+    return y
+
+
+def rmsnorm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * p.scale).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+         ) -> torch.Tensor:
+    """Rotary embedding. x [B, S, H, hd]; positions [B, S] (int)."""
+    half = x.shape[-1] // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    angles = positions[..., None].float() * freq               # [B,S,half]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1.to(x.dtype), y2.to(x.dtype)], dim=-1)
+
+
+def attention_apply(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                    positions: torch.Tensor, *, causal: bool = True,
+                    window: int = 0) -> torch.Tensor:
+    """Self-attention over the whole sequence (no cache). The kernel branch
+    is taken under the reference's condition (``use_kernels``, S a multiple
+    of 128, hd a multiple of 8, causal); otherwise the plain ``_sdpa``."""
+    B, S, _ = x.shape
+    hd = cfg.hd
+    q = linear(p.wq, x).reshape(B, S, cfg.n_heads, hd)
+    k = linear(p.wk, x).reshape(B, S, cfg.n_kv_heads, hd)
+    v = linear(p.wv, x).reshape(B, S, cfg.n_kv_heads, hd)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    if cfg.use_kernels and S % 128 == 0 and hd % 8 == 0 and causal:
+        out = kops.flash_attention(q, k, v, window=window)
+    else:
+        out = _sdpa(q, k, v, causal=causal, window=window, q_offset=0)
+    return linear(p.wo, out.reshape(B, S, cfg.n_heads * hd))
+
+
+def mlp_apply(p: MLP, x: torch.Tensor) -> torch.Tensor:
+    return linear(p.wo, F.silu(linear(p.wg, x)) * linear(p.wi, x))
+
+
+def embed(p: Embedding, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    return p.table.to(dtype)[tokens]
+
+
+def unembed(p: Embedding, x: torch.Tensor) -> torch.Tensor:
+    """Tied unembedding; logits in the activation dtype."""
+    return x @ p.table.to(x.dtype).T

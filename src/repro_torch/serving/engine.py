@@ -1,0 +1,132 @@
+"""Serve engine: runs real model steps for loaded endpoints.
+
+The port of ``repro/serving/engine.py``: a per-app host weight store (fp32,
+made from the endpoint's seed at first load), the device copies of the
+loaded apps, and greedy batched decode. PyTorch runs eagerly, so there is
+no ``jit`` and no executable cache: a cold start here is the weights'
+trip to the device (plus, at an app's first load, their initialisation).
+
+The device copy is cast once at load to the activation dtype, except the
+parameters the model keeps in fp32 at use (``layers.FP32_AT_USE``: the
+``rmsnorm`` scales and the RG-LRU ``lam``). Casting every other parameter
+at use, as the reference does, gives the same numbers; casting once avoids
+re-reading the fp32 weights (11.6 GB for RecurrentGemma-2B) on every
+decode step, and matches the registry's cost model, which counts
+``2 * n_params`` bytes per image.
+"""
+from __future__ import annotations
+
+import copy
+import time
+from typing import Dict, Tuple
+
+import torch
+from torch import nn
+
+from ..configs.base import ModelConfig
+from ..device import resolve_device
+from ..models import Model, build
+from ..models.layers import FP32_AT_USE, compute_dtype
+from .registry import Registry
+
+__all__ = ["ServeEngine"]
+
+
+def _to_host(params: nn.Module, pin: bool) -> nn.Module:
+    """Move ``params`` to host memory in place (pinned when ``pin``, so the
+    reloads copy at the bus's full rate)."""
+    with torch.no_grad():
+        for p in params.parameters():
+            if p.device.type != "cpu":
+                host = torch.empty(p.shape, dtype=p.dtype, pin_memory=pin)
+                p.data = host.copy_(p.data)
+    return params
+
+
+def _placed(params: nn.Module, device: torch.device,
+            dtype: torch.dtype) -> nn.Module:
+    """A copy of ``params`` on ``device``, each parameter cast to ``dtype``
+    except those named in ``FP32_AT_USE``; the host copy is untouched."""
+    memo = {}
+    for name, p in params.named_parameters():
+        t = p.detach().to(device, non_blocking=True)
+        if name.rpartition(".")[2] not in FP32_AT_USE:
+            t = t.to(dtype)
+        memo[id(p)] = nn.Parameter(t, requires_grad=False)
+    return copy.deepcopy(params, memo)
+
+
+class ServeEngine:
+    def __init__(self, registry: Registry, device=None):
+        self.registry = registry
+        self.device = resolve_device(device)
+        self._models: Dict[str, Model] = {}          # arch key -> Model
+        self._weights: Dict[str, nn.Module] = {}     # app id -> fp32 (host)
+        self._loaded: Dict[str, nn.Module] = {}      # app id -> device copy
+        #: seconds of the last ``generate``'s prefill and decode phases
+        self.last_times: Dict[str, float] = {}
+
+    @staticmethod
+    def _arch_key(cfg: ModelConfig) -> str:
+        return f"{cfg.arch_id}/{cfg.n_layers}x{cfg.d_model}x{cfg.vocab}"
+
+    def _model(self, cfg: ModelConfig) -> Model:
+        k = self._arch_key(cfg)
+        if k not in self._models:
+            self._models[k] = build(cfg)
+        return self._models[k]
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- lifecycle (called by the warm pool's driver) -------------------------
+
+    def load(self, app_id: str) -> float:
+        """Put the app's weights on the device (made from the endpoint's
+        seed into the host store first, at its first load); returns the
+        wall seconds taken."""
+        t0 = time.perf_counter()
+        ep = self.registry.get(app_id)
+        if app_id not in self._weights:
+            params = self._model(ep.cfg).init(ep.seed, device=self.device)
+            self._weights[app_id] = _to_host(
+                params, pin=self.device.type == "cuda")
+        self._loaded[app_id] = _placed(self._weights[app_id], self.device,
+                                       compute_dtype(ep.cfg))
+        self._sync()
+        return time.perf_counter() - t0
+
+    def unload(self, app_id: str) -> None:
+        self._loaded.pop(app_id, None)
+
+    def is_loaded(self, app_id: str) -> bool:
+        return app_id in self._loaded
+
+    # -- inference -------------------------------------------------------------
+
+    def generate(self, app_id: str, tokens, max_new: int = 8,
+                 max_len: int = 128) -> Tuple[torch.Tensor, float]:
+        """Greedy generation: one prefill, then ``max_new - 1`` decode
+        steps. Returns (tokens [B, max_new], wall seconds); the seconds of
+        each phase are left in ``last_times``.
+
+        Requires the app to be loaded (the warm pool guarantees that)."""
+        t0 = time.perf_counter()
+        ep = self.registry.get(app_id)
+        params = self._loaded[app_id]
+        model = self._model(ep.cfg)
+        tokens = torch.as_tensor(tokens, device=self.device)
+        with torch.inference_mode():
+            logits, cache = model.prefill(params, tokens, max_len)
+            outs = [torch.argmax(logits, dim=-1)[:, 0]]
+            self._sync()
+            t1 = time.perf_counter()
+            for _ in range(max_new - 1):
+                logits, cache = model.decode_step(params, outs[-1], cache)
+                outs.append(torch.argmax(logits, dim=-1))
+            result = torch.stack(outs, dim=1)
+            self._sync()
+        t2 = time.perf_counter()
+        self.last_times = {"prefill_s": t1 - t0, "decode_s": t2 - t1}
+        return result, t2 - t0

@@ -22,6 +22,8 @@ def test_imports_with_jax_blocked():
         "import repro_torch, repro_torch.interop\n"
         "import repro_torch.core.experiment, repro_torch.core.metrics\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.build\n"
+        "import repro_torch.configs, repro_torch.models, repro_torch.serving\n"
+        "import repro_torch.serving.engine, repro_torch.serving.warmpool\n"
         "assert not [m for m in sys.modules if m.startswith('jax')"
         " and sys.modules[m] is not None]\n"
         "print('ok')\n")
@@ -57,3 +59,12 @@ def test_resolve_device(monkeypatch):
         resolve_device(None)
     with pytest.raises(RuntimeError):
         resolve_device("cuda:0")
+
+
+def test_serve_engine_asked_for_cuda_without_a_card_raises(monkeypatch):
+    from repro_torch.serving import Registry, ServeEngine
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        ServeEngine(Registry())
+    with pytest.raises(RuntimeError):
+        ServeEngine(Registry(), device="cuda")

@@ -1,0 +1,151 @@
+"""The port's local-window attention (``repro_torch.kernels.flash_attention``)
+against the TPU kernel it replaces and the reference's plain attention.
+
+  * on the CPU the wrapper runs the plain version (the port of
+    ``repro.models.layers._sdpa``); at ``tests/test_kernels.py``'s shapes
+    (MHA, GQA, MQA; D 32-128; f32 and bf16) it must agree with
+    ``repro.kernels.ref.attention_ref`` and with
+    ``repro.kernels.ops.flash_attention`` (the Pallas kernel in interpret
+    mode) within that file's tolerances: 2e-5 for f32 (the sums run in
+    another order), 2e-2 for bf16 (the output is rounded to bf16 once, and
+    a sum that lands near a rounding edge can go either way);
+  * the local windows 32, 64 and 128, in f32, within 2e-5;
+  * S=640 against ``attention_ref`` only: the Pallas kernel sets
+    ``bk = min(512, S)`` and ``nk = S // bk`` and so never visits keys
+    512-639 at S=640 (a fault of the reference recorded in ROADMAP);
+  * the wrapper's argument checks raise before any launch;
+  * on a CUDA card (test marked ``gpu``, skipped elsewhere) the CUDA
+    kernel against the plain version, at small shapes and at the serving
+    path's head dim 256.
+"""
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import ops
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@pytest.fixture(scope="module")
+def ref():
+    import jax
+    import jax.experimental
+    with pytest.MonkeyPatch.context() as mp:
+        if not hasattr(jax.experimental, "enable_x64"):
+            mp.setattr(jax.experimental, "enable_x64", jax.enable_x64,
+                       raising=False)
+        from repro.kernels import ops as jops
+        from repro.kernels import ref as jref
+        yield SimpleNamespace(ops=jops, ref=jref, jnp=jax.numpy)
+
+
+def _inputs(seed, B, S, Hq, Hkv, D):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, S, Hq, D)).astype(np.float32),
+            rng.normal(size=(B, S, Hkv, D)).astype(np.float32),
+            rng.normal(size=(B, S, Hkv, D)).astype(np.float32))
+
+
+def _reference(ref, arrays, dtype, window, pallas=True):
+    """(attention_ref, Pallas kernel in interpret mode) in [B,S,H,D]."""
+    jnp = ref.jnp
+    q, k, v = (jnp.asarray(a, getattr(jnp, dtype)) for a in arrays)
+    bhsd = lambda x: jnp.moveaxis(x, 1, 2)
+    want = bhsd(ref.ref.attention_ref(bhsd(q), bhsd(k), bhsd(v), causal=True,
+                                      window=window))
+    outs = [np.asarray(want, np.float32)]
+    if pallas:
+        got = ref.ops.flash_attention(q, k, v, causal=True, window=window,
+                                      bq=64, bk=64)
+        outs.append(np.asarray(got, np.float32))
+    return outs
+
+
+def _port(arrays, dtype, window):
+    q, k, v = (torch.from_numpy(a).to(TORCH_DTYPE[dtype]) for a in arrays)
+    out = ops.flash_attention(q, k, v, window=window)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    return out.float().numpy()
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D", [
+    (1, 128, 2, 2, 32),      # MHA
+    (2, 256, 4, 2, 64),      # GQA
+    (1, 512, 8, 1, 64),      # MQA
+    (2, 128, 4, 4, 128),     # wide head
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_attention_matches_reference(ref, B, S, Hq, Hkv, D, dtype):
+    arrays = _inputs(1, B, S, Hq, Hkv, D)
+    got = _port(arrays, dtype, 0)
+    for want in _reference(ref, arrays, dtype, 0):
+        np.testing.assert_allclose(got, want, atol=TOL[dtype],
+                                   rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("window", [32, 64, 128])
+def test_plain_attention_window(ref, window):
+    arrays = _inputs(2, 2, 256, 4, 2, 64)
+    got = _port(arrays, "float32", window)
+    for want in _reference(ref, arrays, "float32", window):
+        np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
+
+
+def test_plain_attention_at_640_rows(ref):
+    """S=640 is a multiple of 128 (the model takes the kernel branch) but
+    not of the Pallas kernel's 512-key block: only ``attention_ref`` is the
+    target here."""
+    arrays = _inputs(3, 1, 640, 4, 1, 32)
+    got = _port(arrays, "float32", 128)
+    (want,) = _reference(ref, arrays, "float32", 128, pallas=False)
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
+
+
+def test_check_cuda_args_rejects_what_the_kernel_does_not_take():
+    q = torch.zeros(1, 128, 4, 32)
+    kv = torch.zeros(1, 128, 2, 32)
+    FA._check_cuda_args(q, kv, kv, 16)                  # well-formed
+    bad = [
+        (q, torch.zeros(1, 128, 3, 32), torch.zeros(1, 128, 3, 32), 0),
+        (q, kv, torch.zeros(1, 64, 2, 32), 0),
+        (torch.zeros(1, 128, 4, 512), torch.zeros(1, 128, 2, 512),
+         torch.zeros(1, 128, 2, 512), 0),
+        (q.double(), kv.double(), kv.double(), 0),
+        (q, kv.to(torch.bfloat16), kv, 0),
+        (q.transpose(2, 3).contiguous().transpose(2, 3), kv, kv, 0),
+        (q, kv, kv, -1),
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            FA._check_cuda_args(*args)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_matches_plain_version():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = [((2, 256, 4, 2, 64), "float32", 0),
+             ((2, 256, 4, 2, 64), "float32", 32),
+             ((1, 640, 4, 1, 32), "float32", 128),
+             ((1, 200, 2, 2, 40), "float32", 0),
+             ((2, 256, 4, 2, 64), "bfloat16", 32),
+             ((1, 200, 2, 2, 36), "bfloat16", 0),    # 2-byte staging
+             ((1, 512, 8, 1, 256), "bfloat16", 128),
+             ((2, 384, 10, 1, 256), "bfloat16", 0)]
+    for shape, dtype, window in cases:
+        q, k, v = (torch.from_numpy(a).to(dev, TORCH_DTYPE[dtype])
+                   for a in _inputs(4, *shape))
+        before = FA.LAUNCHES
+        got = FA.flash_attention(q, k, v, window=window)
+        want = FA.flash_attention_plain(q, k, v, window=window)
+        torch.cuda.synchronize()
+        assert FA.LAUNCHES == before + 1
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])

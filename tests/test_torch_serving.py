@@ -1,0 +1,256 @@
+"""The port's serving slice (``repro_torch.serving``) against the reference's.
+
+  * ``WarmPool``: the warm-pool sequences of ``tests/test_serving.py`` run
+    on the port's pool and on the reference's side by side; the returned
+    values, ``PoolStats`` and every ``AppState`` must be equal (pure
+    Python: exact), and so must the ``state_dict`` and its round trip;
+  * ``ServeEngine``: on a reduced hybrid endpoint whose host weight store
+    is filled from the reference engine's ``_weights`` through interop,
+    ``generate`` gives the same tokens as the reference's ``ServeEngine``
+    (f32 on the CPU, S=128 so both take their kernel branches); ``load``,
+    ``unload`` and ``is_loaded`` behave as the reference's do.
+"""
+import dataclasses
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import configs as port_configs
+from repro_torch.core import experiment as port_experiment
+from repro_torch.core import policy as port_policy
+from repro_torch.interop import model_params_from_numpy
+from repro_torch.serving import engine as port_engine
+from repro_torch.serving import registry as port_registry
+from repro_torch.serving import warmpool as port_warmpool
+
+MIN = 60.0
+
+
+@pytest.fixture(scope="module")
+def ref():
+    import jax
+    import jax.experimental
+    with pytest.MonkeyPatch.context() as mp:
+        if not hasattr(jax.experimental, "enable_x64"):
+            mp.setattr(jax.experimental, "enable_x64", jax.enable_x64,
+                       raising=False)
+        from repro import configs
+        from repro.core import experiment, policy
+        from repro.serving import engine, registry, warmpool
+        yield SimpleNamespace(jax=jax, jnp=jax.numpy, configs=configs,
+                              experiment=experiment, policy=policy,
+                              engine=engine, registry=registry,
+                              warmpool=warmpool)
+
+
+def _port():
+    return SimpleNamespace(configs=port_configs, experiment=port_experiment,
+                           policy=port_policy, engine=port_engine,
+                           registry=port_registry, warmpool=port_warmpool)
+
+
+def _registry(m, n=4, weight_bytes=int(1e9)):
+    reg = m.registry.Registry()
+    cfg = m.configs.reduced(m.configs.get("smollm-135m"))
+    for i in range(n):
+        reg.register(m.registry.ModelEndpoint(
+            app_id=f"app-{i:06d}", cfg=cfg, seed=i, weight_bytes=weight_bytes))
+    return reg
+
+
+# -- the warm-pool sequences of tests/test_serving.py --------------------------
+
+
+def _fixed_keepalive(m):
+    pool = m.warmpool.WarmPool(_registry(m),
+                               m.policy.FixedKeepAlivePolicy(10.0))
+    seen = [pool.on_request("app-000000", 0.0)]
+    pool.on_request_end("app-000000", 1.0)
+    seen.append(pool.on_request("app-000000", 1.0 + 5 * MIN))
+    pool.on_request_end("app-000000", 1.0 + 5 * MIN)
+    seen.append(pool.on_request("app-000000", 1.0 + 5 * MIN + 11 * MIN))
+    return pool, seen
+
+
+def _prewarm_hits(m):
+    pool = m.warmpool.WarmPool(_registry(m),
+                               m.experiment.HybridSpec(use_arima=False))
+    t, seen = 0.0, []
+    for _ in range(40):
+        seen.append(pool.on_request("app-000000", t))
+        pool.on_request_end("app-000000", t + 1.0)
+        t += 30 * MIN
+    seen.append(dataclasses.asdict(pool.finalize(t)))
+    return pool, seen
+
+
+def _budget_eviction(m):
+    pool = m.warmpool.WarmPool(_registry(m), m.experiment.FixedSpec(240.0),
+                               budget_bytes=2.5e9)
+    seen = []
+    for i, t in [(0, 0.0), (1, 60.0), (2, 120.0)]:
+        seen.append(pool.on_request(f"app-{i:06d}", t))
+        pool.on_request_end(f"app-{i:06d}", t + 1)
+    return pool, seen
+
+
+def _tick_expires_before_prewarming(m):
+    pool = m.warmpool.WarmPool(_registry(m, n=2), m.experiment.FixedSpec(10.0),
+                               budget_bytes=1e9)
+    st_b = pool._st("app-000001")
+    seen = [pool.on_request("app-000000", 0.0)]
+    pool.on_request_end("app-000000", 0.0)
+    pool.state["app-000000"].unload_at = 50.0
+    st_b.prewarm_at = 80.0
+    pool.tick(100.0)
+    return pool, seen
+
+
+def _tick_prewarms_in_time_order(m):
+    pool = m.warmpool.WarmPool(_registry(m, n=2), m.experiment.FixedSpec(10.0),
+                               budget_bytes=1e9)
+    st_b = pool._st("app-000001")
+    st_a = pool._st("app-000000")
+    st_b.prewarm_at = 20.0
+    st_a.prewarm_at = 10.0
+    pool.tick(30.0)
+    return pool, []
+
+
+def _pinned_never_evicted(m):
+    pool = m.warmpool.WarmPool(_registry(m, n=2), m.experiment.FixedSpec(10.0),
+                               budget_bytes=1.5e9)
+    seen = [pool.on_request("app-000000", 0.0)]
+    pool._st("app-000001").prewarm_at = 10.0
+    pool.tick(20.0)
+    seen.append(dataclasses.asdict(pool.state["app-000000"]))
+    pool.on_request_end("app-000000", 30.0)
+    return pool, seen
+
+
+def _state_roundtrip(m):
+    reg = _registry(m)
+    pool = m.warmpool.WarmPool(reg, m.experiment.HybridSpec(use_arima=False))
+    t = 0.0
+    for _ in range(20):
+        pool.on_request("app-000000", t)
+        pool.on_request_end("app-000000", t + 1.0)
+        t += 15 * MIN
+    sd = pool.state_dict()
+    pool2 = m.warmpool.WarmPool(reg, m.experiment.HybridSpec(use_arima=False))
+    pool2.load_state_dict(sd)
+    seen = [sd, pool.on_request("app-000000", t),
+            pool2.on_request("app-000000", t)]
+    pool2.on_request_end("app-000000", t + 1.0)
+    seen.append(pool2.state_dict())
+    return pool2, seen
+
+
+SEQUENCES = {f.__name__.lstrip("_"): f for f in (
+    _fixed_keepalive, _prewarm_hits, _budget_eviction,
+    _tick_expires_before_prewarming, _tick_prewarms_in_time_order,
+    _pinned_never_evicted, _state_roundtrip)}
+
+
+@pytest.mark.parametrize("name", list(SEQUENCES))
+def test_warmpool_equals_reference(ref, name):
+    want_pool, want_seen = SEQUENCES[name](ref)
+    got_pool, got_seen = SEQUENCES[name](_port())
+    assert got_seen == want_seen
+    assert dataclasses.asdict(got_pool.stats) == \
+        dataclasses.asdict(want_pool.stats)
+    assert set(got_pool.state) == set(want_pool.state)
+    for app, st in want_pool.state.items():
+        assert dataclasses.asdict(got_pool.state[app]) == \
+            dataclasses.asdict(st), app
+    assert got_pool._used == want_pool._used
+
+
+def test_warmpool_single_image_over_budget_raises(ref):
+    for m in (ref, _port()):
+        with pytest.raises(ValueError, match="larger than the budget"):
+            m.warmpool.WarmPool(_registry(m, n=2, weight_bytes=int(4e9)),
+                                m.experiment.FixedSpec(10.0), budget_bytes=2e9)
+
+
+def test_endpoint_cost_model_equals_reference(ref):
+    """Bytes derived from the config (2 x n_params) and the cold-start
+    estimate, for the served model at full width."""
+    for cached in (False, True):
+        want = ref.registry.ModelEndpoint(
+            "a", ref.configs.get("recurrentgemma-2b"))
+        got = port_registry.ModelEndpoint(
+            "a", port_configs.get("recurrentgemma-2b"))
+        assert got.weight_bytes == want.weight_bytes
+        assert got.cold_start_seconds(cached) == \
+            want.cold_start_seconds(cached)
+
+
+# -- the engine ----------------------------------------------------------------
+
+
+def test_engine_generates_the_reference_tokens(ref):
+    S, max_new, app = 128, 6, "app-000000"
+    jcfg = ref.configs.reduced(ref.configs.get("recurrentgemma-2b")).with_(
+        n_layers=5, use_kernels=True)
+    cfg = port_configs.reduced(port_configs.get("recurrentgemma-2b")).with_(
+        n_layers=5, use_kernels=True)
+    jreg, reg = ref.registry.Registry(), port_registry.Registry()
+    jreg.register(ref.registry.ModelEndpoint(app, jcfg, seed=7))
+    reg.register(port_registry.ModelEndpoint(app, cfg, seed=7))
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab, (2, S))
+
+    jeng = ref.engine.ServeEngine(jreg)
+    jeng.load(app)
+    want, _ = jeng.generate(app, ref.jnp.asarray(tokens, ref.jnp.int32),
+                            max_new=max_new, max_len=S + max_new)
+
+    eng = port_engine.ServeEngine(reg, device="cpu")
+    assert not eng.is_loaded(app)
+    eng._weights[app] = model_params_from_numpy(cfg, jeng._weights[app],
+                                                device="cpu")
+    assert eng.load(app) > 0.0 and eng.is_loaded(app)
+    got, seconds = eng.generate(app, torch.from_numpy(tokens),
+                                max_new=max_new, max_len=S + max_new)
+    assert seconds > 0.0 and set(eng.last_times) == {"prefill_s",
+                                                     "decode_s"}
+    assert got.shape == (2, max_new)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    eng.unload(app)
+    assert not eng.is_loaded(app)
+
+
+def test_engine_load_initialises_once_and_reloads_from_the_host_store():
+    app = "app-000000"
+    cfg = port_configs.reduced(port_configs.get("recurrentgemma-2b")).with_(
+        n_layers=3)
+    reg = port_registry.Registry()
+    reg.register(port_registry.ModelEndpoint(app, cfg, seed=1))
+    eng = port_engine.ServeEngine(reg, device="cpu")
+    eng.load(app)
+    host = eng._weights[app]
+    toks = torch.zeros((1, 8), dtype=torch.long)
+    first, _ = eng.generate(app, toks, max_new=3)
+    eng.unload(app)
+    eng.load(app)
+    assert eng._weights[app] is host
+    again, _ = eng.generate(app, toks, max_new=3)
+    assert torch.equal(first, again)
+
+
+def test_engine_casts_once_at_load_and_keeps_norms_and_lam_fp32():
+    app = "app-000000"
+    cfg = port_configs.reduced(port_configs.get("recurrentgemma-2b")).with_(
+        n_layers=3, dtype="bfloat16")
+    reg = port_registry.Registry()
+    reg.register(port_registry.ModelEndpoint(app, cfg, seed=2))
+    eng = port_engine.ServeEngine(reg, device="cpu")
+    eng.load(app)
+    for name, p in eng._loaded[app].named_parameters():
+        leaf = name.rpartition(".")[2]
+        want = torch.float32 if leaf in ("scale", "lam") else torch.bfloat16
+        assert p.dtype == want, name
+    assert all(p.dtype == torch.float32
+               for p in eng._weights[app].parameters())
