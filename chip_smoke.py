@@ -18,7 +18,10 @@ port's two main paths:
     calls (cold, warm, and a reload after the keep-alive ran out); every
     prefill must launch the attention kernel 8 times and the RG-LRU scan
     18 times, and the kernel path's logits must agree with the plain
-    branches (``use_kernels=False``).
+    branches (``use_kernels=False``) in bf16 and be no less accurate
+    against them in f32;
+  * serving Mamba-2-2.7B the same way (phase ``serve_mamba2``): every
+    prefill must launch the SSD scan kernel 64 times, once per layer.
 
 Then it times each kernel at its path's shapes beside its bound, its plain
 version and, where one exists, the one PyTorch call computing the same
@@ -60,15 +63,48 @@ ATTN_SHAPE = dict(B=SERVE_BATCH, S=SERVE_SEQ, Hq=10, Hkv=1, D=256, W=2048)
 RGLRU_SHAPE = (SERVE_BATCH, SERVE_SEQ, 2560)
 ATTN_PER_PREFILL, RGLRU_PER_PREFILL = 8, 18
 # (minute, endpoint): both cold first, both warm 30 minutes on, and the
-# first again after its 240-minute standard keep-alive ran out (a reload)
-SERVE_STREAM = ((0.0, "rg2b-0"), (1.0, "rg2b-1"), (30.0, "rg2b-0"),
-                (31.0, "rg2b-1"), (400.0, "rg2b-0"))
+# first again after its 240-minute standard keep-alive ran out (a reload).
 # Kernel path vs plain branches (use_kernels=False) on the same prompt and
 # weights, bf16 through 26 layers: the attention and the scan round their
 # f32 results to bf16 where the plain versions do too, but a value near a
 # rounding edge can land one ulp apart and the difference carries on; the
 # last-token logits must agree within 5% of their largest magnitude.
 SERVE_LOGITS_REL_TOL = 5e-2
+# (minute, endpoint index) of both serving phases
+SERVE_STREAM = ((0.0, 0), (1.0, 1), (30.0, 0), (31.0, 1), (400.0, 0))
+
+# The Mamba-2 serving path: mamba2-2.7b's SSD scan over the same prompts
+# (80 heads of 64, state 128, chunk 256), one launch per layer.
+SSD_SHAPE = dict(b=SERVE_BATCH, l=SERVE_SEQ, h=80, p=64, n=128, chunk=256)
+SSD_PER_PREFILL = 64
+# SSD kernel vs its plain version on the card, elementwise
+#   |got - want| <= atol * max(1, max |want|) + rtol * |want|.
+# f32: the reference's kernel tolerances (tests/test_kernels.py: atol 5e-5,
+# rtol 5e-4), whose cases have outputs of order 1. At the path's shape y
+# reaches ~300 and each output sums ~33k f32 products, in another order in
+# each form, so atol scales with the largest |want|: held unscaled, the
+# first full run failed there (7,293 of 41.9M elements, up to 1.24e-3 at
+# |y| <= 295), where the float64 per-token recurrence, an oracle that
+# shares no code with either form, now tells kernel and plain version
+# apart. bf16 x, B and C: the kernel rounds y to bf16 (at most 2^-8 of
+# |y|, half a unit in the last place) where the plain version keeps f32,
+# so rtol 8e-3; before that rounding the tensor cores' two-half split of
+# the f32 operands loses about 2^-17 a term, far inside atol 1e-3 (of the
+# largest |want|). The final state is f32 and is held to the f32
+# tolerance.
+SSD_F32_TOL = (5e-5, 5e-4)
+SSD_BF16_Y_TOL = (1e-3, 8e-3)
+# Mamba-2 kernel path vs plain branches through 64 bf16 layers: as for the
+# hybrid model, rounding flips carry through the layers; the last-token
+# logits must agree within 5% of their largest magnitude.
+SERVE_MAMBA2_LOGITS_REL_TOL = 5e-2
+# Both serving phases also run the plain branches in f32 on f32 copies of
+# the same weights. The kernel path's bf16 logits must lie no further from
+# them than 1.5x as far as the plain branches' bf16 logits do: the kernels
+# compute in f32 and round where the plain versions round, so they may
+# move the bf16 result along another path of rounding flips but must not
+# make it less accurate.
+SERVE_F32_DIST_FACTOR = 1.5
 
 
 def emit(phase: str, **fields) -> None:
@@ -300,29 +336,122 @@ def rglru_parity(device):
     return worst
 
 
+def ssd_close(got, want, tol, what: str) -> float:
+    """Raise unless |got - want| <= atol * max(1, max |want|) + rtol * |want|
+    elementwise (tol = (atol, rtol)); returns the largest |got - want|."""
+    import torch
+    got, want = got.double(), want.double()
+    scale = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got, want, atol=tol[0] * scale, rtol=tol[1],
+                               msg=lambda m: f"{what}: {m}")
+    return float((got - want).abs().max())
+
+
+def ssd_recurrence_f64(x, dt, A, B, C, S0):
+    """y_t = C_t . S_t with S_t = exp(dt_t A) S_{t-1} + dt_t B_t x_t^T, token
+    by token in float64 on the card: an oracle that shares no code with
+    either chunked form."""
+    import torch
+    x, dt, A, B, C = (t.double() for t in (x, dt, A, B, C))
+    b, l, h, p = x.shape
+    S = (torch.zeros((b, h, B.shape[-1], p), dtype=torch.float64,
+                     device=x.device) if S0 is None else S0.double())
+    y = torch.empty((b, l, h, p), dtype=torch.float64, device=x.device)
+    for t in range(l):
+        S = S * torch.exp(dt[:, t] * A)[..., None, None] + \
+            B[:, t, None, :, None] * (dt[:, t, :, None] * x[:, t])[:, :, None]
+        y[:, t] = torch.einsum("bn,bhnp->bhp", C[:, t], S)
+    return y, S
+
+
+def ssd_parity(device):
+    """The SSD kernel against its plain version: the serving path's shape
+    (x, B and C strided views, as the model hands them over) in bf16 and
+    f32, and lengths that are not a multiple of the chunk (384 and 640 at
+    chunk 256, where the TPU kernel leaves NaN, and 1), with and without an
+    initial state; the f32 cases also against the float64 recurrence.
+    Tolerances: SSD_F32_TOL, SSD_BF16_Y_TOL. Returns the largest absolute
+    difference of y from the plain version seen."""
+    import torch
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.kernels.timing import ssd_inputs
+
+    s = SSD_SHAPE
+    path = (s["b"], s["l"], s["h"], s["p"], s["n"])
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(path, bf16, False, True), (path, f32, False, True),
+             (path, bf16, True, False),
+             ((1, 384, 8, 64, 128), f32, True, False),
+             ((2, 384, 8, 64, 128), bf16, False, False),
+             ((1, 640, 8, 64, 128), f32, False, False),
+             ((2, 640, 8, 64, 128), bf16, True, False),
+             ((2, 1, 80, 64, 128), f32, True, False),
+             ((2, 1, 80, 64, 128), bf16, False, True)]
+    worst = 0.0
+    for k, (shape, dtype, with_state, model_like) in enumerate(cases):
+        b, l, h, p, n = shape
+        x, dt, A, B, C = ssd_inputs(*shape, dtype, device, 40 + k,
+                                    model_like)
+        S0 = None
+        if with_state:
+            g = torch.Generator(device=device).manual_seed(60 + k)
+            S0 = torch.randn(b, h, n, p, generator=g, device=device)
+        y, fin = SS.ssd_scan(x, dt, A, B, C, chunk=s["chunk"],
+                             initial_state=S0)
+        want_y, want_fin = SS.ssd_scan_plain(x, dt, A, B, C, s["chunk"], S0)
+        torch.cuda.synchronize()
+        if y.dtype != dtype or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"ssd_scan: y {y.dtype} not finite or not "
+                                 f"in {dtype} at {shape}")
+        y_tol = SSD_F32_TOL if dtype == f32 else SSD_BF16_Y_TOL
+        err = ssd_close(y, want_y, y_tol, f"y at {shape} {dtype}")
+        state_err = ssd_close(fin, want_fin, SSD_F32_TOL,
+                              f"final state at {shape} {dtype}")
+        oracle = {}
+        if dtype == f32:
+            o_y, o_fin = ssd_recurrence_f64(x, dt, A, B, C, S0)
+            oracle = dict(
+                kernel_vs_f64=ssd_close(y, o_y, y_tol, "kernel vs f64"),
+                plain_vs_f64=ssd_close(want_y, o_y, y_tol, "plain vs f64"),
+                kernel_state_vs_f64=ssd_close(fin, o_fin, SSD_F32_TOL,
+                                              "kernel state vs f64"))
+        worst = max(worst, err)
+        emit("ssd_parity", shape=list(shape), chunk=s["chunk"],
+             dtype=str(dtype), initial_state=with_state,
+             model_like=model_like, y_tol=list(y_tol), max_abs_err=err,
+             max_abs_y=float(want_y.abs().max()),
+             median_abs_y=float(want_y.abs().median()),
+             state_max_abs_err=state_err,
+             max_abs_state=float(want_fin.abs().max()), **oracle)
+    return worst
+
+
 # ---------------------------------------------------------------------------
-# Serving: RecurrentGemma-2B behind the warm pool
+# Serving: full-width models behind the warm pool
 # ---------------------------------------------------------------------------
 
 
-def serve(device):
-    """Two full-width RecurrentGemma-2B endpoints (seeds 0 and 1) behind a
-    WarmPool(HybridSpec(use_arima=False)); the pool's residency decisions
-    are mirrored onto the engine after every pool call. Returns the kernel
-    launches of the stream."""
+def serve(device, phase, arch, prefix, kernels, logits_rel_tol):
+    """Two full-width endpoints of ``arch`` (seeds 0 and 1, ``use_kernels``,
+    bf16) behind a WarmPool(HybridSpec(use_arima=False)), driven by
+    SERVE_STREAM; the pool's residency decisions are mirrored onto the
+    engine after every pool call. ``kernels`` maps each kernel module of
+    the path to the launches one prefill must make; the counts are set to
+    0 just before the stream and read just after. The kernel path's logits
+    are held to the plain branches' in bf16 (``logits_rel_tol``) and, on
+    f32 copies of the same weights, in f32 (SERVE_F32_DIST_FACTOR). Returns
+    the stream's launches by kernel name and the number of requests."""
     import torch
     from repro_torch.configs import get
     from repro_torch.core.experiment import HybridSpec
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import rglru_scan as R
     from repro_torch.models import build
     from repro_torch.serving import (ModelEndpoint, Registry, ServeEngine,
                                      WarmPool)
 
-    cfg = get("recurrentgemma-2b").with_(use_kernels=True)
+    cfg = get(arch).with_(use_kernels=True)
     reg = Registry()
     for i in range(2):
-        reg.register(ModelEndpoint(f"rg2b-{i}", cfg, seed=i))
+        reg.register(ModelEndpoint(f"{prefix}-{i}", cfg, seed=i))
     engine = ServeEngine(reg, device=device)
     pool = WarmPool(reg, HybridSpec(use_arima=False))
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
@@ -339,25 +468,28 @@ def serve(device):
             elif not resident and engine.is_loaded(ep.app_id):
                 engine.unload(ep.app_id)
 
+    def counts():
+        return {name: mod.LAUNCHES for name, (mod, _) in kernels.items()}
+
     torch.cuda.reset_peak_memory_stats()
-    FA.LAUNCHES = R.LAUNCHES = 0          # count the serving path's launches
+    for mod, _ in kernels.values():
+        mod.LAUNCHES = 0                  # count the serving path's launches
+    want = {name: n for name, (_, n) in kernels.items()}
     requests = []
-    for minute, app in SERVE_STREAM:
-        now = minute * 60.0
+    for minute, i in SERVE_STREAM:
+        app, now = f"{prefix}-{i}", minute * 60.0
         n_loads = len(loads)
         pool.tick(now)                    # expiries and pre-warms first
         mirror()
         cold, _ = pool.on_request(app, now)
         mirror()
         load_s = sum(s for a, s, _ in loads[n_loads:] if a == app)
-        fa0, r0 = FA.LAUNCHES, R.LAUNCHES
+        before = counts()
         out, gen_s = engine.generate(app, tokens, max_new=SERVE_NEW,
                                      max_len=SERVE_SEQ + SERVE_NEW)
-        fa, r = FA.LAUNCHES - fa0, R.LAUNCHES - r0
-        if (fa, r) != (ATTN_PER_PREFILL, RGLRU_PER_PREFILL):
-            raise AssertionError(f"a prefill launched {fa} attention and {r} "
-                                 f"scan kernels, not {ATTN_PER_PREFILL} and "
-                                 f"{RGLRU_PER_PREFILL}")
+        made = {k: v - before[k] for k, v in counts().items()}
+        if made != want:
+            raise AssertionError(f"a prefill launched {made}, not {want}")
         if tuple(out.shape) != (SERVE_BATCH, SERVE_NEW) or \
                 not bool(((out >= 0) & (out < cfg.vocab)).all()):
             raise AssertionError(f"bad tokens {tuple(out.shape)}")
@@ -366,9 +498,9 @@ def serve(device):
         requests.append(dict(minute=minute, app=app, cold=cold,
                              load_s=load_s, generate_s=gen_s,
                              latency_s=load_s + gen_s, **engine.last_times,
-                             attention_launches=fa, rglru_launches=r))
-        emit("serve_request", **requests[-1])
-    launches = {"flash_attention": FA.LAUNCHES, "rglru_scan": R.LAUNCHES}
+                             launches=made))
+        emit(f"{phase}_request", **requests[-1])
+    launches = counts()
     peak = torch.cuda.max_memory_allocated()
     if min(launches.values()) <= 0:
         raise AssertionError(f"the serving path launched {launches}")
@@ -383,25 +515,42 @@ def serve(device):
         raise AssertionError("the stream needs a cold and a warm request")
 
     # the same prompt through the plain branches, on the same weights
-    app = SERVE_STREAM[-1][1]
+    app = f"{prefix}-{SERVE_STREAM[-1][1]}"
     params = engine._loaded[app]
     with torch.inference_mode():
         got, _ = build(cfg).prefill(params, tokens)
-        want, _ = build(cfg.with_(use_kernels=False)).prefill(params, tokens)
-    got, want = got.float(), want.float()
-    diff = float((got - want).abs().max())
-    scale = float(want.abs().max())
-    if not (torch.isfinite(got).all() and diff <= SERVE_LOGITS_REL_TOL * scale):
+        plain, _ = build(cfg.with_(use_kernels=False)).prefill(params,
+                                                               tokens)
+    got, plain = got.float(), plain.float()
+    diff = float((got - plain).abs().max())
+    scale = float(plain.abs().max())
+    if not (torch.isfinite(got).all() and diff <= logits_rel_tol * scale):
         raise AssertionError(f"kernel-path logits differ from the plain "
                              f"branches by {diff} (largest logit {scale})")
-    same_argmax = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    same_argmax = float((got.argmax(-1) == plain.argmax(-1)).float().mean())
+    # the plain branches in f32, on f32 copies of the same weights
+    from repro_torch.serving.engine import _placed
+    params32 = _placed(engine._weights[app], device, torch.float32)
+    with torch.inference_mode():
+        ref32, _ = build(cfg.with_(use_kernels=False, dtype="float32")
+                         ).prefill(params32, tokens)
+    del params32
+    ref32 = ref32.float()
+    vs_f32 = {"kernel_bf16": float((got - ref32).abs().max()),
+              "plain_bf16": float((plain - ref32).abs().max())}
+    if not vs_f32["kernel_bf16"] <= \
+            SERVE_F32_DIST_FACTOR * vs_f32["plain_bf16"]:
+        raise AssertionError(f"kernel-path logits lie {vs_f32['kernel_bf16']}"
+                             f" from the f32 plain branches', more than "
+                             f"{SERVE_F32_DIST_FACTOR} x the plain bf16 "
+                             f"branches' {vs_f32['plain_bf16']}")
 
     warm_prefill = [q["prefill_s"] for q in warms]
     warm_decode = [q["decode_s"] for q in warms]
     profile = serve_profile(build(cfg), params, tokens,
                             prefill_s=min(warm_prefill),
                             decode_step_s=min(warm_decode) / (SERVE_NEW - 1))
-    emit("serve", arch=cfg.arch_id, n_params=build(cfg).n_params(),
+    emit(phase, arch=cfg.arch_id, n_params=build(cfg).n_params(),
          dtype=cfg.dtype, batch=SERVE_BATCH, prompt=SERVE_SEQ,
          max_new=SERVE_NEW, requests=len(requests),
          cold=len(colds), warm=len(warms),
@@ -416,12 +565,17 @@ def serve(device):
          decode_ms_per_step=[1e3 * s / (SERVE_NEW - 1) for s in warm_decode],
          peak_device_bytes=peak, launches=launches,
          logits_max_abs_diff_vs_plain=diff, logits_max_abs=scale,
-         logits_rel_tol=SERVE_LOGITS_REL_TOL,
-         argmax_agreement_vs_plain=same_argmax, profile=profile)
+         logits_rel_tol=logits_rel_tol,
+         argmax_agreement_vs_plain=same_argmax,
+         logits_max_abs_diff_vs_plain_f32=vs_f32,
+         f32_dist_factor=SERVE_F32_DIST_FACTOR, profile=profile)
     return launches, len(requests)
 
 
 def _kernel_class(name: str) -> str:
+    if any(f in name for f in ("ssd_cb", "ssd_state", "ssd_carry",
+                               "ssd_out")):
+        return "ssd_kernel"
     if "flash_attention" in name:
         return "attention_kernel"
     if "chunk_summary" in name or "chunk_carry" in name \
@@ -683,21 +837,6 @@ def time_kernel(host: np.ndarray, device):
     return kernel_ms, plain_ms, bound_ms, bound_by
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean ms per call of ``fn`` over ``reps`` calls (CUDA events), after
-    one warm-up call."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / reps
-
-
 def time_attention(device):
     """The attention kernel at the serving path's shape, its plain version,
     and scaled_dot_product_attention with the same boolean band mask and
@@ -705,18 +844,20 @@ def time_attention(device):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels.timing import launch_ms
 
     a = ATTN_SHAPE
     B, S, Hq, Hkv, D, W = (a[k] for k in ("B", "S", "Hq", "Hkv", "D", "W"))
     q, k, v = attention_inputs(B, S, Hq, Hkv, D, torch.bfloat16, device,
                                seed=30)
     n0 = FA.LAUNCHES
-    kernel_ms = cuda_ms(lambda: FA.flash_attention(q, k, v, window=W), 10)
-    plain_ms = cuda_ms(lambda: FA.flash_attention_plain(q, k, v, window=W), 3)
+    kernel_ms = launch_ms(lambda: FA.flash_attention(q, k, v, window=W), 10)
+    plain_ms = launch_ms(
+        lambda: FA.flash_attention_plain(q, k, v, window=W), 3)
     i = torch.arange(S, device=device)
     band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - W)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+    library_ms = launch_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=band, enable_gqa=True), 10)
     FA.LAUNCHES = n0                     # timing launches do not count
     # live (query, key) pairs per (b, h): sum over i of min(i + 1, W)
@@ -744,12 +885,13 @@ def time_rglru(device):
     """The scan kernel at the path's width over a 4,096-step prompt and its
     plain version; no single PyTorch call computes this recurrence."""
     from repro_torch.kernels import rglru_scan as R
+    from repro_torch.kernels.timing import launch_ms
 
     B, L, D = RGLRU_SHAPE
     b_in, a = rglru_inputs(B, L, D, device, seed=31)
     n0 = R.LAUNCHES
-    kernel_ms = cuda_ms(lambda: R.rglru_scan(b_in, a), 20)
-    plain_ms = cuda_ms(lambda: R.rglru_scan_plain(b_in, a), 5)
+    kernel_ms = launch_ms(lambda: R.rglru_scan(b_in, a), 20)
+    plain_ms = launch_ms(lambda: R.rglru_scan_plain(b_in, a), 5)
     R.LAUNCHES = n0                      # timing launches do not count
     # a and b_in read once, h and h_last written once; ~6 operations per
     # element are far below the bytes
@@ -761,6 +903,51 @@ def time_rglru(device):
          library_note="no single PyTorch call computes this recurrence",
          launches_per_request=RGLRU_PER_PREFILL)
     return kernel_ms, plain_ms, bound_ms
+
+
+def time_ssd(device):
+    """The SSD kernel at the Mamba-2 serving path's shape (bf16 x, B and C
+    as views into the conv output) and its plain version; no single
+    PyTorch call computes this scan."""
+    import torch
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.kernels.timing import launch_ms, pass_ms, ssd_inputs
+
+    s = SSD_SHAPE
+    b, l, h, p, n, Q = (s[k] for k in ("b", "l", "h", "p", "n", "chunk"))
+    x, dt, A, B, C = ssd_inputs(b, l, h, p, n, torch.bfloat16, device, 50,
+                                True)
+    n0 = SS.LAUNCHES
+    run = lambda: SS.ssd_scan(x, dt, A, B, C, chunk=Q)
+    kernel_ms = launch_ms(run, 20)
+    passes = pass_ms(run)
+    plain_ms = launch_ms(lambda: SS.ssd_scan_plain(x, dt, A, B, C, Q), 3)
+    SS.LAUNCHES = n0                     # timing launches do not count
+    # Least operations: C_i . B_j for the live pairs j <= i of each chunk
+    # once per batch row, the masked product with x over the same pairs and
+    # C S_in and the chunk states (2 q n p each) per head. Least bytes: x, B
+    # and C (bf16), dt and A read once, y (bf16) and the final state (f32)
+    # written once.
+    lens = [min(Q, l - c) for c in range(0, l, Q)]
+    pairs = sum(q * (q + 1) // 2 for q in lens)
+    ops = 2.0 * b * pairs * n + b * h * (2.0 * pairs * p + 4.0 * l * n * p)
+    es = x.element_size()
+    nbytes = es * (2 * b * l * h * p + 2 * b * l * n) + \
+        4 * (b * l * h + h + b * h * n * p)
+    ops_ms = ops / BF16_TENSOR_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+    emit("times_ssd", shape=[b, l, h, p], n=n, chunk=Q, dtype="bfloat16",
+         kernel_ms=kernel_ms, pass_device_ms=passes, plain_ms=plain_ms,
+         operations=ops,
+         bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by,
+         ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms,
+         cuda_core_ops_bound_ms=ops / F32_CUDA_CORE_OPS_PER_S * 1e3,
+         library_ms=None,
+         library_note="no single PyTorch call computes this scan",
+         launches_per_request=SSD_PER_PREFILL)
+    return kernel_ms, plain_ms, bound_ms, bound_by
 
 
 def main() -> int:
@@ -776,6 +963,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, src)
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rglru_scan as R
+    from repro_torch.kernels import ssd_scan as SS
     device = torch.device("cuda")
     # the plain versions' f32 products in full f32, as the kernels compute
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -796,11 +986,20 @@ def main() -> int:
     event_stream_parity(device)
     attn_err = attention_parity(device)
     rglru_err = rglru_parity(device)
+    ssd_err = ssd_parity(device)
     trace, launches, e2e = scale_point(device)
     policy_sweep(device)
     t_serve = time.perf_counter()
-    serve_launches, n_requests = serve(device)
+    serve_launches, n_requests = serve(
+        device, "serve", "recurrentgemma-2b", "rg2b",
+        {"flash_attention": (FA, ATTN_PER_PREFILL),
+         "rglru_scan": (R, RGLRU_PER_PREFILL)}, SERVE_LOGITS_REL_TOL)
     serve_s = time.perf_counter() - t_serve
+    t_serve = time.perf_counter()
+    mamba_launches, n_mamba = serve(
+        device, "serve_mamba2", "mamba2-2.7b", "m2",
+        {"ssd_scan": (SS, SSD_PER_PREFILL)}, SERVE_MAMBA2_LOGITS_REL_TOL)
+    serve_mamba_s = time.perf_counter() - t_serve
     # time the kernel on the scale trace's columns, as the main path ran it
     times, counts = trace.to_padded()
     kernel_ms, plain_ms, bound_ms, bound_by = time_kernel(
@@ -808,6 +1007,7 @@ def main() -> int:
     fa_ms, fa_plain_ms, fa_bound_ms, fa_bound_by, fa_lib_ms = \
         time_attention(device)
     rg_ms, rg_plain_ms, rg_bound_ms = time_rglru(device)
+    ssd_ms, ssd_plain_ms, ssd_bound_ms, ssd_bound_by = time_ssd(device)
 
     csrc = "src/repro_torch/kernels/csrc/"
     print(json.dumps({"kernels": [{
@@ -829,10 +1029,17 @@ def main() -> int:
         "replaces": "src/repro/kernels/rglru_scan.py:73",
         "launches": serve_launches["rglru_scan"], "max_abs_err": rglru_err,
         "ms": rg_ms, "plain_ms": rg_plain_ms, "bound_ms": rg_bound_ms,
-        "bound_by": "bytes", "library_ms": None}]}), flush=True)
+        "bound_by": "bytes", "library_ms": None}, {
+        "name": "ssd_scan", "route": "cuda",
+        "source": csrc + "ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:84",
+        "launches": mamba_launches["ssd_scan"], "max_abs_err": ssd_err,
+        "ms": ssd_ms, "plain_ms": ssd_plain_ms, "bound_ms": ssd_bound_ms,
+        "bound_by": ssd_bound_by, "library_ms": None}]}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start,
          scale_point_seconds=e2e["seconds"], serve_seconds=serve_s,
-         serve_requests=n_requests)
+         serve_requests=n_requests, serve_mamba2_seconds=serve_mamba_s,
+         serve_mamba2_requests=n_mamba)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

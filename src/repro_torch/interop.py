@@ -77,31 +77,42 @@ def _flatten(tree: Dict, prefix: str = "") -> Iterator[Tuple[str, object]]:
             yield path, val
 
 
-def model_params_from_numpy(cfg: ModelConfig, tree: Dict, *,
-                            device="cuda") -> torch.nn.Module:
-    """The reference's parameter pytree (nested dicts of numpy arrays, the
-    super-blocks stacked on a leading ``[n_super, ...]`` axis under
-    ``blocks``) as the port's fp32 parameter module on ``device``.
-
-    Names map one to one (``blocks/rec1/wx/w``[i] -> ``blocks.i.rec1.wx.w``);
-    linear weights keep the reference's ``[d_in, d_out]`` layout, which the
-    port multiplies the same way (``x @ w``). Raises ``ValueError`` on a
-    missing or extra leaf or a shape that differs."""
+def _param_module(cfg: ModelConfig) -> Tuple[type, str]:
+    """The port's parameter module of ``cfg``'s family, and the key under
+    which the reference stacks its per-layer leaves."""
     from .models import build
+    from .models.mamba2 import SSMParams
     from .models.rglru import HybridParams
 
     build(cfg)                      # raises for a family not ported yet
+    return {"hybrid": (HybridParams, "blocks"),
+            "ssm": (SSMParams, "layers")}[cfg.family]
+
+
+def model_params_from_numpy(cfg: ModelConfig, tree: Dict, *,
+                            device="cuda") -> torch.nn.Module:
+    """The reference's parameter pytree (nested dicts of numpy arrays, the
+    repeated blocks stacked on a leading axis: ``[n_super, ...]`` under
+    ``blocks`` for the hybrid family, ``[n_layers, ...]`` under ``layers``
+    for the SSM family) as the port's fp32 parameter module on ``device``.
+
+    Names map one to one (``blocks/rec1/wx/w``[i] -> ``blocks.i.rec1.wx.w``,
+    ``layers/A_log``[i] -> ``layers.i.A_log``); linear weights keep the
+    reference's ``[d_in, d_out]`` layout, which the port multiplies the same
+    way (``x @ w``). Raises ``ValueError`` on a missing or extra leaf or a
+    shape that differs."""
+    module, stacked = _param_module(cfg)
     dev = resolve_device(device)
     flat = {}
     for path, arr in _flatten(tree):
         arr = np.asarray(arr)
-        if path.startswith("blocks."):
+        if path.startswith(stacked + "."):
             for i in range(arr.shape[0]):
-                flat[f"blocks.{i}.{path[len('blocks.'):]}"] = arr[i]
+                flat[f"{stacked}.{i}.{path[len(stacked) + 1:]}"] = arr[i]
         else:
             flat[path] = arr
     with torch.device("meta"):
-        params = HybridParams(cfg)
+        params = module(cfg)
     params = params.to_empty(device=dev).requires_grad_(False)
     names = dict(params.named_parameters())
     if set(flat) != set(names):

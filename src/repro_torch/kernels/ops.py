@@ -8,5 +8,6 @@ from __future__ import annotations
 from .flash_attention import flash_attention
 from .histogram import fused_hybrid_step
 from .rglru_scan import rglru_scan
+from .ssd_scan import ssd_scan
 
-__all__ = ["flash_attention", "fused_hybrid_step", "rglru_scan"]
+__all__ = ["flash_attention", "fused_hybrid_step", "rglru_scan", "ssd_scan"]

@@ -1,0 +1,74 @@
+"""Timing of the kernels on the card: per launch (CUDA events) and per
+CUDA function (``torch.profiler`` device time). ``chip_smoke.py`` times
+every kernel with :func:`launch_ms` and splits the SSD scan by pass with
+:func:`pass_ms`; it makes the SSD inputs with :func:`ssd_inputs`.
+"""
+from __future__ import annotations
+
+import re
+
+
+def ssd_inputs(b, l, h, p, n, dtype, device, seed, model_like):
+    """x, B and C as views into one [b, l, h*p + 2n] tensor in ``dtype``, as
+    the model hands them over (its conv output), dt [b, l, h] and A [h]
+    f32. ``model_like``: dt = softplus(normal - 1) and A = -linspace(1, 16,
+    h), as the model's init gives; else the reference tests' dt =
+    0.1 |normal| and A = -|normal|, whose slow decays keep the carried
+    state large."""
+    import torch
+    import torch.nn.functional as F
+    g = torch.Generator(device=device).manual_seed(seed)
+    di = h * p
+    xbc = torch.randn(b, l, di + 2 * n, generator=g, device=device).to(dtype)
+    x = xbc[..., :di].reshape(b, l, h, p)
+    B, C = xbc[..., di:di + n], xbc[..., di + n:]
+    if model_like:
+        dt = F.softplus(torch.randn(b, l, h, generator=g, device=device) - 1)
+        A = -torch.linspace(1.0, 16.0, h, device=device)
+    else:
+        dt = 0.1 * torch.randn(b, l, h, generator=g, device=device).abs()
+        A = -torch.randn(h, generator=g, device=device).abs()
+    return x, dt, A, B, C
+
+
+def launch_ms(fn, reps: int) -> float:
+    """Mean ms per call of ``fn`` over ``reps`` calls (CUDA events), after
+    one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def pass_ms(fn, reps: int = 5) -> dict:
+    """Device ms per call of each SSD pass ``fn`` launches (a CUDA function
+    whose name holds ``ssd_<pass>``, keyed by that), from ``torch.profiler``
+    over ``reps`` calls; empty where the profiler records no device
+    events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(r"ssd_\w+", e.key)
+        if e.device_type != DeviceType.CUDA or not m:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        out[m.group(0)] = out.get(m.group(0), 0.0) + us / 1e3 / reps
+    return out

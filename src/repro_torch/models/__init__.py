@@ -1,4 +1,5 @@
-"""Model stack of the port: the hybrid family (RecurrentGemma) so far."""
+"""Model stack of the port: the hybrid (RecurrentGemma) and SSM (Mamba-2)
+families so far."""
 from .model import Model, build, n_params
 
 __all__ = ["Model", "build", "n_params"]

@@ -1,18 +1,19 @@
-"""Shared layers of the hybrid family, as functions on parameter modules.
+"""Shared layers of the ported families, as functions on parameter modules.
 
-The counterpart of ``repro/models/layers.py``, kept to what the hybrid
-(RecurrentGemma) serving path needs. Conventions, as in the reference:
+The counterpart of ``repro/models/layers.py``, kept to what the serving
+paths of the hybrid (RecurrentGemma) and SSM (Mamba-2) families need.
+Conventions, as in the reference:
 
   * parameters are ``nn.Module`` trees whose names follow the reference's
     parameter pytree (``interop.model_params_from_numpy`` maps one onto
     the other); linear weights are ``[d_in, d_out]`` (``x @ w``);
   * activations flow in ``cfg.dtype``; parameters are stored fp32 and cast
     to the activation dtype at use (linear weights and biases, the
-    embedding table), while ``rmsnorm`` scales stay fp32 and ``rmsnorm``
-    computes in fp32 before the final cast;
+    embedding table, the conv taps), while those in ``FP32_AT_USE`` stay
+    fp32 and ``rmsnorm`` computes in fp32 before the final cast;
   * attention is GQA with RoPE; ``window > 0`` masks to a local band.
 
-Left out (not on the hybrid path): the KV-cache (dense decode) and
+Left out (on neither path): the KV-cache (dense decode) and
 distributed-decode branches of ``attention_apply``, the cross-entropy
 losses, and ``scan_blocks`` (the port loops over layers in Python).
 """
@@ -29,13 +30,15 @@ from ..kernels import ops as kops
 from ..kernels.flash_attention import sdpa
 
 __all__ = ["FP32_AT_USE", "compute_dtype", "Linear", "RMSNorm", "Attention", "MLP",
-           "Embedding", "normal_", "linear", "rmsnorm", "rope",
+           "Embedding", "normal_", "linear", "rmsnorm", "causal_conv", "rope",
            "attention_apply", "mlp_apply", "embed", "unembed", "_sdpa"]
 
 #: Parameter names (the last part) that stay fp32 at use: the ``rmsnorm``
-#: scales and the RG-LRU ``lam``. Every other parameter is cast to the
-#: activation dtype where it is used.
-FP32_AT_USE = ("scale", "lam")
+#: scales, the RG-LRU ``lam``, and Mamba-2's ``A_log`` and ``dt_bias``
+#: (``A = -exp(A_log)`` and ``softplus(dt + dt_bias)`` are f32 in the
+#: reference). Every other parameter is cast to the activation dtype where
+#: it is used.
+FP32_AT_USE = ("scale", "lam", "A_log", "dt_bias")
 
 #: The reference's plain attention (``layers._sdpa``, with its query-blocked
 #: form from 8,192 query rows): the model's branch when the kernels are
@@ -134,6 +137,18 @@ def rmsnorm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * p.scale).to(x.dtype)
+
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                ) -> torch.Tensor:
+    """Causal depthwise conv over time: x [B, S, C], w [W, C], b [C]; one
+    tap at a time, accumulating in x's dtype as the reference does."""
+    W = w.shape[0]
+    pad = F.pad(x, (0, 0, W - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(W):
+        out = out + pad[:, i: i + x.shape[1], :] * w[i].to(x.dtype)
+    return out + b.to(x.dtype)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float

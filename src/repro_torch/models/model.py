@@ -1,6 +1,7 @@
 """The model interface (the port of ``repro/models/model.py``).
 
-``Model(cfg)`` exposes, for the hybrid family (RecurrentGemma):
+``Model(cfg)`` exposes, for the hybrid (RecurrentGemma) and SSM (Mamba-2)
+families:
 
   * ``init(seed, device)``                  — parameter module (fp32)
   * ``forward(params, tokens)``             — full-sequence logits
@@ -8,22 +9,24 @@
   * ``decode_step(params, token, cache)``   — (logits, state)
   * ``n_params()``                          — analytic parameter count
 
-The other families (dense, MoE, SSM, encoder-decoder) are not ported yet:
+The other families (dense, MoE, encoder-decoder) are not ported yet:
 ``Model(cfg)`` raises ``NotImplementedError`` naming the ROADMAP item that
 ports them. :func:`n_params` is plain arithmetic and covers every family.
 """
 from __future__ import annotations
 
 from ..configs.base import ModelConfig
-from . import rglru
+from . import mamba2, rglru
 
 __all__ = ["Model", "build", "n_params", "FAMILY_NOT_PORTED"]
 
 FAMILY_NOT_PORTED = (
     "model family {family!r} is not ported to repro_torch yet (ROADMAP "
-    "Queue A items 9-10: the next slice is Mamba-2 serving with ssd_scan; "
-    "dense, MoE and encoder-decoder come after); the hybrid family "
-    "(recurrentgemma-2b) is")
+    "Queue A items 9-10: the dense, MoE and encoder-decoder families are "
+    "left); the hybrid (recurrentgemma-2b) and SSM (mamba2-2.7b) families "
+    "are")
+
+_FAMILIES = {"hybrid": rglru, "ssm": mamba2}
 
 
 def n_params(cfg: ModelConfig, active_only: bool = False) -> int:
@@ -62,24 +65,25 @@ def n_params(cfg: ModelConfig, active_only: bool = False) -> int:
 
 class Model:
     def __init__(self, cfg: ModelConfig):
-        if cfg.family != "hybrid":
+        if cfg.family not in _FAMILIES:
             raise NotImplementedError(
                 FAMILY_NOT_PORTED.format(family=cfg.family))
         self.cfg = cfg
+        self._m = _FAMILIES[cfg.family]
 
-    def init(self, seed: int = 0, device=None) -> rglru.HybridParams:
+    def init(self, seed: int = 0, device=None):
         """Random fp32 parameters from ``seed`` on ``device`` (the card
         unless ``device="cpu"``)."""
-        return rglru.init(self.cfg, seed, device)
+        return self._m.init(self.cfg, seed, device)
 
     def forward(self, params, tokens):
-        return rglru.forward(self.cfg, params, tokens)
+        return self._m.forward(self.cfg, params, tokens)
 
     def prefill(self, params, tokens, max_len: int = 0):
-        return rglru.prefill(self.cfg, params, tokens, max_len)
+        return self._m.prefill(self.cfg, params, tokens, max_len)
 
     def decode_step(self, params, token, cache):
-        return rglru.decode_step(self.cfg, params, token, cache)
+        return self._m.decode_step(self.cfg, params, token, cache)
 
     def n_params(self, active_only: bool = False) -> int:
         return n_params(self.cfg, active_only)

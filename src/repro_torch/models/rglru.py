@@ -170,16 +170,6 @@ def init(cfg: ModelConfig, seed: int = 0, device=None) -> HybridParams:
 # ---------------------------------------------------------------------------
 
 
-def _conv1d(x, w, b):
-    """Causal depthwise conv over time: x [B, S, C], w [W, C], b [C]."""
-    W = w.shape[0]
-    pad = F.pad(x, (0, 0, W - 1, 0))
-    out = torch.zeros_like(x)
-    for i in range(W):
-        out = out + pad[:, i: i + x.shape[1], :] * w[i].to(x.dtype)
-    return out + b.to(x.dtype)
-
-
 def _rglru_gates(p: RecBlock, u):
     """u [..., DR] conv output -> (a, gated input), both fp32."""
     r = torch.sigmoid(L.linear(p.wa, u).float())
@@ -198,7 +188,7 @@ def rec_apply(cfg: ModelConfig, p: RecBlock, x, state: Optional[Dict] = None,
     u = L.linear(p.wx, h_in)
     if state is None:
         u_raw = u
-        u = _conv1d(u, p.conv_w, p.conv_b)
+        u = L.causal_conv(u, p.conv_w, p.conv_b)
         a, b_in = _rglru_gates(p, u)
         if use_kernel and cfg.use_kernels and x.shape[1] % 128 == 0:
             h, h_last = kops.rglru_scan(b_in, a)
@@ -348,6 +338,7 @@ def init_cache(cfg: ModelConfig, batch: int, dtype, device=None) -> Dict:
     n_super, n_tail = _structure(cfg)
     DR = cfg.rglru_d_rnn or cfg.d_model
     W = cfg.conv_width
+    device = resolve_device(device)
     z = lambda *shape, dt=dtype: torch.zeros(shape, dtype=dt, device=device)
     ring = (batch, cfg.attn_window, cfg.n_kv_heads, cfg.hd)
     blocks = [{"h1": z(batch, DR, dt=torch.float32), "conv1": z(batch, W - 1, DR),

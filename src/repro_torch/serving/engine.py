@@ -6,13 +6,15 @@ loaded apps, and greedy batched decode. PyTorch runs eagerly, so there is
 no ``jit`` and no executable cache: a cold start here is the weights'
 trip to the device (plus, at an app's first load, their initialisation).
 
-The device copy is cast once at load to the activation dtype, except the
-parameters the model keeps in fp32 at use (``layers.FP32_AT_USE``: the
-``rmsnorm`` scales and the RG-LRU ``lam``). Casting every other parameter
-at use, as the reference does, gives the same numbers; casting once avoids
-re-reading the fp32 weights (11.6 GB for RecurrentGemma-2B) on every
-decode step, and matches the registry's cost model, which counts
-``2 * n_params`` bytes per image.
+Any ported family serves (the hybrid RecurrentGemma and the SSM Mamba-2
+so far). The device copy is cast once at load to the activation dtype,
+except the parameters the model keeps in fp32 at use
+(``layers.FP32_AT_USE``: the ``rmsnorm`` scales, the RG-LRU ``lam``,
+Mamba-2's ``A_log`` and ``dt_bias``). Casting every other parameter at
+use, as the reference does, gives the same numbers; casting once avoids
+re-reading the fp32 weights (11.6 GB for RecurrentGemma-2B, 10.8 GB for
+Mamba-2-2.7B) on every decode step, and matches the registry's cost
+model, which counts ``2 * n_params`` bytes per image.
 """
 from __future__ import annotations
 

@@ -68,3 +68,21 @@ def test_serve_engine_asked_for_cuda_without_a_card_raises(monkeypatch):
         ServeEngine(Registry())
     with pytest.raises(RuntimeError):
         ServeEngine(Registry(), device="cuda")
+
+
+@pytest.mark.parametrize("arch,entry", [
+    ("mamba2-2.7b", "init"), ("mamba2-2.7b", "init_state"),
+    ("recurrentgemma-2b", "init"), ("recurrentgemma-2b", "init_cache")])
+def test_model_entry_points_default_to_cuda(monkeypatch, arch, entry):
+    """Weights and decode state are made on the card unless the caller
+    asks for the CPU; without a card that raises."""
+    from repro_torch import configs
+    from repro_torch.models import mamba2, rglru
+    cfg = configs.reduced(configs.get(arch))
+    mod = mamba2 if cfg.family == "ssm" else rglru
+    call = (lambda **kw: mod.init(cfg, 0, **kw)) if entry == "init" else \
+        (lambda **kw: getattr(mod, entry)(cfg, 1, torch.float32, **kw))
+    assert call(device="cpu") is not None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        call()

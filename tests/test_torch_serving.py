@@ -4,11 +4,13 @@
     on the port's pool and on the reference's side by side; the returned
     values, ``PoolStats`` and every ``AppState`` must be equal (pure
     Python: exact), and so must the ``state_dict`` and its round trip;
-  * ``ServeEngine``: on a reduced hybrid endpoint whose host weight store
-    is filled from the reference engine's ``_weights`` through interop,
-    ``generate`` gives the same tokens as the reference's ``ServeEngine``
-    (f32 on the CPU, S=128 so both take their kernel branches); ``load``,
-    ``unload`` and ``is_loaded`` behave as the reference's do.
+  * ``ServeEngine``: on a reduced hybrid endpoint and on a reduced Mamba-2
+    endpoint whose host weight store is filled from the reference engine's
+    ``_weights`` through interop, ``generate`` gives the same tokens as the
+    reference's ``ServeEngine`` (f32 on the CPU, S=128 so both take their
+    kernel branches); ``load``, ``unload`` and ``is_loaded`` behave as the
+    reference's do; the device copy keeps the ``FP32_AT_USE`` parameters
+    in f32 and casts the rest to the activation dtype.
 """
 import dataclasses
 from types import SimpleNamespace
@@ -191,12 +193,14 @@ def test_endpoint_cost_model_equals_reference(ref):
 # -- the engine ----------------------------------------------------------------
 
 
-def test_engine_generates_the_reference_tokens(ref):
+@pytest.mark.parametrize("arch,n_layers", [("recurrentgemma-2b", 5),
+                                           ("mamba2-2.7b", 2)])
+def test_engine_generates_the_reference_tokens(ref, arch, n_layers):
     S, max_new, app = 128, 6, "app-000000"
-    jcfg = ref.configs.reduced(ref.configs.get("recurrentgemma-2b")).with_(
-        n_layers=5, use_kernels=True)
-    cfg = port_configs.reduced(port_configs.get("recurrentgemma-2b")).with_(
-        n_layers=5, use_kernels=True)
+    jcfg = ref.configs.reduced(ref.configs.get(arch)).with_(
+        n_layers=n_layers, use_kernels=True)
+    cfg = port_configs.reduced(port_configs.get(arch)).with_(
+        n_layers=n_layers, use_kernels=True)
     jreg, reg = ref.registry.Registry(), port_registry.Registry()
     jreg.register(ref.registry.ModelEndpoint(app, jcfg, seed=7))
     reg.register(port_registry.ModelEndpoint(app, cfg, seed=7))
@@ -254,3 +258,28 @@ def test_engine_casts_once_at_load_and_keeps_norms_and_lam_fp32():
         assert p.dtype == want, name
     assert all(p.dtype == torch.float32
                for p in eng._weights[app].parameters())
+
+
+def test_engine_keeps_the_ssm_decay_and_step_bias_fp32():
+    """Mamba-2's A_log and dt_bias are f32 at use in the reference (a bf16
+    A_log would move every decay rate by up to 0.4%); the norm scales too;
+    the rest, D and the conv taps included, is cast to bf16 at load."""
+    app = "app-000000"
+    cfg = port_configs.reduced(port_configs.get("mamba2-2.7b")).with_(
+        dtype="bfloat16")
+    reg = port_registry.Registry()
+    reg.register(port_registry.ModelEndpoint(app, cfg, seed=2))
+    eng = port_engine.ServeEngine(reg, device="cpu")
+    eng.load(app)
+    kept = set()
+    for name, p in eng._loaded[app].named_parameters():
+        leaf = name.rpartition(".")[2]
+        if leaf in ("scale", "A_log", "dt_bias"):
+            assert p.dtype == torch.float32, name
+            kept.add(leaf)
+        else:
+            assert p.dtype == torch.bfloat16, name
+    assert kept == {"scale", "A_log", "dt_bias"}
+    host = dict(eng._weights[app].named_parameters())
+    assert torch.equal(eng._loaded[app].layers[0].A_log,
+                       host["layers.0.A_log"])
