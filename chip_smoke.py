@@ -6,7 +6,7 @@
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc, plain
 C interface, one nvcc per source, all started together) and holds every
 kernel against its plain PyTorch version on the card. Then it drives the
-port's two main paths:
+port's main paths:
 
   * the policy simulator: the hybrid keep-alive policy replayed over a
     1M-app, 14-day trace through ``repro_torch.core.experiment.run(
@@ -21,7 +21,16 @@ port's two main paths:
     branches (``use_kernels=False``) in bf16 and be no less accurate
     against them in f32;
   * serving Mamba-2-2.7B the same way (phase ``serve_mamba2``): every
-    prefill must launch the SSD scan kernel 64 times, once per layer.
+    prefill must launch the SSD scan kernel 64 times, once per layer;
+  * serving Qwen2-7B the same way (phase ``serve_qwen2``), through a KV
+    cache: every request must launch the attention kernel 28 times (the
+    prefill) and the decode kernel 420 times (15 decode steps of 28
+    layers), and the logits of four decode steps are held to the plain
+    branches too;
+  * the fleet's policy-update tick over the scale trace (phase
+    ``policy_update_parity``): one tick per event column through the CUDA
+    kernel, every output equal to the plain version's at every tick and,
+    on 1,000 sampled apps, to the scalar ``AppHistogram``.
 
 Then it times each kernel at its path's shapes beside its bound, its plain
 version and, where one exists, the one PyTorch call computing the same
@@ -98,6 +107,37 @@ SSD_BF16_Y_TOL = (1e-3, 8e-3)
 # hybrid model, rounding flips carry through the layers; the last-token
 # logits must agree within 5% of their largest magnitude.
 SERVE_MAMBA2_LOGITS_REL_TOL = 5e-2
+# The dense serving path: qwen2-7b (28 layers, 28 q heads over 4 KV heads
+# of 128) over the same prompts, through a KV cache of SERVE_SEQ +
+# SERVE_NEW positions: per request one prefill (28 launches of the
+# attention kernel) and SERVE_NEW - 1 decode steps (28 launches of the
+# decode kernel each). Its decode kernel at that shape, as each decode
+# step's 28 layers call it (kv_len 4,097 to 4,111; timed at the full
+# 4,112).
+QWEN2_LAYERS = 28
+DECODE_SHAPE = dict(B=SERVE_BATCH, Hq=28, Hkv=4, D=128,
+                    Skv=SERVE_SEQ + SERVE_NEW)
+QWEN2_ATTN_PER_REQUEST = QWEN2_LAYERS
+QWEN2_DECODE_PER_REQUEST = QWEN2_LAYERS * (SERVE_NEW - 1)
+SERVE_QWEN2_DECODE_STEPS = 4
+# Decode kernel vs its plain version, (atol, rtol): f32 the reference's
+# kernel tolerance (tests/test_kernels.py), 2e-5 (IEEE f32 on both sides,
+# the sums in another order). Both versions compute in f32 and round the
+# output to bf16 once, so a bf16 result may differ by one bf16 rounding
+# step, at most 2^-7 of its magnitude: rtol 8e-3, and atol 1e-3 of the
+# largest |want| for outputs near 0. At the serving shape a typical |out|
+# is about 0.02 and leaving out one 128-key split moves it by about 5e-3,
+# far past this bound (the reference's 2e-2 would let that through).
+DECODE_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-3, 8e-3)}
+# Qwen2-7B kernel path vs plain branches through 28 bf16 layers: as for the
+# other two models, the last-token logits within 5% of their largest
+# magnitude; the same gate holds the logits of the decode steps.
+SERVE_QWEN2_LOGITS_REL_TOL = 5e-2
+# The fleet's policy-update tick: one tick per event column of the scale
+# trace (1M apps, <= 64 columns), idle times in the paper's 240 one-minute
+# bins.
+POLICY_BINS = 240
+POLICY_SAMPLE = 1000
 # Both serving phases also run the plain branches in f32 on f32 copies of
 # the same weights. The kernel path's bf16 logits must lie no further from
 # them than 1.5x as far as the plain branches' bf16 logits do: the kernels
@@ -426,21 +466,184 @@ def ssd_parity(device):
     return worst
 
 
+def decode_inputs(B, Skv, Hq, Hkv, D, dtype, device, seed):
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(B, s, h, D, generator=g, device=device).to(dtype)
+            for s, h in ((1, Hq), (Skv, Hkv), (Skv, Hkv))]
+
+
+def decode_tol(dtype, want):
+    """(atol, rtol) for the decode kernel against its plain output
+    ``want``: DECODE_TOL, bf16's atol scaled by the largest |want|."""
+    atol, rtol = DECODE_TOL[dtype]
+    if dtype == "bfloat16":
+        atol *= float(want.abs().max())
+    return atol, rtol
+
+
+def decode_parity(device):
+    """The decode kernel against its plain version: the reference's cases
+    (B 2, Hq 4, Hkv 2, D 64), the serving path's shape at kv_len 4,097,
+    4,112 and 1, and a ragged cache (Skv 640, kv_len 600, which the TPU
+    kernel gets wrong); f32 and bf16 at DECODE_TOL, each case's largest and
+    median |out| printed beside its error. Returns the largest absolute
+    difference seen."""
+    import torch
+    from repro_torch.kernels import decode_attention as DA
+
+    d = DECODE_SHAPE
+    serving = (d["B"], d["Skv"], d["Hq"], d["Hkv"], d["D"])
+    cases = [((2, Skv, 4, 2, 64), n) for Skv, n in
+             ((256, 256), (512, 300), (512, 1), (1024, 777))]
+    cases += [(serving, n) for n in (4097, 4112, 1)]
+    cases += [((1, 640, 8, 2, 64), 600)]
+    worst = 0.0
+    for k, (shape, kv_len) in enumerate(cases):
+        for dtype in ("float32", "bfloat16"):
+            q, kc, vc = decode_inputs(*shape, getattr(torch, dtype), device,
+                                      seed=70 + k)
+            got = DA.decode_attention(q, kc, vc, kv_len)
+            want = DA.decode_attention_plain(q, kc, vc, kv_len)
+            torch.cuda.synchronize()
+            got, want = got.float(), want.float()
+            atol, rtol = decode_tol(dtype, want)
+            torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+            err = float((got - want).abs().max())
+            worst = max(worst, err)
+            emit("decode_parity", shape=list(shape), kv_len=kv_len,
+                 dtype=dtype, atol=atol, rtol=rtol, max_abs_err=err,
+                 max_abs_out=float(want.abs().max()),
+                 median_abs_out=float(want.abs().median()))
+    return worst
+
+
+def policy_columns(trace, device):
+    """Per event column of ``trace``: the tick's (bins, active) int32 [n],
+    the idle time since the app's previous event binned by the port's
+    ``classify_idle_time`` into POLICY_BINS one-minute bins (``n_bins`` =
+    out of bounds); an app is active where it has an event in the column
+    and one before it."""
+    import torch
+    from repro_torch.core import policy_math
+
+    times, counts = trace.to_padded()
+    width = int(counts.max())
+    cols = torch.from_numpy(np.ascontiguousarray(
+        times[:, :width].T.astype(np.float64))).to(device)
+    prev = torch.full_like(cols[0], -np.inf)
+    out = []
+    for t in cols:
+        rec = torch.isfinite(t) & torch.isfinite(prev)
+        it = torch.where(rec, t - prev, 0.0)
+        safe, in_b, oob_hit = policy_math.classify_idle_time(
+            it, rec, 1.0, POLICY_BINS)
+        bins = torch.where(oob_hit, POLICY_BINS, torch.where(in_b, safe, -1))
+        out.append((bins.to(torch.int32), rec.to(torch.int32)))
+        prev = torch.where(torch.isfinite(t), t, prev)
+    return out, times, counts
+
+
+def fresh_policy_state(n, device):
+    import torch
+    z = lambda dt: torch.zeros(n, dtype=dt, device=device)
+    return (torch.zeros((n, POLICY_BINS), dtype=torch.int32, device=device),
+            z(torch.int32), z(torch.int32), z(torch.float32),
+            z(torch.float32))
+
+
+def policy_update_parity(trace, device):
+    """The fleet's policy-update tick over the scale trace, one tick per
+    event column, through ``kernels.ops.policy_update`` (the CUDA kernel;
+    its launch count is set to 0 just before the run and read just after).
+    Beside it the plain version runs on its own copy of the state: all
+    eight outputs must be torch.equal at every tick. At the end the
+    histogram, the gate and both windows of POLICY_SAMPLE sampled apps must
+    equal the scalar AppHistogram's fed the same idle times. Returns the
+    launches, the largest absolute difference seen (0.0) and the tick
+    columns."""
+    import torch
+    from repro_torch.core import policy_math
+    from repro_torch.core.histogram import AppHistogram, HistogramConfig
+    from repro_torch.kernels import histogram as H
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    columns, times, counts = policy_columns(trace, device)
+    prep_s = time.perf_counter() - t0
+    n = counts.shape[0]
+    state, plain_state = fresh_policy_state(n, device), \
+        fresh_policy_state(n, device)
+    names = ("counts", "oob", "total", "cv_sum", "cv_sum_sq", "prewarm",
+             "keep_alive", "use_hist")
+    H.POLICY_UPDATE_LAUNCHES = 0          # count the main path's launches
+    active_rows, worst = 0, 0.0
+    for c, (bins, active) in enumerate(columns):
+        got = ops.policy_update(*state, bins, active)
+        want = H.policy_update_plain(*plain_state, bins, active)
+        for name, g, w in zip(names, got, want):
+            worst = max(worst, float((g.double() - w.double()).abs().max()))
+            if not torch.equal(g, w):
+                raise AssertionError(
+                    f"policy_update kernel != plain on {name} at tick {c}: "
+                    f"{int((g != w).sum())} elements differ")
+        state, plain_state = got[:5], want[:5]
+        active_rows += int(active.sum())
+    launches = H.POLICY_UPDATE_LAUNCHES
+    if launches != len(columns):
+        raise AssertionError(f"{launches} policy_update launches for "
+                             f"{len(columns)} ticks")
+
+    cfg = HistogramConfig(range_minutes=float(POLICY_BINS))
+    rng = np.random.default_rng(6)
+    sample = np.sort(rng.choice(n, POLICY_SAMPLE, replace=False))
+    host = [x.cpu().numpy() for x in got]
+    n_hist = 0
+    for a in sample:
+        h = AppHistogram(cfg)
+        ts = times[a, :counts[a]].astype(np.float64)
+        for it in np.diff(ts):
+            h.record(float(it))
+        gate = policy_math.use_histogram_gate(
+            h.total, h.oob, h._cv_sum, h._cv_sum_sq, POLICY_BINS, 5, 2.0,
+            0.5)
+        pw, ka = h.windows() if gate else (0.0, cfg.range_minutes)
+        n_hist += gate
+        ok = (np.array_equal(host[0][a], h.counts) and host[1][a] == h.oob
+              and host[2][a] == h.total and host[7][a] == int(gate)
+              and host[5][a] == np.float32(pw)
+              and host[6][a] == np.float32(ka))
+        if not ok:
+            raise AssertionError(f"policy_update != AppHistogram at app {a}")
+    emit("policy_update_parity", n_apps=n, n_bins=POLICY_BINS,
+         ticks=len(columns), active_app_ticks=active_rows,
+         column_prep_seconds=prep_s, outputs=len(names), torch_equal=True,
+         launches=launches, sampled_apps=len(sample),
+         sampled_using_histogram=int(n_hist),
+         equal_to_app_histogram=True)
+    return launches, worst, columns
+
+
 # ---------------------------------------------------------------------------
 # Serving: full-width models behind the warm pool
 # ---------------------------------------------------------------------------
 
 
-def serve(device, phase, arch, prefix, kernels, logits_rel_tol):
+def serve(device, phase, arch, prefix, kernels, logits_rel_tol,
+          decode_steps=0):
     """Two full-width endpoints of ``arch`` (seeds 0 and 1, ``use_kernels``,
     bf16) behind a WarmPool(HybridSpec(use_arima=False)), driven by
     SERVE_STREAM; the pool's residency decisions are mirrored onto the
     engine after every pool call. ``kernels`` maps each kernel module of
-    the path to the launches one prefill must make; the counts are set to
-    0 just before the stream and read just after. The kernel path's logits
-    are held to the plain branches' in bf16 (``logits_rel_tol``) and, on
-    f32 copies of the same weights, in f32 (SERVE_F32_DIST_FACTOR). Returns
-    the stream's launches by kernel name and the number of requests."""
+    the path to the launches one request must make; the counts are set to
+    0 just before the stream and read just after. The kernel path's
+    last-token prefill logits are held to the plain branches' in bf16
+    (``logits_rel_tol``) and, on f32 copies of the same weights, in f32
+    (SERVE_F32_DIST_FACTOR); with ``decode_steps``, so are the logits of
+    that many teacher-forced decode steps from the kernel path's prefill
+    state (each path on its own copy of it). Before the f32 check the
+    endpoint not under check is unloaded (the stream is over). Returns the
+    stream's launches by kernel name and the number of requests."""
     import torch
     from repro_torch.configs import get
     from repro_torch.core.experiment import HybridSpec
@@ -517,10 +720,32 @@ def serve(device, phase, arch, prefix, kernels, logits_rel_tol):
     # the same prompt through the plain branches, on the same weights
     app = f"{prefix}-{SERVE_STREAM[-1][1]}"
     params = engine._loaded[app]
+    max_len = SERVE_SEQ + SERVE_NEW
+    kmodel, pmodel = build(cfg), build(cfg.with_(use_kernels=False))
+    rng = np.random.default_rng(1)
+    dec_tokens = [torch.from_numpy(rng.integers(0, cfg.vocab, SERVE_BATCH)
+                                   ).to(device) for _ in range(decode_steps)]
+
+    def decode_logits(model, weights, state):
+        """Logits of ``decode_steps`` teacher-forced steps from ``state``
+        (a copy of the kernel path's prefill cache)."""
+        out = []
+        for tok in dec_tokens:
+            lg, state = model.decode_step(weights, tok, state)
+            out.append(lg.float())
+        return torch.stack(out) if out else None
+
+    def copied(state, dtype=None):
+        return {"k": [t.to(dtype or t.dtype, copy=True) for t in state["k"]],
+                "v": [t.to(dtype or t.dtype, copy=True) for t in state["v"]],
+                "pos": state["pos"]}
+
     with torch.inference_mode():
-        got, _ = build(cfg).prefill(params, tokens)
-        plain, _ = build(cfg.with_(use_kernels=False)).prefill(params,
-                                                               tokens)
+        got, state = kmodel.prefill(params, tokens, max_len)
+        plain, _ = pmodel.prefill(params, tokens, max_len)
+        if decode_steps:
+            dec_got = decode_logits(kmodel, params, copied(state))
+            dec_plain = decode_logits(pmodel, params, copied(state))
     got, plain = got.float(), plain.float()
     diff = float((got - plain).abs().max())
     scale = float(plain.abs().max())
@@ -528,26 +753,54 @@ def serve(device, phase, arch, prefix, kernels, logits_rel_tol):
         raise AssertionError(f"kernel-path logits differ from the plain "
                              f"branches by {diff} (largest logit {scale})")
     same_argmax = float((got.argmax(-1) == plain.argmax(-1)).float().mean())
-    # the plain branches in f32, on f32 copies of the same weights
+    decode_fields = {}
+    if decode_steps:
+        dec_diff = float((dec_got - dec_plain).abs().max())
+        dec_scale = float(dec_plain.abs().max())
+        if not (torch.isfinite(dec_got).all()
+                and dec_diff <= logits_rel_tol * dec_scale):
+            raise AssertionError(f"kernel-path decode logits differ from "
+                                 f"the plain branches' by {dec_diff} "
+                                 f"(largest logit {dec_scale})")
+        decode_fields = dict(
+            decode_steps_checked=decode_steps,
+            decode_logits_max_abs_diff_vs_plain=dec_diff,
+            decode_logits_max_abs=dec_scale,
+            decode_argmax_agreement_vs_plain=float(
+                (dec_got.argmax(-1) == dec_plain.argmax(-1)).float().mean()))
+    # the plain branches in f32, on f32 copies of the same weights; the
+    # other endpoint is unloaded first (the stream is over)
+    for ep in reg:
+        if ep.app_id != app:
+            engine.unload(ep.app_id)
+    torch.cuda.empty_cache()
     from repro_torch.serving.engine import _placed
     params32 = _placed(engine._weights[app], device, torch.float32)
+    model32 = build(cfg.with_(use_kernels=False, dtype="float32"))
     with torch.inference_mode():
-        ref32, _ = build(cfg.with_(use_kernels=False, dtype="float32")
-                         ).prefill(params32, tokens)
-    del params32
+        ref32, _ = model32.prefill(params32, tokens, max_len)
+        if decode_steps:
+            dec32 = decode_logits(model32, params32,
+                                  copied(state, torch.float32))
+    del params32, state
     ref32 = ref32.float()
     vs_f32 = {"kernel_bf16": float((got - ref32).abs().max()),
               "plain_bf16": float((plain - ref32).abs().max())}
-    if not vs_f32["kernel_bf16"] <= \
-            SERVE_F32_DIST_FACTOR * vs_f32["plain_bf16"]:
-        raise AssertionError(f"kernel-path logits lie {vs_f32['kernel_bf16']}"
-                             f" from the f32 plain branches', more than "
-                             f"{SERVE_F32_DIST_FACTOR} x the plain bf16 "
-                             f"branches' {vs_f32['plain_bf16']}")
+    if decode_steps:
+        vs_f32.update(
+            decode_kernel_bf16=float((dec_got - dec32).abs().max()),
+            decode_plain_bf16=float((dec_plain - dec32).abs().max()))
+    for which in ["", "decode_"] if decode_steps else [""]:
+        k_d, p_d = vs_f32[which + "kernel_bf16"], vs_f32[which + "plain_bf16"]
+        if not k_d <= SERVE_F32_DIST_FACTOR * p_d:
+            raise AssertionError(
+                f"kernel-path {which}logits lie {k_d} from the f32 plain "
+                f"branches', more than {SERVE_F32_DIST_FACTOR} x the plain "
+                f"bf16 branches' {p_d}")
 
     warm_prefill = [q["prefill_s"] for q in warms]
     warm_decode = [q["decode_s"] for q in warms]
-    profile = serve_profile(build(cfg), params, tokens,
+    profile = serve_profile(kmodel, params, tokens, max_len,
                             prefill_s=min(warm_prefill),
                             decode_step_s=min(warm_decode) / (SERVE_NEW - 1))
     emit(phase, arch=cfg.arch_id, n_params=build(cfg).n_params(),
@@ -566,13 +819,15 @@ def serve(device, phase, arch, prefix, kernels, logits_rel_tol):
          peak_device_bytes=peak, launches=launches,
          logits_max_abs_diff_vs_plain=diff, logits_max_abs=scale,
          logits_rel_tol=logits_rel_tol,
-         argmax_agreement_vs_plain=same_argmax,
+         argmax_agreement_vs_plain=same_argmax, **decode_fields,
          logits_max_abs_diff_vs_plain_f32=vs_f32,
          f32_dist_factor=SERVE_F32_DIST_FACTOR, profile=profile)
     return launches, len(requests)
 
 
 def _kernel_class(name: str) -> str:
+    if "decode_attention" in name:
+        return "decode_kernel"
     if any(f in name for f in ("ssd_cb", "ssd_state", "ssd_carry",
                                "ssd_out")):
         return "ssd_kernel"
@@ -586,7 +841,8 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
-def serve_profile(model, params, tokens, *, prefill_s, decode_step_s):
+def serve_profile(model, params, tokens, max_len, *, prefill_s,
+                  decode_step_s):
     """Device time by kernel class (torch.profiler) of one prefill and of
     four decode steps, and the device's idle share against the wall
     seconds of the same work in the unprofiled stream (the profiler slows
@@ -614,10 +870,10 @@ def serve_profile(model, params, tokens, *, prefill_s, decode_step_s):
 
     steps = 4
     with torch.inference_mode():
-        logits, cache = model.prefill(params, tokens)
+        logits, cache = model.prefill(params, tokens, max_len)
         tok = logits.argmax(-1)[:, 0]
         torch.cuda.synchronize()
-        pre = device_ms(lambda: model.prefill(params, tokens))
+        pre = device_ms(lambda: model.prefill(params, tokens, max_len))
         state = {"cache": cache, "tok": tok}
 
         def decode():
@@ -950,6 +1206,161 @@ def time_ssd(device):
     return kernel_ms, plain_ms, bound_ms, bound_by
 
 
+def time_decode(device):
+    """The decode kernel at the Qwen2-7B serving shape (bf16, the full
+    4,112-row cache), its plain version, and scaled_dot_product_attention
+    with enable_gqa and the same boolean kv_len mask (timed here only; the
+    port never calls it). Each call reads one of eight caches in turn (135
+    MB, more than the 50 MB L2), as a decode step finds each layer's cache
+    cold. Each is timed twice: on the device alone (a CUDA graph of the
+    calls replayed; the ``ms`` this script reports) and per call run back
+    to back, the host's work included (both are host-bound there, so that
+    second time compares the wrappers, not the kernels)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels.timing import graph_ms, launch_ms
+
+    d = DECODE_SHAPE
+    B, Hq, Hkv, D, Skv = (d[k] for k in ("B", "Hq", "Hkv", "D", "Skv"))
+    kv_len = Skv
+    bufs = [decode_inputs(B, Skv, Hq, Hkv, D, torch.bfloat16, device,
+                          seed=80 + i) for i in range(8)]
+    turn = [0]
+
+    def cycled(fn):
+        def call():
+            q, k, v = bufs[turn[0] % len(bufs)]
+            turn[0] += 1
+            return fn(q, k, v)
+        return call
+
+    mask = (torch.arange(Skv, device=device) < kv_len)[None, None, None]
+    calls = {
+        "kernel": (cycled(lambda q, k, v: DA.decode_attention(
+            q, k, v, kv_len)), 200),
+        "plain": (cycled(lambda q, k, v: DA.decode_attention_plain(
+            q, k, v, kv_len)), 24),
+        "library": (cycled(lambda q, k, v: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)), 200)}
+    n0 = DA.LAUNCHES
+    device_ms = {k: graph_ms(fn, reps) for k, (fn, reps) in calls.items()}
+    call_ms = {k: launch_ms(fn, reps) for k, (fn, reps) in calls.items()}
+    DA.LAUNCHES = n0                     # timing launches do not count
+    # Least bytes: K and V up to kv_len read once, q read and the output
+    # written once (bf16). Least operations: q.k and p.v for every live key
+    # of every q head.
+    nbytes = 2 * (2 * B * kv_len * Hkv * D + 2 * B * Hq * D)
+    ops = 4.0 * B * Hq * kv_len * D
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / BF16_TENSOR_OPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    kernel_ms, plain_ms, library_ms = (
+        device_ms[k] for k in ("kernel", "plain", "library"))
+    emit("times_decode", shape=[B, Skv, Hq, Hkv, D], kv_len=kv_len,
+         dtype="bfloat16", kernel_ms=kernel_ms, plain_ms=plain_ms,
+         library_ms=library_ms, timed_by="CUDA graph replay (device only)",
+         kernel_call_ms=call_ms["kernel"], plain_call_ms=call_ms["plain"],
+         library_call_ms=call_ms["library"],
+         library="scaled_dot_product_attention(attn_mask=kv_len mask, "
+                 "enable_gqa=True)",
+         bytes=nbytes, operations=ops, bound_ms=bound_ms, bound_by=bound_by,
+         bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms,
+         cuda_core_ops_bound_ms=ops / F32_CUDA_CORE_OPS_PER_S * 1e3,
+         launches_per_request=QWEN2_DECODE_PER_REQUEST)
+    return kernel_ms, plain_ms, bound_ms, bound_by, library_ms
+
+
+def time_policy_update(columns, device):
+    """The policy-update kernel and its plain version, ms per tick over the
+    scale trace's ticks replayed from an empty fleet (CUDA events around
+    each call), and the bound those ticks give; no single PyTorch call
+    computes this tick."""
+    import torch
+    from repro_torch.core import policy_math
+    from repro_torch.kernels import histogram as H
+
+    def replay(tick):
+        tick(*fresh_policy_state(columns[0][0].shape[0], device),
+             *columns[1])                                  # warm-up
+        torch.cuda.synchronize()
+        state, total_ms = fresh_policy_state(columns[0][0].shape[0],
+                                             device), 0.0
+        for bins, active in columns:
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            out = tick(*state, bins, active)
+            b.record()
+            b.synchronize()
+            total_ms += a.elapsed_time(b)
+            state = out[:5]
+        return total_ms / len(columns), out
+
+    n0 = H.POLICY_UPDATE_LAUNCHES
+    kernel_ms, got = replay(H.policy_update)
+    plain_ms, want = replay(H.policy_update_plain)
+    H.POLICY_UPDATE_LAUNCHES = n0        # timing launches do not count
+    for g, w in zip(got, want):
+        if not torch.equal(g, w):
+            raise AssertionError("timed policy_update replay != plain replay")
+
+    # Least bytes a tick must move: each row's counts up to the later of
+    # its two percentile bins (the whole row where a threshold is not
+    # reached), the one recorded count written, and 52 bytes of vectors
+    # (oob, total, cv_sum, cv_sum_sq, bins, active read; oob, total, both
+    # sums, both windows and the gate written). Least operations: a scan
+    # add and two scaled compares (a multiply and a compare each) per bin
+    # read, and about 40 scalar operations a row.
+    n = columns[0][0].shape[0]
+    iota = torch.arange(POLICY_BINS, device=device, dtype=torch.int32)
+    counts = torch.zeros((n, POLICY_BINS), dtype=torch.int32, device=device)
+    total = torch.zeros(n, dtype=torch.int32, device=device)
+    bytes_total = ops_total = 0.0
+    for bins, active in columns:
+        in_b = (active != 0) & (bins >= 0) & (bins < POLICY_BINS)
+        counts += (iota == bins[:, None]) & in_b[:, None]
+        total += in_b.to(torch.int32)
+        cum = torch.cumsum(counts, dim=1, dtype=torch.int32)
+        found = [policy_math.first_bin_ge_scaled(
+            cum, policy_math.percentile_threshold_scaled(total, pct),
+            gather=True) for pct in (5.0, 99.0)]
+        read = float((torch.maximum(*found).clamp(max=POLICY_BINS - 1) + 1)
+                     .sum())
+        bytes_total += 4 * read + 4 * int(in_b.sum()) + 52 * n
+        ops_total += 5 * read + 40 * n
+    bytes_ms = bytes_total / len(columns) / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops_total / len(columns) / SCALAR_OPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    all_rows_ms = (4 * n * POLICY_BINS + 52 * n) / HBM_BYTES_PER_S * 1e3
+    emit("times_policy_update", shape=[n, POLICY_BINS],
+         ticks_timed=len(columns), kernel_ms_per_tick=kernel_ms,
+         plain_ms_per_tick=plain_ms, bound_ms_per_tick=bound_ms,
+         bound_by=bound_by, bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms,
+         bound_all_rows_read_ms=all_rows_ms, library_ms=None,
+         library_note="no single PyTorch call computes this tick")
+    return kernel_ms, plain_ms, bound_ms, bound_by
+
+
+def release_host_memory():
+    """Hand the pinned host memory of the serving phases that ended back to
+    the system: PyTorch's pinned allocator keeps freed blocks cached, and
+    the two Qwen2-7B host stores that come next need 69 GB of pinned
+    memory of the machine's 101 GB on their own."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    empty = getattr(torch._C, "_host_emptyCache", None)
+    if empty is None:
+        raise RuntimeError("this PyTorch has no torch._C._host_emptyCache: "
+                           "the pinned memory of the earlier serving phases "
+                           "cannot be handed back before the Qwen2-7B phase")
+    empty()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -963,6 +1374,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, src)
     from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rglru_scan as R
     from repro_torch.kernels import ssd_scan as SS
@@ -987,7 +1399,12 @@ def main() -> int:
     attn_err = attention_parity(device)
     rglru_err = rglru_parity(device)
     ssd_err = ssd_parity(device)
+    decode_err = decode_parity(device)
     trace, launches, e2e = scale_point(device)
+    t_policy = time.perf_counter()
+    policy_launches, policy_err, policy_cols = policy_update_parity(
+        trace, device)
+    policy_s = time.perf_counter() - t_policy
     policy_sweep(device)
     t_serve = time.perf_counter()
     serve_launches, n_requests = serve(
@@ -1000,6 +1417,14 @@ def main() -> int:
         device, "serve_mamba2", "mamba2-2.7b", "m2",
         {"ssd_scan": (SS, SSD_PER_PREFILL)}, SERVE_MAMBA2_LOGITS_REL_TOL)
     serve_mamba_s = time.perf_counter() - t_serve
+    release_host_memory()
+    t_serve = time.perf_counter()
+    qwen2_launches, n_qwen2 = serve(
+        device, "serve_qwen2", "qwen2-7b", "q7",
+        {"flash_attention": (FA, QWEN2_ATTN_PER_REQUEST),
+         "decode_attention": (DA, QWEN2_DECODE_PER_REQUEST)},
+        SERVE_QWEN2_LOGITS_REL_TOL, decode_steps=SERVE_QWEN2_DECODE_STEPS)
+    serve_qwen2_s = time.perf_counter() - t_serve
     # time the kernel on the scale trace's columns, as the main path ran it
     times, counts = trace.to_padded()
     kernel_ms, plain_ms, bound_ms, bound_by = time_kernel(
@@ -1008,6 +1433,10 @@ def main() -> int:
         time_attention(device)
     rg_ms, rg_plain_ms, rg_bound_ms = time_rglru(device)
     ssd_ms, ssd_plain_ms, ssd_bound_ms, ssd_bound_by = time_ssd(device)
+    da_ms, da_plain_ms, da_bound_ms, da_bound_by, da_lib_ms = \
+        time_decode(device)
+    pu_ms, pu_plain_ms, pu_bound_ms, pu_bound_by = time_policy_update(
+        policy_cols, device)
 
     csrc = "src/repro_torch/kernels/csrc/"
     print(json.dumps({"kernels": [{
@@ -1035,11 +1464,26 @@ def main() -> int:
         "replaces": "src/repro/kernels/ssd_scan.py:84",
         "launches": mamba_launches["ssd_scan"], "max_abs_err": ssd_err,
         "ms": ssd_ms, "plain_ms": ssd_plain_ms, "bound_ms": ssd_bound_ms,
-        "bound_by": ssd_bound_by, "library_ms": None}]}), flush=True)
+        "bound_by": ssd_bound_by, "library_ms": None}, {
+        "name": "decode_attention", "route": "cuda",
+        "source": csrc + "decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:96",
+        "launches": qwen2_launches["decode_attention"],
+        "max_abs_err": decode_err, "ms": da_ms, "plain_ms": da_plain_ms,
+        "bound_ms": da_bound_ms, "bound_by": da_bound_by,
+        "library_ms": da_lib_ms}, {
+        "name": "policy_update", "route": "cuda",
+        "source": csrc + "policy_update.cu",
+        "replaces": "src/repro/kernels/histogram.py:128",
+        "launches": policy_launches, "max_abs_err": policy_err,
+        "ms": pu_ms,
+        "plain_ms": pu_plain_ms, "bound_ms": pu_bound_ms,
+        "bound_by": pu_bound_by, "library_ms": None}]}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start,
          scale_point_seconds=e2e["seconds"], serve_seconds=serve_s,
          serve_requests=n_requests, serve_mamba2_seconds=serve_mamba_s,
-         serve_mamba2_requests=n_mamba)
+         serve_mamba2_requests=n_mamba, serve_qwen2_seconds=serve_qwen2_s,
+         serve_qwen2_requests=n_qwen2, policy_update_seconds=policy_s)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

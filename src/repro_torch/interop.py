@@ -83,9 +83,11 @@ def _param_module(cfg: ModelConfig) -> Tuple[type, str]:
     from .models import build
     from .models.mamba2 import SSMParams
     from .models.rglru import HybridParams
+    from .models.transformer import DenseParams
 
     build(cfg)                      # raises for a family not ported yet
-    return {"hybrid": (HybridParams, "blocks"),
+    return {"dense": (DenseParams, "layers"),
+            "hybrid": (HybridParams, "blocks"),
             "ssm": (SSMParams, "layers")}[cfg.family]
 
 
@@ -94,10 +96,13 @@ def model_params_from_numpy(cfg: ModelConfig, tree: Dict, *,
     """The reference's parameter pytree (nested dicts of numpy arrays, the
     repeated blocks stacked on a leading axis: ``[n_super, ...]`` under
     ``blocks`` for the hybrid family, ``[n_layers, ...]`` under ``layers``
-    for the SSM family) as the port's fp32 parameter module on ``device``.
+    for the dense and SSM families) as the port's fp32 parameter module on
+    ``device``.
 
     Names map one to one (``blocks/rec1/wx/w``[i] -> ``blocks.i.rec1.wx.w``,
-    ``layers/A_log``[i] -> ``layers.i.A_log``); linear weights keep the
+    ``layers/A_log``[i] -> ``layers.i.A_log``, ``layers/attn/wq/b``[i] ->
+    ``layers.i.attn.wq.b``, ``head/w`` -> ``head.w`` where the unembedding
+    is not tied); linear weights keep the
     reference's ``[d_in, d_out]`` layout, which the port multiplies the same
     way (``x @ w``). Raises ``ValueError`` on a missing or extra leaf or a
     shape that differs."""

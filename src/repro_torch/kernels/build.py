@@ -26,9 +26,11 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Flags of one source only. -fmad=false: no multiply-add contraction in the
-# sweep step, whose decision layer is compared bit for bit; the attention
-# and scan kernels keep contraction (they are held to a tolerance).
-SOURCE_FLAGS = {"hybrid_sweep_step": ("-fmad=false",)}
+# sweep step and the policy-update tick, whose decision layers are compared
+# bit for bit; the attention and scan kernels keep contraction (they are
+# held to a tolerance).
+SOURCE_FLAGS = {"hybrid_sweep_step": ("-fmad=false",),
+                "policy_update": ("-fmad=false",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -34,13 +34,16 @@ CHUNKED_Q_THRESHOLD = 8192
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _band(q_pos, k_pos, causal: bool, window: int):
+def _band(q_pos, k_pos, causal: bool, window: int, kv_len=None):
     mask = torch.ones(torch.broadcast_shapes(q_pos.shape, k_pos.shape),
                       dtype=torch.bool, device=q_pos.device)
     if causal:
         mask &= k_pos <= q_pos
     if window and window > 0:
         mask &= k_pos > q_pos - window
+    if kv_len is not None:
+        mask = mask & (k_pos < torch.as_tensor(kv_len, device=k_pos.device)
+                       .reshape(-1, 1, 1))
     return mask
 
 
@@ -54,7 +57,7 @@ def _softmax_attend(qf, kf, vf, mask):
 
 
 def _sdpa_chunked(q, k, v, *, causal: bool, window: int, q_offset,
-                  q_block: int = 1024):
+                  kv_len=None, q_block: int = 1024):
     """Query-blocked attention: each block computes complete softmax rows
     against the full K/V (no online rescaling); the transient is
     O(q_block * Skv) instead of O(Sq * Skv)."""
@@ -68,19 +71,21 @@ def _sdpa_chunked(q, k, v, *, causal: bool, window: int, q_offset,
         qf = q[:, i * q_block:(i + 1) * q_block].float() / math.sqrt(hd)
         q_pos = (i * q_block + torch.arange(q_block, device=q.device)[:, None]
                  + offset)
-        out = _softmax_attend(qf, kf, vf, _band(q_pos, k_pos, causal, window))
+        out = _softmax_attend(qf, kf, vf,
+                              _band(q_pos, k_pos, causal, window, kv_len))
         outs.append(out.to(q.dtype))
     return torch.cat(outs, dim=1)
 
 
-def sdpa(q, k, v, *, causal: bool, window: int, q_offset=0):
+def sdpa(q, k, v, *, causal: bool, window: int, q_offset=0, kv_len=None):
     """Scaled-dot-product attention with GQA, in f32, output in q's dtype.
 
     q [B,Sq,Hq,hd], k/v [B,Skv,Hkv,hd]; ``q_offset`` is the absolute
     position of q[0] (int or per-batch [B]); query i sees keys j <= i when
-    ``causal`` and j > i - window when ``window > 0``; masked logits are
-    -1e30. KV heads are repeated up to the q heads (head h reads h //
-    (Hq/Hkv))."""
+    ``causal`` and j > i - window when ``window > 0``, and, when ``kv_len``
+    (int or per-batch [B]) is given, only keys j < kv_len (the filled part
+    of a KV cache); masked logits are -1e30. KV heads are repeated up to
+    the q heads (head h reads h // (Hq/Hkv))."""
     B, Sq, Hq, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     group = Hq // Hkv
@@ -89,13 +94,13 @@ def sdpa(q, k, v, *, causal: bool, window: int, q_offset=0):
         v = v.repeat_interleave(group, dim=2)
     if Sq >= CHUNKED_Q_THRESHOLD and Sq % 1024 == 0:
         return _sdpa_chunked(q, k, v, causal=causal, window=window,
-                             q_offset=q_offset)
+                             q_offset=q_offset, kv_len=kv_len)
     qf = q.float() / math.sqrt(hd)
     offset = torch.as_tensor(q_offset, device=q.device).reshape(-1, 1, 1)
     q_pos = torch.arange(Sq, device=q.device)[:, None] + offset
     k_pos = torch.arange(Skv, device=q.device)[None, None, :]
     out = _softmax_attend(qf, k.float(), v.float(),
-                          _band(q_pos, k_pos, causal, window))
+                          _band(q_pos, k_pos, causal, window, kv_len))
     return out.to(q.dtype)
 
 

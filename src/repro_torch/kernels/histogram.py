@@ -1,5 +1,5 @@
-"""The hybrid-policy sweep step: a CUDA kernel for Hopper and its plain
-PyTorch version.
+"""The hybrid-policy sweep step and the fleet's policy-update tick: CUDA
+kernels for Hopper and their plain PyTorch versions.
 
 :func:`fused_hybrid_sweep_step` is one simulator step for S stacked policy
 configurations x the whole fleet — the port of the TPU kernel
@@ -15,6 +15,12 @@ State contract (both versions): ``cum`` ``[S, n, n_bins]`` int32 is
 updated IN PLACE and returned as the second output — it is the one large
 state (about 0.96 GB at a million apps and 240 bins); the other eight
 outputs are new tensors.
+
+:func:`policy_update` is one control-plane tick for the whole fleet — the
+port of ``repro/kernels/histogram.py::policy_update_pallas`` (body
+``_policy_kernel``): on CUDA tensors ``csrc/policy_update.cu``, on CPU
+tensors :func:`policy_update_plain`. Its raw ``counts`` ``[n, n_bins]`` are
+likewise updated in place and returned first.
 """
 from __future__ import annotations
 
@@ -26,8 +32,9 @@ import torch
 from ..core import policy_math
 
 __all__ = ["CFG_I32_COLS", "CFG_F32_COLS", "LAUNCHES",
-           "fused_hybrid_sweep_step", "fused_hybrid_sweep_step_plain",
-           "fused_hybrid_step"]
+           "POLICY_UPDATE_LAUNCHES", "fused_hybrid_sweep_step",
+           "fused_hybrid_sweep_step_plain", "fused_hybrid_step",
+           "policy_update", "policy_update_plain"]
 
 # Column layout of the per-config knob blocks (built by
 # ``repro_torch.core.simulator._build_cfg_blocks``).
@@ -35,8 +42,11 @@ CFG_I32_COLS = ("n_bins", "head_numer", "tail_numer", "min_samples")
 CFG_F32_COLS = ("margin_lo", "margin_hi", "bin_minutes", "range_f32",
                 "cv_threshold", "oob_threshold", "standard_keep")
 
-#: Kernel launches made by this process (plain-version calls do not count).
+#: Sweep-step kernel launches made by this process (plain-version calls do
+#: not count).
 LAUNCHES = 0
+#: Policy-update kernel launches made by this process.
+POLICY_UPDATE_LAUNCHES = 0
 
 
 def _step_config(cfg_i32, cfg_f32, bin_minutes=None
@@ -180,3 +190,147 @@ def fused_hybrid_step(t_now, prev_t, cum, oob, cv_sum, cv_sum_sq, prewarm,
         cv_sum_sq[None], prewarm[None], unload_at[None], cold[None],
         waste[None], cfg_i32, cfg_f32)
     return tuple(o[0] for o in outs)
+
+
+# ---------------------------------------------------------------------------
+# The fleet's policy-update tick
+# ---------------------------------------------------------------------------
+
+
+def policy_update_plain(counts, oob, total, cv_sum, cv_sum_sq, bins, active,
+                        *, head_pct=5.0, tail_pct=99.0, margin=0.10,
+                        bin_minutes=1.0, range_minutes=240.0,
+                        cv_threshold=2.0, min_samples=5, oob_threshold=0.5):
+    """The tick in plain PyTorch ops over :mod:`repro_torch.core.
+    policy_math`, on any device (the port of ``repro/kernels/ref.py::
+    policy_update_ref``, with the percentile bins in the masked-min form
+    the TPU kernel uses). Arguments and outputs as :func:`policy_update`;
+    ``counts`` is updated in place."""
+    n_bins = counts.shape[1]
+    active = active != 0
+    in_b = active & (bins >= 0) & (bins < n_bins)
+    oob_hit = active & (bins >= n_bins)
+    safe = bins.clamp(0, n_bins - 1).long()[:, None]
+    old = torch.gather(counts, 1, safe)[:, 0]
+    counts.scatter_add_(1, safe, in_b.to(counts.dtype)[:, None])
+    total = total + in_b.to(torch.int32)
+    oob = oob + oob_hit.to(torch.int32)
+    cv_sum, cv_sum_sq = policy_math.welford_update(cv_sum, cv_sum_sq, in_b,
+                                                   old)
+    cum = torch.cumsum(counts, dim=1, dtype=torch.int32)
+    head_bin = policy_math.first_bin_ge_scaled(
+        cum, policy_math.percentile_threshold_scaled(total, head_pct),
+        gather=False)
+    tail_bin = policy_math.first_bin_ge_scaled(
+        cum, policy_math.percentile_threshold_scaled(total, tail_pct),
+        gather=False) + 1
+    load_at, unload_at = policy_math.window_values(
+        head_bin, tail_bin, bin_minutes, range_minutes, margin)
+    use_hist = policy_math.use_histogram_gate(
+        total, oob, cv_sum, cv_sum_sq, n_bins, min_samples, cv_threshold,
+        oob_threshold)
+    zero = torch.zeros((), dtype=torch.float32, device=counts.device)
+    std_unload = torch.tensor(float(np.float32(range_minutes)),
+                              dtype=torch.float32, device=counts.device)
+    prewarm = torch.where(use_hist, load_at, zero)
+    keep = torch.where(use_hist, unload_at, std_unload) - prewarm
+    return (counts, oob, total, cv_sum, cv_sum_sq, prewarm, keep,
+            use_hist.to(torch.int32))
+
+
+def _check_policy_args(args) -> None:
+    counts = args[0]
+    if counts.dim() != 2 or counts.shape[1] < 1:
+        raise ValueError(f"policy_update: counts must be [n, n_bins] with "
+                         f"n_bins >= 1, got {tuple(counts.shape)}")
+    n, dev = counts.shape[0], counts.device
+    i32, f32 = torch.int32, torch.float32
+    names = ("counts", "oob", "total", "cv_sum", "cv_sum_sq", "bins",
+             "active")
+    dtypes = (i32, i32, i32, f32, f32, i32, i32)
+    for name, x, dt in zip(names, args, dtypes):
+        shape = tuple(counts.shape) if name == "counts" else (n,)
+        if x.device != dev or x.dtype != dt or tuple(x.shape) != shape \
+                or not x.is_contiguous():
+            raise ValueError(
+                f"policy_update: {name} must be a contiguous {dt} tensor of "
+                f"shape {shape} on {dev}, got {x.dtype} {tuple(x.shape)} "
+                f"on {x.device}")
+
+
+def _policy_lib() -> ctypes.CDLL:
+    from . import build
+    lib = build.load("policy_update")
+    if not getattr(lib, "_typed", False):
+        fn = lib.policy_update
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + \
+            [ctypes.c_float] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.policy_update_error_string.argtypes = [ctypes.c_int]
+        lib.policy_update_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def _policy_launch(args, knobs):
+    global POLICY_UPDATE_LAUNCHES
+    _check_policy_args(args)
+    lib = _policy_lib()
+    counts = args[0]
+    n, n_bins = counts.shape
+    outs = [torch.empty_like(x) for x in args[1:5]] + \
+        [torch.empty((n,), dtype=dt, device=counts.device)
+         for dt in (torch.float32, torch.float32, torch.int32)]
+    lo, hi = policy_math.margin_factors(knobs["margin"])
+    f32 = lambda x: float(np.float32(x))
+    with torch.cuda.device(counts.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.policy_update(
+            *(x.data_ptr() for x in args), *(o.data_ptr() for o in outs),
+            n, n_bins, policy_math.pct_numer(knobs["head_pct"]),
+            policy_math.pct_numer(knobs["tail_pct"]),
+            int(knobs["min_samples"]), float(lo), float(hi),
+            f32(knobs["bin_minutes"]), f32(knobs["range_minutes"]),
+            f32(knobs["cv_threshold"]), f32(knobs["oob_threshold"]), stream)
+    if rc != 0:
+        raise RuntimeError("policy_update launch failed: "
+                           + lib.policy_update_error_string(rc).decode())
+    POLICY_UPDATE_LAUNCHES += 1
+    return (counts, *outs)
+
+
+def policy_update(counts, oob, total, cv_sum, cv_sum_sq, bins, active, *,
+                  head_pct=5.0, tail_pct=99.0, margin=0.10, bin_minutes=1.0,
+                  range_minutes=240.0, cv_threshold=2.0, min_samples=5,
+                  oob_threshold=0.5):
+    """One control-plane tick: this tick's idle-time bin of every app into
+    its histogram, and the policy windows of the whole fleet.
+
+    ``counts`` ``[n, n_bins]`` int32 raw bin counts (updated IN PLACE),
+    ``oob``/``total`` ``[n]`` int32, ``cv_sum``/``cv_sum_sq`` ``[n]``
+    float32, ``bins`` ``[n]`` int32 (this tick's bin; ``>= n_bins`` is out
+    of bounds, a negative bin is neither), ``active`` ``[n]`` int32 (0/1).
+    Returns the reference's eight, in its order: (counts, oob, total,
+    cv_sum, cv_sum_sq, prewarm, keep_alive, use_hist) — the windows
+    float32, ``use_hist`` int32.
+
+    The percentile compares are int32, as in the reference: ``cum *
+    PCT_SCALE`` and ``total * numer`` wrap around for a row whose counts
+    pass ``policy_math.MAX_SCALED_COUNT`` (214,748 samples in range), and
+    such a row gets the windows of the wrapped compare, exactly as the
+    reference and the plain version give them. Nothing here checks for
+    that (the check would read the device every tick): a tick adds at most
+    one sample a row, so the caller bounds the totals by its tick count.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel (and
+    count one launch in ``POLICY_UPDATE_LAUNCHES``) or raise."""
+    args = (counts, oob, total, cv_sum, cv_sum_sq, bins, active)
+    knobs = dict(head_pct=head_pct, tail_pct=tail_pct, margin=margin,
+                 bin_minutes=bin_minutes, range_minutes=range_minutes,
+                 cv_threshold=cv_threshold, min_samples=min_samples,
+                 oob_threshold=oob_threshold)
+    if counts.device.type == "cpu":
+        return policy_update_plain(*args, **knobs)
+    if counts.device.type == "cuda":
+        return _policy_launch(args, knobs)
+    raise ValueError(f"policy_update: no kernel for device {counts.device}")

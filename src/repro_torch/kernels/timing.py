@@ -1,7 +1,11 @@
-"""Timing of the kernels on the card: per launch (CUDA events) and per
-CUDA function (``torch.profiler`` device time). ``chip_smoke.py`` times
-every kernel with :func:`launch_ms` and splits the SSD scan by pass with
-:func:`pass_ms`; it makes the SSD inputs with :func:`ssd_inputs`.
+"""Timing of the kernels on the card: per call (CUDA events around calls
+run back to back, the wrapper's host work included), per call on the
+device alone (CUDA events around the replay of a CUDA graph of the
+calls) and per CUDA function (``torch.profiler`` device time).
+``chip_smoke.py`` times every kernel with :func:`launch_ms`, the decode
+kernel and the calls it is compared with also with :func:`graph_ms`, and
+splits the SSD scan by pass with :func:`pass_ms`; it makes the SSD inputs
+with :func:`ssd_inputs`.
 """
 from __future__ import annotations
 
@@ -44,6 +48,36 @@ def launch_ms(fn, reps: int) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def graph_ms(fn, reps: int, replays: int = 5) -> float:
+    """Mean device ms per call of ``fn``: ``reps`` calls captured in one
+    CUDA graph, replayed ``replays`` times between CUDA events, so that the
+    host's work for each call (argument checks, allocation, the launch) is
+    left out. ``fn`` must launch its work on the current stream."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):        # warm-up off the capture
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(replays):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    ms = a.elapsed_time(b) / (replays * reps)
+    del graph
+    return ms
 
 
 def pass_ms(fn, reps: int = 5) -> dict:

@@ -1,8 +1,8 @@
 """Shared layers of the ported families, as functions on parameter modules.
 
 The counterpart of ``repro/models/layers.py``, kept to what the serving
-paths of the hybrid (RecurrentGemma) and SSM (Mamba-2) families need.
-Conventions, as in the reference:
+paths of the dense (Qwen2, SmolLM), hybrid (RecurrentGemma) and SSM
+(Mamba-2) families need. Conventions, as in the reference:
 
   * parameters are ``nn.Module`` trees whose names follow the reference's
     parameter pytree (``interop.model_params_from_numpy`` maps one onto
@@ -11,11 +11,17 @@ Conventions, as in the reference:
     to the activation dtype at use (linear weights and biases, the
     embedding table, the conv taps), while those in ``FP32_AT_USE`` stay
     fp32 and ``rmsnorm`` computes in fp32 before the final cast;
-  * attention is GQA with RoPE; ``window > 0`` masks to a local band.
+  * attention is GQA with RoPE; ``window > 0`` masks to a local band;
+  * a KV cache is ``{"k": [per layer [B, max_len, Hkv, hd]], "v": ...,
+    "pos": int}``: one preallocated tensor pair per layer (the reference
+    stacks them ``[n_layers, ...]``), written in place, with ``pos`` a host
+    int.
 
-Left out (on neither path): the KV-cache (dense decode) and
-distributed-decode branches of ``attention_apply``, the cross-entropy
-losses, and ``scan_blocks`` (the port loops over layers in Python).
+Left out (on no path): the distributed-decode branch of
+``attention_apply`` (``dist_decode.applicable`` is false on one device),
+cross-attention (``kv_source``, the encoder-decoder family), the
+cross-entropy losses, and ``scan_blocks`` (the port loops over layers in
+Python).
 """
 from __future__ import annotations
 
@@ -26,12 +32,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..device import resolve_device
 from ..kernels import ops as kops
 from ..kernels.flash_attention import sdpa
 
 __all__ = ["FP32_AT_USE", "compute_dtype", "Linear", "RMSNorm", "Attention", "MLP",
            "Embedding", "normal_", "linear", "rmsnorm", "causal_conv", "rope",
-           "attention_apply", "mlp_apply", "embed", "unembed", "_sdpa"]
+           "attention_apply", "make_cache", "mlp_apply", "embed", "unembed",
+           "_sdpa"]
 
 #: Parameter names (the last part) that stay fp32 at use: the ``rmsnorm``
 #: scales, the RG-LRU ``lam``, and Mamba-2's ``A_log`` and ``dt_bias``
@@ -168,10 +176,22 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 
 def attention_apply(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                     positions: torch.Tensor, *, causal: bool = True,
-                    window: int = 0) -> torch.Tensor:
-    """Self-attention over the whole sequence (no cache). The kernel branch
-    is taken under the reference's condition (``use_kernels``, S a multiple
-    of 128, hd a multiple of 8, causal); otherwise the plain ``_sdpa``."""
+                    window: int = 0, cache=None) -> torch.Tensor:
+    """Self-attention.
+
+    With no ``cache``: over the whole sequence; the kernel branch is taken
+    under the reference's condition (``use_kernels``, S a multiple of 128,
+    hd a multiple of 8, causal), otherwise the plain ``_sdpa``.
+
+    With ``cache = {"k", "v": [B, max_len, Hkv, hd], "pos": int}`` (one
+    layer's pair): this step's K/V are written IN PLACE at ``pos`` and the
+    queries attend over the cache, ``_sdpa(q, ck, cv, causal, q_offset=pos,
+    kv_len=pos+S)`` as in the reference; the caller advances ``pos``. Under
+    ``use_kernels`` (and no window) the kernel computing that function is
+    taken instead: at ``pos == 0`` under the condition above (the prefill),
+    ``flash_attention`` over the cache rows just written (every row at or
+    past S is masked); at ``S == 1`` (decode), ``decode_attention`` with
+    ``kv_len = pos + 1``."""
     B, S, _ = x.shape
     hd = cfg.hd
     q = linear(p.wq, x).reshape(B, S, cfg.n_heads, hd)
@@ -179,11 +199,40 @@ def attention_apply(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     v = linear(p.wv, x).reshape(B, S, cfg.n_kv_heads, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    if cfg.use_kernels and S % 128 == 0 and hd % 8 == 0 and causal:
-        out = kops.flash_attention(q, k, v, window=window)
+    flash_ok = S % 128 == 0 and hd % 8 == 0 and causal
+    if cache is None:
+        if cfg.use_kernels and flash_ok:
+            out = kops.flash_attention(q, k, v, window=window)
+        else:
+            out = _sdpa(q, k, v, causal=causal, window=window, q_offset=0)
     else:
-        out = _sdpa(q, k, v, causal=causal, window=window, q_offset=0)
+        pos = int(cache["pos"])
+        ck, cv = cache["k"], cache["v"]
+        if pos + S > ck.shape[1]:
+            raise ValueError(f"KV cache of {ck.shape[1]} positions is full: "
+                             f"{S} more at position {pos}")
+        ck[:, pos:pos + S] = k.to(ck.dtype)
+        cv[:, pos:pos + S] = v.to(cv.dtype)
+        kernels = cfg.use_kernels and not window
+        if kernels and pos == 0 and flash_ok:
+            out = kops.flash_attention(q, ck[:, :S], cv[:, :S])
+        elif kernels and S == 1:
+            out = kops.decode_attention(q, ck, cv, pos + 1)
+        else:
+            out = _sdpa(q, ck, cv, causal=causal, window=window,
+                        q_offset=pos, kv_len=pos + S)
     return linear(p.wo, out.reshape(B, S, cfg.n_heads * hd))
+
+
+def make_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
+               dtype, device=None):
+    """Zero KV cache of capacity ``max_len``: per layer ``k`` and ``v``
+    ``[batch, max_len, Hkv, hd]`` in ``dtype``; ``pos`` 0."""
+    device = resolve_device(device)
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+    z = lambda: torch.zeros(shape, dtype=dtype, device=device)
+    return {"k": [z() for _ in range(n_layers)],
+            "v": [z() for _ in range(n_layers)], "pos": 0}
 
 
 def mlp_apply(p: MLP, x: torch.Tensor) -> torch.Tensor:

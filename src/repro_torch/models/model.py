@@ -1,7 +1,7 @@
 """The model interface (the port of ``repro/models/model.py``).
 
-``Model(cfg)`` exposes, for the hybrid (RecurrentGemma) and SSM (Mamba-2)
-families:
+``Model(cfg)`` exposes, for the dense (Qwen2, SmolLM), hybrid
+(RecurrentGemma) and SSM (Mamba-2) families:
 
   * ``init(seed, device)``                  — parameter module (fp32)
   * ``forward(params, tokens)``             — full-sequence logits
@@ -9,24 +9,28 @@ families:
   * ``decode_step(params, token, cache)``   — (logits, state)
   * ``n_params()``                          — analytic parameter count
 
-The other families (dense, MoE, encoder-decoder) are not ported yet:
-``Model(cfg)`` raises ``NotImplementedError`` naming the ROADMAP item that
-ports them. :func:`n_params` is plain arithmetic and covers every family.
+The MoE and encoder-decoder families are not ported yet: ``Model(cfg)``
+raises ``NotImplementedError`` naming the ROADMAP item that ports them, and
+so do ``forward`` and ``prefill`` given frontend ``embeds`` (the VLM
+path). :func:`n_params` is plain arithmetic and covers every family.
 """
 from __future__ import annotations
 
 from ..configs.base import ModelConfig
-from . import mamba2, rglru
+from . import mamba2, rglru, transformer
 
-__all__ = ["Model", "build", "n_params", "FAMILY_NOT_PORTED"]
+__all__ = ["Model", "build", "n_params", "FAMILY_NOT_PORTED",
+           "EMBEDS_NOT_PORTED"]
 
 FAMILY_NOT_PORTED = (
     "model family {family!r} is not ported to repro_torch yet (ROADMAP "
-    "Queue A items 9-10: the dense, MoE and encoder-decoder families are "
-    "left); the hybrid (recurrentgemma-2b) and SSM (mamba2-2.7b) families "
-    "are")
+    "Queue A items 9-10: the MoE and encoder-decoder families are left); "
+    "the dense, hybrid and SSM families are")
+EMBEDS_NOT_PORTED = (
+    "frontend embeddings (the VLM path of the dense family) are not ported "
+    "to repro_torch yet (ROADMAP Queue A item 9: frontend.py)")
 
-_FAMILIES = {"hybrid": rglru, "ssm": mamba2}
+_FAMILIES = {"dense": transformer, "hybrid": rglru, "ssm": mamba2}
 
 
 def n_params(cfg: ModelConfig, active_only: bool = False) -> int:
@@ -76,10 +80,17 @@ class Model:
         unless ``device="cpu"``)."""
         return self._m.init(self.cfg, seed, device)
 
-    def forward(self, params, tokens):
+    def forward(self, params, tokens, embeds=None):
+        if embeds is not None:
+            raise NotImplementedError(EMBEDS_NOT_PORTED)
         return self._m.forward(self.cfg, params, tokens)
 
-    def prefill(self, params, tokens, max_len: int = 0):
+    def prefill(self, params, tokens, max_len: int = 0, embeds=None):
+        """Last-token logits and the decode state; ``max_len`` is the KV
+        cache's capacity for the dense family (0: the prompt's length) and
+        is not used by the others, whose state does not grow."""
+        if embeds is not None:
+            raise NotImplementedError(EMBEDS_NOT_PORTED)
         return self._m.prefill(self.cfg, params, tokens, max_len)
 
     def decode_step(self, params, token, cache):

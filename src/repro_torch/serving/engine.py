@@ -6,14 +6,14 @@ loaded apps, and greedy batched decode. PyTorch runs eagerly, so there is
 no ``jit`` and no executable cache: a cold start here is the weights'
 trip to the device (plus, at an app's first load, their initialisation).
 
-Any ported family serves (the hybrid RecurrentGemma and the SSM Mamba-2
-so far). The device copy is cast once at load to the activation dtype,
+Any ported family serves (the dense Qwen2, the hybrid RecurrentGemma and
+the SSM Mamba-2 so far). The device copy is cast once at load to the activation dtype,
 except the parameters the model keeps in fp32 at use
 (``layers.FP32_AT_USE``: the ``rmsnorm`` scales, the RG-LRU ``lam``,
 Mamba-2's ``A_log`` and ``dt_bias``). Casting every other parameter at
 use, as the reference does, gives the same numbers; casting once avoids
 re-reading the fp32 weights (11.6 GB for RecurrentGemma-2B, 10.8 GB for
-Mamba-2-2.7B) on every decode step, and matches the registry's cost
+Mamba-2-2.7B, 30.5 GB for Qwen2-7B) on every decode step, and matches the registry's cost
 model, which counts ``2 * n_params`` bytes per image.
 """
 from __future__ import annotations
@@ -34,14 +34,56 @@ from .registry import Registry
 __all__ = ["ServeEngine"]
 
 
+#: Most bytes of one pinned host chunk the engine packs an image's
+#: parameters into. PyTorch's pinned allocator rounds every allocation up
+#: to a power of two and keeps freed blocks cached by size: one pinned
+#: tensor per parameter would pin 58 GB for Qwen2-7B's 30.5 GB fp32 image,
+#: one buffer per image would round 11.6 GB up to 17.2 GB. Chunks of this
+#: size, with the last one only as large as what is left of the image,
+#: waste at most the rounding of that last chunk, and a later model reuses
+#: the full chunks an earlier one freed. 4 GiB holds the largest parameter
+#: served (RecurrentGemma-2B's 2.6 GB embedding table).
+HOST_CHUNK_BYTES = 1 << 32
+
+_HOST_ALIGN = 64                        # bytes; keeps every view aligned
+
+
+def _host_layout(sizes, chunk_bytes: int = HOST_CHUNK_BYTES):
+    """Where parameters of ``sizes`` bytes go in host memory: the chunks'
+    sizes and, per parameter, its (chunk, byte offset). First fit, each
+    view aligned to ``_HOST_ALIGN``; a new chunk holds ``chunk_bytes`` or,
+    where less is still to place, just that (so a small image is one
+    allocation of its own size); a larger parameter gets a chunk of its
+    own."""
+    aligned = [-(-n // _HOST_ALIGN) * _HOST_ALIGN for n in sizes]
+    left = sum(aligned)
+    chunks, used, where = [], [], []
+    for n, a in zip(sizes, aligned):
+        c = next((i for i, (cap, u) in enumerate(zip(chunks, used))
+                  if u + n <= cap), None)
+        if c is None:
+            c = len(chunks)
+            chunks.append(max(n, min(chunk_bytes, left)))
+            used.append(0)
+        where.append((c, used[c]))
+        used[c] += a
+        left -= a
+    return chunks, where
+
+
 def _to_host(params: nn.Module, pin: bool) -> nn.Module:
-    """Move ``params`` to host memory in place (pinned when ``pin``, so the
-    reloads copy at the bus's full rate)."""
+    """Move ``params`` to host memory in place, each parameter a view into
+    a host chunk laid out by :func:`_host_layout` (pinned when ``pin``, so
+    the reloads copy at the bus's full rate)."""
+    moved = [p for p in params.parameters() if p.device.type != "cpu"]
+    sizes = [p.numel() * p.element_size() for p in moved]
+    chunks, where = _host_layout(sizes)
+    bufs = [torch.empty(n, dtype=torch.uint8, pin_memory=pin)
+            for n in chunks]
     with torch.no_grad():
-        for p in params.parameters():
-            if p.device.type != "cpu":
-                host = torch.empty(p.shape, dtype=p.dtype, pin_memory=pin)
-                p.data = host.copy_(p.data)
+        for p, n, (c, off) in zip(moved, sizes, where):
+            host = bufs[c][off:off + n].view(p.dtype)
+            p.data = host.view(p.shape).copy_(p.data)
     return params
 
 

@@ -24,6 +24,9 @@ def test_imports_with_jax_blocked():
         "import repro_torch.kernels.ops, repro_torch.kernels.build\n"
         "import repro_torch.configs, repro_torch.models, repro_torch.serving\n"
         "import repro_torch.serving.engine, repro_torch.serving.warmpool\n"
+        "import repro_torch.models.transformer\n"
+        "import repro_torch.kernels.decode_attention\n"
+        "import repro_torch.kernels.histogram\n"
         "assert not [m for m in sys.modules if m.startswith('jax')"
         " and sys.modules[m] is not None]\n"
         "print('ok')\n")
@@ -72,16 +75,22 @@ def test_serve_engine_asked_for_cuda_without_a_card_raises(monkeypatch):
 
 @pytest.mark.parametrize("arch,entry", [
     ("mamba2-2.7b", "init"), ("mamba2-2.7b", "init_state"),
-    ("recurrentgemma-2b", "init"), ("recurrentgemma-2b", "init_cache")])
+    ("recurrentgemma-2b", "init"), ("recurrentgemma-2b", "init_cache"),
+    ("qwen2-7b", "init"), ("qwen2-7b", "make_cache")])
 def test_model_entry_points_default_to_cuda(monkeypatch, arch, entry):
     """Weights and decode state are made on the card unless the caller
     asks for the CPU; without a card that raises."""
     from repro_torch import configs
-    from repro_torch.models import mamba2, rglru
+    from repro_torch.models import layers, mamba2, rglru, transformer
     cfg = configs.reduced(configs.get(arch))
-    mod = mamba2 if cfg.family == "ssm" else rglru
-    call = (lambda **kw: mod.init(cfg, 0, **kw)) if entry == "init" else \
-        (lambda **kw: getattr(mod, entry)(cfg, 1, torch.float32, **kw))
+    mod = {"ssm": mamba2, "hybrid": rglru, "dense": transformer}[cfg.family]
+    if entry == "init":
+        call = lambda **kw: mod.init(cfg, 0, **kw)
+    elif entry == "make_cache":
+        call = lambda **kw: layers.make_cache(cfg, 1, 8, 2, torch.float32,
+                                              **kw)
+    else:
+        call = lambda **kw: getattr(mod, entry)(cfg, 1, torch.float32, **kw)
     assert call(device="cpu") is not None
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):

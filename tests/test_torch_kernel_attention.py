@@ -13,6 +13,9 @@ against the TPU kernel it replaces and the reference's plain attention.
   * S=640 against ``attention_ref`` only: the Pallas kernel sets
     ``bk = min(512, S)`` and ``nk = S // bk`` and so never visits keys
     512-639 at S=640 (a fault of the reference recorded in ROADMAP);
+  * the plain attention's ``kv_len`` mask (the dense KV-cache branch)
+    against the reference's ``_sdpa``, with scalar and per-batch
+    ``q_offset`` and ``kv_len``;
   * the wrapper's argument checks raise before any launch;
   * on a CUDA card (test marked ``gpu``, skipped elsewhere) the CUDA
     kernel against the plain version, at small shapes and at the serving
@@ -41,7 +44,9 @@ def ref():
                        raising=False)
         from repro.kernels import ops as jops
         from repro.kernels import ref as jref
-        yield SimpleNamespace(ops=jops, ref=jref, jnp=jax.numpy)
+        from repro.models import layers as jlayers
+        yield SimpleNamespace(ops=jops, ref=jref, jnp=jax.numpy,
+                              layers=jlayers)
 
 
 def _inputs(seed, B, S, Hq, Hkv, D):
@@ -104,6 +109,32 @@ def test_plain_attention_at_640_rows(ref):
     got = _port(arrays, "float32", 128)
     (want,) = _reference(ref, arrays, "float32", 128, pallas=False)
     np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("q_offset,kv_len", [
+    (0, 24), (16, 20), ([3, 9], 16), ([0, 10], [6, 14]), (8, [9, 13])])
+@pytest.mark.parametrize("causal", [True, False])
+def test_sdpa_kv_len_matches_reference(ref, q_offset, kv_len, causal):
+    """The plain attention over a KV cache (the dense family's cache
+    branch): queries at ``q_offset`` (scalar or per batch row) against a
+    24-row cache whose keys at or past ``kv_len`` (scalar or per batch row)
+    are masked, against the reference's ``_sdpa(..., kv_len=...)``; f32
+    within 2e-5."""
+    rng = np.random.default_rng(5)
+    q = rng.normal(size=(2, 4, 4, 32)).astype(np.float32)
+    k = rng.normal(size=(2, 24, 2, 32)).astype(np.float32)
+    v = rng.normal(size=(2, 24, 2, 32)).astype(np.float32)
+    jnp = ref.jnp
+    want = ref.layers._sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            causal=causal, window=0,
+                            q_offset=jnp.asarray(q_offset),
+                            kv_len=jnp.asarray(kv_len))
+    got = FA.sdpa(torch.from_numpy(q), torch.from_numpy(k),
+                  torch.from_numpy(v), causal=causal, window=0,
+                  q_offset=torch.tensor(q_offset),
+                  kv_len=torch.tensor(kv_len))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=2e-5)
 
 
 def test_check_cuda_args_rejects_what_the_kernel_does_not_take():

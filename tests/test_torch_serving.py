@@ -4,13 +4,19 @@
     on the port's pool and on the reference's side by side; the returned
     values, ``PoolStats`` and every ``AppState`` must be equal (pure
     Python: exact), and so must the ``state_dict`` and its round trip;
-  * ``ServeEngine``: on a reduced hybrid endpoint and on a reduced Mamba-2
-    endpoint whose host weight store is filled from the reference engine's
-    ``_weights`` through interop, ``generate`` gives the same tokens as the
-    reference's ``ServeEngine`` (f32 on the CPU, S=128 so both take their
-    kernel branches); ``load``, ``unload`` and ``is_loaded`` behave as the
-    reference's do; the device copy keeps the ``FP32_AT_USE`` parameters
-    in f32 and casts the rest to the activation dtype.
+  * ``ServeEngine``: on a reduced hybrid, Mamba-2 and Qwen2 (dense, KV
+    cache) endpoint whose host weight store is filled from the reference
+    engine's ``_weights`` through interop, ``generate`` gives the same
+    tokens as the reference's ``ServeEngine`` (f32 on the CPU, S=128 so
+    both take their kernel branches); ``load``, ``unload`` and
+    ``is_loaded`` behave as the reference's do; the device copy keeps the
+    ``FP32_AT_USE`` parameters in f32 and casts the rest to the activation
+    dtype;
+  * a reduced Qwen2 endpoint behind the ``WarmPool`` on the CPU, the pool's
+    decisions mirrored onto the engine as ``chip_smoke.py`` does: a cold
+    start, a warm start, and one engine load per cold start;
+  * Qwen2-7B's cost model at full width: 15.2 GB of bf16 weights, a 0.76 s
+    cold start.
 """
 import dataclasses
 from types import SimpleNamespace
@@ -190,11 +196,20 @@ def test_endpoint_cost_model_equals_reference(ref):
             want.cold_start_seconds(cached)
 
 
+def test_qwen2_cost_model():
+    """Qwen2-7B at full width: 2 x 7.62B bf16 bytes, 0.15 s + bytes / 25
+    GB/s, as the reference's endpoint gives."""
+    ep = port_registry.ModelEndpoint("q", port_configs.get("qwen2-7b"))
+    assert ep.weight_bytes == 2 * 7_615_283_200
+    assert ep.cold_start_seconds(True) == pytest.approx(0.759, abs=1e-3)
+
+
 # -- the engine ----------------------------------------------------------------
 
 
 @pytest.mark.parametrize("arch,n_layers", [("recurrentgemma-2b", 5),
-                                           ("mamba2-2.7b", 2)])
+                                           ("mamba2-2.7b", 2),
+                                           ("qwen2-7b", 2)])
 def test_engine_generates_the_reference_tokens(ref, arch, n_layers):
     S, max_new, app = 128, 6, "app-000000"
     jcfg = ref.configs.reduced(ref.configs.get(arch)).with_(
@@ -283,3 +298,62 @@ def test_engine_keeps_the_ssm_decay_and_step_bias_fp32():
     host = dict(eng._weights[app].named_parameters())
     assert torch.equal(eng._loaded[app].layers[0].A_log,
                        host["layers.0.A_log"])
+
+
+def test_dense_endpoint_behind_the_warm_pool():
+    """A reduced Qwen2 endpoint (KV cache, ``use_kernels``) served behind
+    the hybrid-policy pool on the CPU: the first request is cold and loads
+    the weights once, the second, a minute later, is warm and loads
+    nothing; each generates the same tokens from the same prompt."""
+    cfg = port_configs.reduced(port_configs.get("qwen2-7b")).with_(
+        use_kernels=True)
+    reg = port_registry.Registry()
+    reg.register(port_registry.ModelEndpoint("q0", cfg, seed=4))
+    eng = port_engine.ServeEngine(reg, device="cpu")
+    pool = port_warmpool.WarmPool(
+        reg, port_experiment.HybridSpec(use_arima=False))
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 128)))
+    loads, seen = [], []
+
+    def mirror():
+        resident = pool.state["q0"].loaded
+        if resident and not eng.is_loaded("q0"):
+            loads.append(eng.load("q0"))
+        elif not resident and eng.is_loaded("q0"):
+            eng.unload("q0")
+
+    for minute in (0.0, 1.0):
+        now = minute * MIN
+        pool.tick(now)
+        cold, _ = pool.on_request("q0", now)
+        mirror()
+        out, _ = eng.generate("q0", toks, max_new=4, max_len=132)
+        pool.on_request_end("q0", now)
+        mirror()
+        seen.append((cold, out))
+    assert [c for c, _ in seen] == [True, False]
+    assert torch.equal(seen[0][1], seen[1][1])
+    assert seen[0][1].shape == (2, 4)
+    st = pool.stats
+    assert (st.cold_starts, st.warm_starts) == (1, 1)
+    assert len(loads) == st.cold_starts + st.prewarms == 1
+
+
+@pytest.mark.parametrize("sizes,chunk,want_chunks", [
+    ([1000, 3000, 64], 1 << 32, [4096]),        # a small image: one buffer
+    ([40, 40, 40], 128, [128, 64]),             # full chunk, then the tail
+    ([100, 300, 50], 256, [256, 300]),          # a larger parameter alone
+])
+def test_host_layout_sizes_the_last_chunk_to_the_tail(sizes, chunk,
+                                                      want_chunks):
+    """The engine's pinned host store: chunks of at most ``chunk`` bytes,
+    the last one only as large as what is left to place, every view
+    64-byte aligned, inside its chunk and apart from every other."""
+    chunks, where = port_engine._host_layout(sizes, chunk)
+    assert chunks == want_chunks
+    spans = sorted((c, off, off + n) for n, (c, off) in zip(sizes, where))
+    for (c, lo, hi), nxt in zip(spans, spans[1:] + [None]):
+        assert lo % 64 == 0 and hi <= chunks[c]
+        if nxt is not None and nxt[0] == c:
+            assert hi <= nxt[1]
