@@ -69,6 +69,29 @@ SWEEP_APPS = 100_000
 # width (2,560).
 SERVE_BATCH, SERVE_SEQ, SERVE_NEW = 2, 4096, 16
 ATTN_SHAPE = dict(B=SERVE_BATCH, S=SERVE_SEQ, Hq=10, Hkv=1, D=256, W=2048)
+# Qwen2-7B's prefill attention: 28 q heads over 4 KV heads of 128, causal,
+# k and v the first SERVE_SEQ rows of the SERVE_SEQ + SERVE_NEW-row cache
+QWEN2_ATTN_SHAPE = dict(B=SERVE_BATCH, S=SERVE_SEQ, Hq=28, Hkv=4, D=128, W=0)
+# bf16 attention kernel vs its plain version, (atol as a share of the
+# largest |want|, rtol). Both compute the softmax in f32 and round the
+# output to bf16 once (2^-8 of its magnitude at most: rtol 8e-3); the kernel
+# also rounds P to bf16 before P v, 2^-9 of each weight, which in a row with
+# few keys moves the output by up to 2^-9 of the largest |v|, about 2e-3 of
+# the largest |want| here (the first full run measured 1.1e-3 of it, 0.0039
+# at a row with two keys): atol 3e-3 of the largest |want|. The reference's
+# 2e-2 (atol and rtol) is more than the typical output at the serving
+# shapes (median |out| about 0.03): a kernel that left out one 64-key tile
+# passed it. attention_parity computes, at both path shapes, what leaving
+# out one tile does and fails unless this bound catches it.
+ATTN_BF16_TOL = (3e-3, 8e-3)
+ATTN_DROPPED_TILE = 64
+# The forms every launch of the serving paths must take, and the
+# instantiations they run, which must build with no register spills.
+SERVE_FORMS = {"flash_attention": "hopper", "decode_attention": "tensor_cores"}
+NO_SPILL_KERNELS = {
+    "flash_attention": ("flash_attention_hopper_kernel<256>",
+                        "flash_attention_hopper_kernel<128>"),
+    "decode_attention": ("decode_attention_mma_kernel<128,1,3>",)}
 RGLRU_SHAPE = (SERVE_BATCH, SERVE_SEQ, 2560)
 ATTN_PER_PREFILL, RGLRU_PER_PREFILL = 8, 18
 # (minute, endpoint): both cold first, both warm 30 minutes on, and the
@@ -129,6 +152,8 @@ SERVE_QWEN2_DECODE_STEPS = 4
 # is about 0.02 and leaving out one 128-key split moves it by about 5e-3,
 # far past this bound (the reference's 2e-2 would let that through).
 DECODE_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-3, 8e-3)}
+# split lengths at which times_decode also times the decode kernel
+DECODE_SPLIT_KEYS_TIMED = (128, 256, 384, 512)
 # Qwen2-7B kernel path vs plain branches through 28 bf16 layers: as for the
 # other two models, the last-token logits within 5% of their largest
 # magnitude; the same gate holds the logits of the decode steps.
@@ -319,33 +344,92 @@ def rglru_inputs(B, L, D, device, seed):
     return b_in, a
 
 
+def attention_tol(dtype, want):
+    """(atol, rtol) for the attention kernel against its plain output
+    ``want``: f32 2e-5 (IEEE f32 on both sides, the sums in another order),
+    bf16 ATTN_BF16_TOL with atol scaled by the largest |want|."""
+    if dtype == "float32":
+        return 2e-5, 2e-5
+    frac, rtol = ATTN_BF16_TOL
+    return frac * float(want.abs().max()), rtol
+
+
+def plain_without_keys(q, k, v, window, lo, hi):
+    """The plain attention with keys [lo, hi) masked as well: what a kernel
+    that left out one key tile would give."""
+    import math
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    B, S, Hq, D = q.shape
+    group = Hq // k.shape[2]
+    kf = k.repeat_interleave(group, dim=2).float()
+    vf = v.repeat_interleave(group, dim=2).float()
+    i = torch.arange(S, device=q.device)
+    mask = FA._band(i[:, None], i[None, None, :], True, window)
+    mask &= ~((i >= lo) & (i < hi))
+    return FA._softmax_attend(q.float() / math.sqrt(D), kf, vf,
+                              mask).to(q.dtype)
+
+
 def attention_parity(device):
-    """The attention kernel against its plain version: the serving path's
-    shape in bf16 (2e-2), f32 cases within 2e-5 (IEEE f32 on both sides;
-    the sums run in another order), and S=640, which the TPU kernel gets
-    wrong. Returns the largest absolute difference seen."""
+    """The attention kernel against its plain version: both serving paths'
+    shapes in bf16 (RecurrentGemma: D 256, window 2,048; Qwen2: D 128,
+    causal, k and v the first rows of a longer cache) at ATTN_BF16_TOL,
+    with the largest and median |out| and what leaving out one 64-key tile
+    would do (the gate must catch that); f32 cases within 2e-5; S=640,
+    which the TPU kernel gets wrong; and the form each case took. Returns
+    the largest absolute difference seen."""
     import torch
     from repro_torch.kernels import flash_attention as FA
 
-    a = ATTN_SHAPE
-    cases = [((a["B"], a["S"], a["Hq"], a["Hkv"], a["D"]), torch.bfloat16,
-              a["W"], 2e-2),
-             ((2, 1024, 8, 2, 128), torch.float32, 0, 2e-5),
-             ((2, 1024, 8, 2, 128), torch.float32, 256, 2e-5),
-             ((1, 640, 10, 1, 256), torch.float32, 128, 2e-5),
-             ((2, 640, 10, 1, 256), torch.bfloat16, 2048, 2e-2)]
+    shape = lambda a: (a["B"], a["S"], a["Hq"], a["Hkv"], a["D"])
+    bf16, f32 = torch.bfloat16, torch.float32
+    rg, qw = ATTN_SHAPE, QWEN2_ATTN_SHAPE
+    # (shape, dtype, window, extra cache rows of k and v, drop-tile check)
+    cases = [(shape(rg), bf16, rg["W"], 0, True),
+             (shape(qw), bf16, qw["W"], SERVE_NEW, True),
+             ((2, 1024, 8, 2, 128), f32, 0, 0, False),
+             ((2, 1024, 8, 2, 128), f32, 256, 0, False),
+             ((1, 640, 10, 1, 256), f32, 128, 0, False),
+             ((2, 640, 10, 1, 256), bf16, 2048, 0, False),
+             ((2, 640, 28, 4, 128), bf16, 0, SERVE_NEW, False),
+             ((1, 200, 2, 2, 40), bf16, 0, 0, False)]
     worst = 0.0
-    for k, (shape, dtype, window, tol) in enumerate(cases):
-        q, kk, v = attention_inputs(*shape, dtype, device, seed=10 + k)
+    for n, (shp, dtype, window, extra, drop) in enumerate(cases):
+        B, S, Hq, Hkv, D = shp
+        q, kk, v = attention_inputs(B, S + extra, Hq, Hkv, D, dtype, device,
+                                    seed=10 + n)
+        q, kk, v = q[:, :S].contiguous(), kk[:, :S], v[:, :S]
+        form = FA._form(q, kk, v)
         got = FA.flash_attention(q, kk, v, window=window)
         want = FA.flash_attention_plain(q, kk, v, window=window)
         torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        torch.testing.assert_close(got.float(), want.float(), atol=tol,
-                                   rtol=tol)
+        got, want = got.float(), want.float()
+        dname = str(dtype).replace("torch.", "")
+        atol, rtol = attention_tol(dname, want)
+        torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+        err = float((got - want).abs().max())
         worst = max(worst, err)
-        emit("attention_parity", shape=list(shape), dtype=str(dtype),
-             window=window, tol=tol, max_abs_err=err)
+        fields = {}
+        if drop:
+            lo = S // 2
+            dropped = plain_without_keys(q, kk, v, window, lo,
+                                         lo + ATTN_DROPPED_TILE).float()
+            moved = (dropped - want).abs()
+            caught = not torch.allclose(dropped, want, atol=atol, rtol=rtol)
+            if not caught:
+                raise AssertionError(f"the bf16 attention gate at {shp} "
+                                     f"would pass a kernel that left out "
+                                     f"keys [{lo}, {lo + ATTN_DROPPED_TILE})")
+            fields = dict(dropped_tile=[lo, lo + ATTN_DROPPED_TILE],
+                          dropped_tile_max_abs_diff=float(moved.max()),
+                          dropped_tile_rows_max_abs_diff_median=float(
+                              moved.amax(dim=(0, 2, 3))[lo:].median()),
+                          dropped_tile_caught=caught)
+        emit("attention_parity", shape=list(shp), dtype=dname, window=window,
+             kv_cache_rows=S + extra, form=form, atol=atol, rtol=rtol,
+             max_abs_err=err, max_abs_out=float(want.abs().max()),
+             median_abs_out=float(want.abs().median()), **fields)
     return worst
 
 
@@ -642,8 +726,10 @@ def serve(device, phase, arch, prefix, kernels, logits_rel_tol,
     (SERVE_F32_DIST_FACTOR); with ``decode_steps``, so are the logits of
     that many teacher-forced decode steps from the kernel path's prefill
     state (each path on its own copy of it). Before the f32 check the
-    endpoint not under check is unloaded (the stream is over). Returns the
-    stream's launches by kernel name and the number of requests."""
+    endpoint not under check is unloaded (the stream is over). Every
+    launch of a kernel module with forms must take the form SERVE_FORMS
+    names. Returns the stream's launches by kernel name, its launches by
+    form and the number of requests."""
     import torch
     from repro_torch.configs import get
     from repro_torch.core.experiment import HybridSpec
@@ -677,6 +763,8 @@ def serve(device, phase, arch, prefix, kernels, logits_rel_tol,
     torch.cuda.reset_peak_memory_stats()
     for mod, _ in kernels.values():
         mod.LAUNCHES = 0                  # count the serving path's launches
+        for form in getattr(mod, "LAUNCHES_BY_FORM", {}):
+            mod.LAUNCHES_BY_FORM[form] = 0
     want = {name: n for name, (_, n) in kernels.items()}
     requests = []
     for minute, i in SERVE_STREAM:
@@ -707,6 +795,14 @@ def serve(device, phase, arch, prefix, kernels, logits_rel_tol,
     peak = torch.cuda.max_memory_allocated()
     if min(launches.values()) <= 0:
         raise AssertionError(f"the serving path launched {launches}")
+    by_form = {name: dict(mod.LAUNCHES_BY_FORM)
+               for name, (mod, _) in kernels.items()
+               if hasattr(mod, "LAUNCHES_BY_FORM")}
+    for name, forms in by_form.items():
+        if forms.get(SERVE_FORMS[name]) != launches[name]:
+            raise AssertionError(f"{name}: {forms} by form, not all "
+                                 f"{launches[name]} in the "
+                                 f"{SERVE_FORMS[name]} form")
     st = pool.stats
     if len(loads) != st.cold_starts + st.prewarms:
         raise AssertionError(f"{len(loads)} engine loads for "
@@ -817,12 +913,13 @@ def serve(device, phase, arch, prefix, kernels, logits_rel_tol,
                                for s in warm_prefill],
          decode_ms_per_step=[1e3 * s / (SERVE_NEW - 1) for s in warm_decode],
          peak_device_bytes=peak, launches=launches,
-         logits_max_abs_diff_vs_plain=diff, logits_max_abs=scale,
+         launches_by_form=by_form, logits_max_abs_diff_vs_plain=diff,
+         logits_max_abs=scale,
          logits_rel_tol=logits_rel_tol,
          argmax_agreement_vs_plain=same_argmax, **decode_fields,
          logits_max_abs_diff_vs_plain_f32=vs_f32,
          f32_dist_factor=SERVE_F32_DIST_FACTOR, profile=profile)
-    return launches, len(requests)
+    return launches, by_form, len(requests)
 
 
 def _kernel_class(name: str) -> str:
@@ -1093,48 +1190,117 @@ def time_kernel(host: np.ndarray, device):
     return kernel_ms, plain_ms, bound_ms, bound_by
 
 
-def time_attention(device):
-    """The attention kernel at the serving path's shape, its plain version,
-    and scaled_dot_product_attention with the same boolean band mask and
-    enable_gqa (timed here only; the port never calls it)."""
+class uncounted:
+    """Timing launches do not count: the launch counters of a kernel
+    module (LAUNCHES and, where it has one, LAUNCHES_BY_FORM) are put back
+    as they were on exit."""
+
+    def __init__(self, mod):
+        self.mod = mod
+
+    def __enter__(self):
+        self.saved = (self.mod.LAUNCHES,
+                      dict(getattr(self.mod, "LAUNCHES_BY_FORM", {})))
+
+    def __exit__(self, *exc):
+        self.mod.LAUNCHES = self.saved[0]
+        if hasattr(self.mod, "LAUNCHES_BY_FORM"):
+            self.mod.LAUNCHES_BY_FORM.update(self.saved[1])
+
+
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+                 "MATH")
+
+
+def sdpa_times(calls):
+    """Device ms (CUDA-graph replay) of one scaled_dot_product_attention
+    call per variant in ``calls`` ({name: (fn, reps)}): unpinned (the
+    backend PyTorch picks, "default") and with each backend pinned in turn
+    (torch.nn.attention.sdpa_kernel); a backend that refuses the call is
+    recorded with its reason. Returns (times {variant: {backend: ms or
+    reason}}, the fastest call (ms, variant, backend or "default"))."""
+    import warnings
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels.timing import graph_ms
+
+    times, best = {}, None
+    for name, (fn, reps) in calls.items():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            times[name] = {"default": graph_ms(fn, reps, 2)}
+        if best is None or times[name]["default"] < best[0]:
+            best = (times[name]["default"], name, "default")
+        for be in SDPA_BACKENDS:
+            try:
+                with sdpa_kernel([getattr(SDPBackend, be)]), \
+                        warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    ms = graph_ms(fn, reps if be != "MATH" else 1, 2)
+            except RuntimeError as e:
+                times[name][be] = f"refused: {str(e).splitlines()[0][:80]}"
+                continue
+            times[name][be] = ms
+            if best is None or ms < best[0]:
+                best = (ms, name, be)
+    return times, best
+
+
+def time_attention(device, a, seed):
+    """The attention kernel at one serving path's shape ``a`` (k and v
+    views of a longer cache for the dense model, as its prefill passes
+    them), by CUDA-graph replay (device only) and per call with its host
+    work; its plain version; and scaled_dot_product_attention computing the
+    same function (timed here only; the port never calls it): the boolean
+    band mask, and is_causal where there is no window, each backend pinned
+    in turn; the fastest accepted call is the yardstick."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels.timing import launch_ms
+    from repro_torch.kernels.timing import graph_ms, launch_ms
 
-    a = ATTN_SHAPE
     B, S, Hq, Hkv, D, W = (a[k] for k in ("B", "S", "Hq", "Hkv", "D", "W"))
-    q, k, v = attention_inputs(B, S, Hq, Hkv, D, torch.bfloat16, device,
-                               seed=30)
-    n0 = FA.LAUNCHES
-    kernel_ms = launch_ms(lambda: FA.flash_attention(q, k, v, window=W), 10)
-    plain_ms = launch_ms(
-        lambda: FA.flash_attention_plain(q, k, v, window=W), 3)
+    extra = SERVE_NEW if W == 0 else 0
+    q, k, v = attention_inputs(B, S + extra, Hq, Hkv, D, torch.bfloat16,
+                               device, seed=seed)
+    q, k, v = q[:, :S].contiguous(), k[:, :S], v[:, :S]
+    form = FA._form(q, k, v)
+    run = lambda: FA.flash_attention(q, k, v, window=W)
+    with uncounted(FA):
+        kernel_ms = graph_ms(run, 10)
+        kernel_call_ms = launch_ms(run, 10)
+        plain_ms = launch_ms(
+            lambda: FA.flash_attention_plain(q, k, v, window=W), 3)
     i = torch.arange(S, device=device)
-    band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - W)
+    band = i[None, :] <= i[:, None]
+    if W:
+        band &= i[None, :] > i[:, None] - W
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    library_ms = launch_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=band, enable_gqa=True), 10)
-    FA.LAUNCHES = n0                     # timing launches do not count
+    calls = {"band_mask": (lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=band, enable_gqa=True), 10)}
+    if not W:
+        calls["is_causal"] = (lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+    lib, best = sdpa_times(calls)
     # live (query, key) pairs per (b, h): sum over i of min(i + 1, W)
-    pairs = sum(min(r + 1, W) for r in range(S))
+    pairs = sum(min(r + 1, W) if W else r + 1 for r in range(S))
     ops = 4.0 * B * Hq * D * pairs
     nbytes = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
     ops_ms = ops / BF16_TENSOR_OPS_PER_S * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    emit("times_attention", shape=[B, S, Hq, Hkv, D], window=W,
-         dtype="bfloat16", kernel_ms=kernel_ms, plain_ms=plain_ms,
-         library_ms=library_ms,
-         library="scaled_dot_product_attention(attn_mask=band, "
-                 "enable_gqa=True)",
-         live_pairs_per_head=pairs, operations=ops, bytes=nbytes,
-         bound_ms=max(ops_ms, bytes_ms),
-         bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-         ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms,
-         cuda_core_ops_bound_ms=ops / F32_CUDA_CORE_OPS_PER_S * 1e3,
-         launches_per_request=ATTN_PER_PREFILL)
-    return kernel_ms, plain_ms, max(ops_ms, bytes_ms), \
-        "operations" if ops_ms >= bytes_ms else "bytes", library_ms
+    bound_ms = max(ops_ms, bytes_ms)
+    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+    out = dict(shape=[B, S, Hq, Hkv, D], window=W, dtype="bfloat16",
+               form=form, kernel_ms=kernel_ms,
+               timed_by="CUDA graph replay (device only)",
+               kernel_call_ms=kernel_call_ms, plain_ms=plain_ms,
+               library_ms=best[0], library_call=best[1],
+               library_backend=best[2], library_ms_by_backend=lib,
+               live_pairs_per_head=pairs, operations=ops, bytes=nbytes,
+               bound_ms=bound_ms, bound_by=bound_by, ops_bound_ms=ops_ms,
+               bytes_bound_ms=bytes_ms, share_of_bound=bound_ms / kernel_ms,
+               cuda_core_ops_bound_ms=ops / F32_CUDA_CORE_OPS_PER_S * 1e3)
+    emit("times_attention", **out)
+    return out
 
 
 def time_rglru(device):
@@ -1209,13 +1375,16 @@ def time_ssd(device):
 def time_decode(device):
     """The decode kernel at the Qwen2-7B serving shape (bf16, the full
     4,112-row cache), its plain version, and scaled_dot_product_attention
-    with enable_gqa and the same boolean kv_len mask (timed here only; the
-    port never calls it). Each call reads one of eight caches in turn (135
-    MB, more than the 50 MB L2), as a decode step finds each layer's cache
-    cold. Each is timed twice: on the device alone (a CUDA graph of the
-    calls replayed; the ``ms`` this script reports) and per call run back
-    to back, the host's work included (both are host-bound there, so that
-    second time compares the wrappers, not the kernels)."""
+    with enable_gqa, with the boolean kv_len mask and without one (the same
+    function at kv_len = Skv), each SDPA backend pinned in turn (timed here
+    only; the port never calls it; the fastest accepted call is the
+    yardstick). Each call reads one of eight caches in turn (135 MB, more
+    than the 50 MB L2), as a decode step finds each layer's cache cold.
+    Times are device time by CUDA-graph replay (the ``ms`` this script
+    reports) and, for the kernel, its plain version and the unmasked
+    library call, per call run back to back with the host's work (both are
+    host-bound there, so that time compares the wrappers, not the
+    kernels)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as DA
@@ -1236,18 +1405,32 @@ def time_decode(device):
         return call
 
     mask = (torch.arange(Skv, device=device) < kv_len)[None, None, None]
+    sdpa = lambda q, k, v, **kw: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        enable_gqa=True, **kw)
     calls = {
         "kernel": (cycled(lambda q, k, v: DA.decode_attention(
             q, k, v, kv_len)), 200),
         "plain": (cycled(lambda q, k, v: DA.decode_attention_plain(
-            q, k, v, kv_len)), 24),
-        "library": (cycled(lambda q, k, v: F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            attn_mask=mask, enable_gqa=True)), 200)}
-    n0 = DA.LAUNCHES
-    device_ms = {k: graph_ms(fn, reps) for k, (fn, reps) in calls.items()}
-    call_ms = {k: launch_ms(fn, reps) for k, (fn, reps) in calls.items()}
-    DA.LAUNCHES = n0                     # timing launches do not count
+            q, k, v, kv_len)), 24)}
+    with uncounted(DA):
+        device_ms = {k: graph_ms(fn, reps) for k, (fn, reps) in calls.items()}
+        call_ms = {k: launch_ms(fn, reps) for k, (fn, reps) in calls.items()}
+        # the kernel at other split lengths (the wrapper's is SPLIT_KEYS)
+        split_ms, chosen = {}, DA.SPLIT_KEYS
+        try:
+            for keys in DECODE_SPLIT_KEYS_TIMED:
+                DA.SPLIT_KEYS = keys
+                split_ms[keys] = graph_ms(calls["kernel"][0], 200)
+        finally:
+            DA.SPLIT_KEYS = chosen
+    # the library call: the kv_len mask, and no mask (the same function
+    # here, where kv_len is the whole cache), each backend pinned in turn
+    lib, best = sdpa_times({
+        "kv_len_mask": (cycled(lambda q, k, v: sdpa(q, k, v,
+                                                     attn_mask=mask)), 100),
+        "no_mask": (cycled(sdpa), 100)})
+    library_call_ms = launch_ms(cycled(sdpa), 100)
     # Least bytes: K and V up to kv_len read once, q read and the output
     # written once (bf16). Least operations: q.k and p.v for every live key
     # of every q head.
@@ -1257,20 +1440,23 @@ def time_decode(device):
     ops_ms = ops / BF16_TENSOR_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    kernel_ms, plain_ms, library_ms = (
-        device_ms[k] for k in ("kernel", "plain", "library"))
-    emit("times_decode", shape=[B, Skv, Hq, Hkv, D], kv_len=kv_len,
-         dtype="bfloat16", kernel_ms=kernel_ms, plain_ms=plain_ms,
-         library_ms=library_ms, timed_by="CUDA graph replay (device only)",
-         kernel_call_ms=call_ms["kernel"], plain_call_ms=call_ms["plain"],
-         library_call_ms=call_ms["library"],
-         library="scaled_dot_product_attention(attn_mask=kv_len mask, "
-                 "enable_gqa=True)",
-         bytes=nbytes, operations=ops, bound_ms=bound_ms, bound_by=bound_by,
-         bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms,
-         cuda_core_ops_bound_ms=ops / F32_CUDA_CORE_OPS_PER_S * 1e3,
-         launches_per_request=QWEN2_DECODE_PER_REQUEST)
-    return kernel_ms, plain_ms, bound_ms, bound_by, library_ms
+    kernel_ms, plain_ms = device_ms["kernel"], device_ms["plain"]
+    out = dict(shape=[B, Skv, Hq, Hkv, D], kv_len=kv_len, dtype="bfloat16",
+               form=DA._form(*bufs[0]), split_keys=chosen,
+               kernel_ms=kernel_ms, kernel_ms_by_split_keys=split_ms,
+               plain_ms=plain_ms, library_ms=best[0], library_call=best[1],
+               library_backend=best[2], library_ms_by_backend=lib,
+               timed_by="CUDA graph replay (device only)",
+               kernel_call_ms=call_ms["kernel"],
+               plain_call_ms=call_ms["plain"],
+               library_call_ms=library_call_ms,
+               bytes=nbytes, operations=ops, bound_ms=bound_ms,
+               bound_by=bound_by, bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms,
+               share_of_bound=bound_ms / kernel_ms,
+               cuda_core_ops_bound_ms=ops / F32_CUDA_CORE_OPS_PER_S * 1e3,
+               launches_per_request=QWEN2_DECODE_PER_REQUEST)
+    emit("times_decode", **out)
+    return out
 
 
 def time_policy_update(columns, device):
@@ -1389,10 +1575,15 @@ def main() -> int:
          device=torch.cuda.get_device_name(0),
          device_count=torch.cuda.device_count(), nvidia_smi=smi)
     built = build.build_all()
-    emit("build", **{stem: {"seconds": b["seconds"],
-                            "ptxas": [ln.strip() for ln in b["log"].splitlines()
-                                      if "registers" in ln or "spill" in ln]}
+    ptxas = {stem: build.ptxas_summary(b["log"]) for stem, b in built.items()}
+    emit("build", **{stem: {"seconds": b["seconds"], "kernels": ptxas[stem]}
                      for stem, b in built.items()})
+    for stem, names in NO_SPILL_KERNELS.items():
+        for name in names:
+            got = ptxas[stem].get(name)
+            if got is None or got["spill_bytes"] != 0:
+                raise AssertionError(f"{stem}: {name} must build with no "
+                                     f"spills, ptxas says {got}")
 
     max_err = kernel_parity(np.random.default_rng(0), device)
     event_stream_parity(device)
@@ -1407,19 +1598,19 @@ def main() -> int:
     policy_s = time.perf_counter() - t_policy
     policy_sweep(device)
     t_serve = time.perf_counter()
-    serve_launches, n_requests = serve(
+    serve_launches, serve_forms, n_requests = serve(
         device, "serve", "recurrentgemma-2b", "rg2b",
         {"flash_attention": (FA, ATTN_PER_PREFILL),
          "rglru_scan": (R, RGLRU_PER_PREFILL)}, SERVE_LOGITS_REL_TOL)
     serve_s = time.perf_counter() - t_serve
     t_serve = time.perf_counter()
-    mamba_launches, n_mamba = serve(
+    mamba_launches, _, n_mamba = serve(
         device, "serve_mamba2", "mamba2-2.7b", "m2",
         {"ssd_scan": (SS, SSD_PER_PREFILL)}, SERVE_MAMBA2_LOGITS_REL_TOL)
     serve_mamba_s = time.perf_counter() - t_serve
     release_host_memory()
     t_serve = time.perf_counter()
-    qwen2_launches, n_qwen2 = serve(
+    qwen2_launches, qwen2_forms, n_qwen2 = serve(
         device, "serve_qwen2", "qwen2-7b", "q7",
         {"flash_attention": (FA, QWEN2_ATTN_PER_REQUEST),
          "decode_attention": (DA, QWEN2_DECODE_PER_REQUEST)},
@@ -1429,12 +1620,11 @@ def main() -> int:
     times, counts = trace.to_padded()
     kernel_ms, plain_ms, bound_ms, bound_by = time_kernel(
         times[:, :int(counts.max())].astype(np.float64), device)
-    fa_ms, fa_plain_ms, fa_bound_ms, fa_bound_by, fa_lib_ms = \
-        time_attention(device)
+    fa_rg = time_attention(device, ATTN_SHAPE, seed=30)
+    fa_qw = time_attention(device, QWEN2_ATTN_SHAPE, seed=31)
     rg_ms, rg_plain_ms, rg_bound_ms = time_rglru(device)
     ssd_ms, ssd_plain_ms, ssd_bound_ms, ssd_bound_by = time_ssd(device)
-    da_ms, da_plain_ms, da_bound_ms, da_bound_by, da_lib_ms = \
-        time_decode(device)
+    da = time_decode(device)
     pu_ms, pu_plain_ms, pu_bound_ms, pu_bound_by = time_policy_update(
         policy_cols, device)
 
@@ -1449,10 +1639,20 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": csrc + "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:104",
-        "launches": serve_launches["flash_attention"],
-        "max_abs_err": attn_err, "ms": fa_ms, "plain_ms": fa_plain_ms,
-        "bound_ms": fa_bound_ms, "bound_by": fa_bound_by,
-        "library_ms": fa_lib_ms}, {
+        # both serving paths' runs (RecurrentGemma's and Qwen2's prefills);
+        # ms, plain_ms, library_ms and bound_ms at RecurrentGemma's shape,
+        # Qwen2's beside them
+        "launches": serve_launches["flash_attention"]
+        + qwen2_launches["flash_attention"],
+        "launches_by_path": {"recurrentgemma": serve_forms["flash_attention"],
+                             "qwen2": qwen2_forms["flash_attention"]},
+        "max_abs_err": attn_err, "ms": fa_rg["kernel_ms"],
+        "plain_ms": fa_rg["plain_ms"], "bound_ms": fa_rg["bound_ms"],
+        "bound_by": fa_rg["bound_by"], "library_ms": fa_rg["library_ms"],
+        "library_backend": fa_rg["library_backend"],
+        "qwen2": {k: fa_qw[k] for k in (
+            "kernel_ms", "plain_ms", "library_ms", "library_backend",
+            "bound_ms", "bound_by")}}, {
         "name": "rglru_scan", "route": "cuda",
         "source": csrc + "rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan.py:73",
@@ -1469,9 +1669,11 @@ def main() -> int:
         "source": csrc + "decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:96",
         "launches": qwen2_launches["decode_attention"],
-        "max_abs_err": decode_err, "ms": da_ms, "plain_ms": da_plain_ms,
-        "bound_ms": da_bound_ms, "bound_by": da_bound_by,
-        "library_ms": da_lib_ms}, {
+        "launches_by_form": qwen2_forms["decode_attention"],
+        "max_abs_err": decode_err, "ms": da["kernel_ms"],
+        "plain_ms": da["plain_ms"], "bound_ms": da["bound_ms"],
+        "bound_by": da["bound_by"], "library_ms": da["library_ms"],
+        "library_backend": da["library_backend"]}, {
         "name": "policy_update", "route": "cuda",
         "source": csrc + "policy_update.cu",
         "replaces": "src/repro/kernels/histogram.py:128",

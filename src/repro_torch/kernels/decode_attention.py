@@ -6,9 +6,13 @@ plain PyTorch version.
 ``_decode_kernel``) behind ``repro/kernels/ops.py::decode_attention``: one
 query token per sequence against a cache, keys at or past ``kv_len``
 masked. On CUDA tensors it launches ``csrc/decode_attention.cu`` (see the
-note at the top of that file for its design and its bound on the card); on
-CPU tensors it runs :func:`decode_attention_plain`. There is no fallback: a
-CUDA tensor either reaches the kernel or the call raises.
+note at the top of that file for its design and its bound on the card),
+once a call, in one of two forms that :func:`_form` picks from dtype, head
+dim and strides before the launch: ``"tensor_cores"`` (bf16 with D 64, 128
+or 256 and 16-byte strides and pointers: the serving path) or
+``"cuda_cores"``. On CPU tensors it runs :func:`decode_attention_plain`.
+There is no fallback: a CUDA tensor either reaches the kernel of its form
+or the call raises.
 
 Both take the model's layout, q ``[B,1,Hq,D]`` and the caches ``[B,Skv,
 Hkv,D]``, where the reference's kernel and oracle take ``[B,Hkv,group,D]``
@@ -25,16 +29,30 @@ import operator
 import numpy as np
 import torch
 
-__all__ = ["LAUNCHES", "SPLIT_KEYS", "decode_attention",
+__all__ = ["LAUNCHES", "LAUNCHES_BY_FORM", "SPLIT_KEYS", "decode_attention",
            "decode_attention_plain"]
 
 #: Kernel launches made by this process (plain-version calls do not count).
 LAUNCHES = 0
+#: The same launches by form (see :func:`_form`).
+LAUNCHES_BY_FORM = {"tensor_cores": 0, "cuda_cores": 0}
 
-#: Keys per split of the CUDA kernel (a multiple of its 32-key tile): at
-#: the serving shape, kv_len 4,097-4,112 gives 33 splits x 8 (batch row,
-#: KV head) = 264 blocks, two for each of the 132 SMs.
-SPLIT_KEYS = 128
+#: Keys per split of the CUDA kernel (a multiple of its 128-key step). At
+#: the serving shape, kv_len 4,097-4,112 gives 11 splits x 8 (batch row, KV
+#: head) = 88 blocks; each block's 8 warps hold all 384 of its keys in
+#: flight at once (three 16-key slots a warp), 192 KB a block, the whole
+#: 16.8 MB on the card. Fewer splits leave less for the in-launch merge;
+#: chip_smoke.py times 128, 256, 384 and 512 (``times_decode``).
+SPLIT_KEYS = 384
+
+_FORM_CODE = {"cuda_cores": 0, "tensor_cores": 1}
+_TENSOR_CORE_HEAD_DIMS = (64, 128, 256)
+
+# (device, B, Hq, max splits, D) -> (m_part, l_part, acc_part, counters):
+# the kernel's f32 scratch and its per-(batch row, KV head, group chunk)
+# int32 counters, allocated once (counters zeroed; the kernel leaves them
+# zeroed). One stream at a time may use a set.
+_SCRATCH = {}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -92,13 +110,42 @@ def _check_cuda_args(q, k, v) -> None:
                          f"or bfloat16")
 
 
+def _form(q, k, v) -> str:
+    """The kernel form a CUDA launch takes, from dtype, head dim and
+    strides alone: ``"tensor_cores"`` for bf16 with D in (64, 128, 256),
+    the batch and head strides of q and the batch, row and head strides of
+    k and v multiples of 8 elements and every base 16-byte aligned; else
+    ``"cuda_cores"``."""
+    if q.dtype != torch.bfloat16 or q.shape[-1] not in _TENSOR_CORE_HEAD_DIMS:
+        return "cuda_cores"
+    strides = (q.stride(0), q.stride(2), *k.stride()[:3], *v.stride()[:3])
+    aligned = all(s % 8 == 0 for s in strides) and all(
+        x.data_ptr() % 16 == 0 for x in (q, k, v))
+    return "tensor_cores" if aligned else "cuda_cores"
+
+
+def _scratch(device, B: int, Hq: int, max_splits: int, D: int):
+    """The scratch of calls of this shape: made at the first and reused by
+    every later one (a new shape gets its own)."""
+    key = (torch.device(device), B, Hq, max_splits, D)
+    bufs = _SCRATCH.get(key)
+    if bufs is None:
+        f32 = dict(dtype=torch.float32, device=device)
+        bufs = _SCRATCH[key] = (
+            torch.empty(B * Hq * max_splits, **f32),
+            torch.empty(B * Hq * max_splits, **f32),
+            torch.empty(B * Hq * max_splits * D, **f32),
+            torch.zeros(B * Hq, dtype=torch.int32, device=device))
+    return bufs
+
+
 def _lib() -> ctypes.CDLL:
     from . import build
     lib = build.load("decode_attention")
     if not getattr(lib, "_typed", False):
         fn = lib.decode_attention_fwd
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + \
-            [ctypes.c_int64] * 8 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + \
+            [ctypes.c_int64] * 8 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.decode_attention_error_string.argtypes = [ctypes.c_int]
         lib.decode_attention_error_string.restype = ctypes.c_char_p
@@ -112,26 +159,27 @@ def _launch(q, k, v, n: int):
     lib = _lib()
     B, _, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
+    form = _form(q, k, v)
     n_splits = -(-n // SPLIT_KEYS)
     out = torch.empty((B, 1, Hq, D), dtype=q.dtype, device=q.device)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    m_part = torch.empty((B, Hq, n_splits), **f32)
-    l_part = torch.empty((B, Hq, n_splits), **f32)
-    acc_part = torch.empty((B, Hq, n_splits, D), **f32)
+    scratch = _scratch(q.device, B, Hq, -(-Skv // SPLIT_KEYS), D)
     strides = (q.stride(0), q.stride(2), *k.stride()[:3], *v.stride()[:3])
-    # the reference divides by sqrt(D) as a float32 scalar
+    # the reference divides by sqrt(D) as a float32 scalar (CUDA cores);
+    # the tensor cores scale the f32 scores by log2(e) / sqrt(D) for exp2
     q_div = float(np.float32(math.sqrt(D)))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.decode_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
+            *(x.data_ptr() for x in scratch), _FORM_CODE[form],
             _DTYPE_CODE[q.dtype], B, Hq, Hkv, D, Skv, n, SPLIT_KEYS,
-            n_splits, *strides, q_div, stream)
+            n_splits, *strides, q_div, math.log2(math.e) / math.sqrt(D),
+            stream)
     if rc != 0:
-        raise RuntimeError("decode_attention launch failed: "
+        raise RuntimeError(f"decode_attention launch failed ({form} form): "
                            + lib.decode_attention_error_string(rc).decode())
     LAUNCHES += 1
+    LAUNCHES_BY_FORM[form] += 1
     return out
 
 
@@ -142,8 +190,9 @@ def decode_attention(q, k, v, kv_len):
     ``[1, Skv]`` -> ``[B,1,Hq,D]`` in q's dtype; q head h reads KV head
     h // (Hq / Hkv) over the keys ``j < kv_len``.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel (and
-    count one launch in ``LAUNCHES``) or raise."""
+    CPU tensors run the plain version; CUDA tensors launch the kernel in
+    the form :func:`_form` picks (and count one launch in ``LAUNCHES`` and
+    in ``LAUNCHES_BY_FORM``) or raise."""
     n = _kv_len(kv_len, k.shape[1])
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, n)

@@ -5,9 +5,13 @@ plain PyTorch version.
 ``repro/kernels/flash_attention.py::flash_attention_bhsd`` (body
 ``_attn_kernel``) behind ``repro/kernels/ops.py::flash_attention``. On CUDA
 tensors it launches ``csrc/flash_attention.cu`` (see the note at the top of
-that file for its design and its bound on the card); on CPU tensors it runs
-:func:`flash_attention_plain`. There is no fallback: a CUDA tensor either
-reaches the kernel or the call raises.
+that file for its design and its bound on the card) in one of three
+forms, which :func:`_form` picks from dtype, head dim and strides before
+the launch: ``"hopper"`` (wgmma and TMA; bf16 with D 64, 128 or 256 and
+16-byte strides and pointers, both serving paths), ``"mma_sync"`` (other
+bf16) and ``"f32"``. On CPU tensors it runs :func:`flash_attention_plain`.
+There is no fallback: a CUDA tensor either reaches the kernel of its form
+or the call raises.
 
 :func:`sdpa` is the port of the reference's plain attention
 ``repro/models/layers.py::_sdpa`` (and ``_sdpa_chunked`` at 8,192 query
@@ -21,11 +25,16 @@ import math
 
 import torch
 
-__all__ = ["LAUNCHES", "CHUNKED_Q_THRESHOLD", "sdpa", "flash_attention",
-           "flash_attention_plain"]
+__all__ = ["LAUNCHES", "LAUNCHES_BY_FORM", "CHUNKED_Q_THRESHOLD", "sdpa",
+           "flash_attention", "flash_attention_plain"]
 
 #: Kernel launches made by this process (plain-version calls do not count).
 LAUNCHES = 0
+#: The same launches by form (see :func:`_form`).
+LAUNCHES_BY_FORM = {"hopper": 0, "mma_sync": 0, "f32": 0}
+
+# head dims of the Hopper form (whole 128-byte boxes of bf16 columns)
+_HOPPER_HEAD_DIMS = (64, 128, 256)
 
 # Above this many query rows the plain attention goes through query blocks
 # of 1,024 rows, so the Sq x Skv score matrix never materializes.
@@ -140,12 +149,31 @@ def _check_cuda_args(q, k, v, window: int) -> None:
         raise ValueError(f"flash_attention: window {window} < 0")
 
 
+def _form(q, k, v) -> str:
+    """The kernel form a CUDA launch takes, from dtype, head dim and
+    strides alone: ``"f32"`` for float32; ``"hopper"`` for bf16 with D in
+    (64, 128, 256) and every batch, row and head stride of q, k and v a
+    positive multiple of 8 elements and every base 16-byte aligned (what
+    TMA needs); else ``"mma_sync"``."""
+    if q.dtype == torch.float32:
+        return "f32"
+    legal = q.shape[-1] in _HOPPER_HEAD_DIMS and all(
+        x.data_ptr() % 16 == 0 and all(s > 0 and s % 8 == 0
+                                       for s in x.stride()[:3])
+        for x in (q, k, v))
+    return "hopper" if legal else "mma_sync"
+
+
 def _lib() -> ctypes.CDLL:
     from . import build
     lib = build.load("flash_attention")
     if not getattr(lib, "_typed", False):
         fn = lib.flash_attention_fwd
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + \
+            [ctypes.c_int64] * 9 + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = lib.flash_attention_hopper_fwd
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
             [ctypes.c_int64] * 9 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
@@ -159,20 +187,28 @@ def _launch(q, k, v, window: int):
     _check_cuda_args(q, k, v, window)
     lib = _lib()
     B, S, Hq, D = q.shape
+    form = _form(q, k, v)
     out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device)
     strides = [s for x in (q, k, v) for s in x.stride()[:3]]
-    # the reference divides by sqrt(hd) as a float32 scalar
-    q_div = float(torch.tensor(math.sqrt(D), dtype=torch.float32))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPE_CODE[q.dtype], B, S, Hq, k.shape[2], D, int(window),
-            *strides, q_div, stream)
+        if form == "hopper":
+            # 1/sqrt(D) and log2(e) in one scale for exp2
+            rc = lib.flash_attention_hopper_fwd(
+                *ptrs, B, S, Hq, k.shape[2], D, int(window), *strides,
+                math.log2(math.e) / math.sqrt(D), stream)
+        else:
+            # the reference divides by sqrt(hd) as a float32 scalar
+            q_div = float(torch.tensor(math.sqrt(D), dtype=torch.float32))
+            rc = lib.flash_attention_fwd(
+                *ptrs, _DTYPE_CODE[q.dtype], B, S, Hq, k.shape[2], D,
+                int(window), *strides, q_div, stream)
     if rc != 0:
-        raise RuntimeError("flash_attention launch failed: "
+        raise RuntimeError(f"flash_attention launch failed ({form} form): "
                            + lib.flash_attention_error_string(rc).decode())
     LAUNCHES += 1
+    LAUNCHES_BY_FORM[form] += 1
     return out
 
 
@@ -181,8 +217,9 @@ def flash_attention(q, k, v, *, window: int = 0):
     [B,S,Hkv,D] (f32 or bf16, last dimension contiguous) -> [B,S,Hq,D] in
     q's dtype; ``window > 0`` keeps the keys j > i - window.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel (and
-    count one launch in ``LAUNCHES``) or raise."""
+    CPU tensors run the plain version; CUDA tensors launch the kernel in
+    the form :func:`_form` picks (and count one launch in ``LAUNCHES`` and
+    in ``LAUNCHES_BY_FORM``) or raise."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, window=window)
     if q.device.type == "cuda":

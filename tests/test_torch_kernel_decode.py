@@ -16,10 +16,14 @@ against the TPU kernel it replaces and the reference's oracle.
     ROADMAP Queue C);
   * kv_len 0 and kv_len > Skv raise, and the wrapper's argument checks
     raise before any launch;
-  * on a CUDA card (test marked ``gpu``, skipped elsewhere) the CUDA kernel
-    against the plain version, at small shapes, ragged lengths and the
-    serving path's shape: f32 at 2e-5, bf16 within one bf16 rounding step
-    (``CUDA_TOL``).
+  * the form a CUDA launch takes (tensor cores or CUDA cores), chosen in
+    Python from dtype, head dim and strides, and the kernel's scratch, kept
+    once a shape;
+  * on a CUDA card (tests marked ``gpu``, skipped elsewhere) both forms of
+    the CUDA kernel against the plain version, at small shapes, ragged
+    lengths, split edges, groups of 7 and 18 and the serving path's shape:
+    f32 at 2e-5, bf16 within one bf16 rounding step (``CUDA_TOL``); two
+    calls in a row and a CUDA graph replayed twice give the same output.
 """
 from types import SimpleNamespace
 
@@ -123,6 +127,40 @@ def test_kv_len_out_of_range_raises():
     assert ops.decode_attention(q, k, v, 64).shape == q.shape
 
 
+@pytest.mark.parametrize("dtype,D,Skv,pad,form", [
+    ("bfloat16", 128, 4112, 0, "tensor_cores"),     # Qwen2-7B's cache
+    ("bfloat16", 64, 256, 0, "tensor_cores"),
+    ("bfloat16", 256, 96, 0, "tensor_cores"),
+    ("bfloat16", 36, 100, 0, "cuda_cores"),
+    ("bfloat16", 128, 300, 4, "cuda_cores"),        # row stride of 132
+    ("float32", 128, 4112, 0, "cuda_cores"),
+])
+def test_form_is_chosen_from_dtype_head_dim_and_strides(dtype, D, Skv, pad,
+                                                        form):
+    q = torch.zeros(2, 1, 28, D, dtype=TORCH_DTYPE[dtype])
+    kv = torch.zeros(2, Skv, 4, D + pad, dtype=TORCH_DTYPE[dtype])[..., :D]
+    assert DA._form(q, kv, kv) == form
+    assert DA._form(q, kv[:, :Skv // 2], kv[:, :Skv // 2]) == form
+
+
+def test_scratch_is_kept_per_shape():
+    """The kernel's f32 partials and its counters are made once a shape:
+    the same shape reuses them, another gets its own; counters start 0."""
+    cpu = torch.device("cpu")
+    first = DA._scratch(cpu, 2, 28, 33, 128)
+    again = DA._scratch(cpu, 2, 28, 33, 128)
+    assert all(a is b for a, b in zip(first, again))
+    m_part, l_part, acc_part, counters = first
+    assert m_part.numel() == l_part.numel() == 2 * 28 * 33
+    assert acc_part.numel() == 2 * 28 * 33 * 128
+    assert counters.dtype == torch.int32 and counters.numel() == 2 * 28
+    assert not counters.any()
+    for other in ((1, 28, 33, 128), (2, 28, 34, 128), (2, 14, 33, 128),
+                  (2, 28, 33, 64)):
+        bufs = DA._scratch(cpu, *other)
+        assert not any(a is b for a, b in zip(first, bufs))
+
+
 def test_check_cuda_args_rejects_what_the_kernel_does_not_take():
     q = torch.zeros(2, 1, 4, 32)
     kv = torch.zeros(2, 64, 2, 32)
@@ -146,31 +184,81 @@ def test_check_cuda_args_rejects_what_the_kernel_does_not_take():
 
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain_version():
+    """Both forms against the plain version, at small shapes, ragged
+    lengths, kv_len at a split edge (``SPLIT_KEYS``) and one key past it,
+    groups of 7 and 18 and the serving path's shape; each call is one
+    launch; a second call on the same inputs gives the same output (the
+    split counters were left at 0)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
+    edge = DA.SPLIT_KEYS
     cases = [((2, 256, 4, 2, 64), 256, "float32"),
              ((2, 512, 4, 2, 64), 300, "float32"),
              ((2, 512, 4, 2, 64), 1, "bfloat16"),
              ((2, 1024, 4, 2, 64), 777, "bfloat16"),
              ((1, 640, 8, 2, 64), 600, "float32"),
+             ((1, 640, 8, 2, 64), 600, "bfloat16"),
              ((2, 4112, 28, 4, 128), 4097, "bfloat16"),
+             ((2, 4112, 28, 4, 128), 4112, "bfloat16"),
              ((2, 4112, 28, 4, 128), 4112, "float32"),
-             ((1, 300, 18, 1, 40), 299, "float32"),     # group 18, D 40
+             ((2, 4112, 28, 4, 128), edge, "bfloat16"),
+             ((2, 4112, 28, 4, 128), edge + 1, "bfloat16"),
+             ((2, 4112, 28, 4, 128), 4112 // edge * edge, "bfloat16"),
+             ((2, 4112, 28, 4, 128), 4112 // edge * edge + 1, "bfloat16"),
+             ((1, 300, 18, 1, 128), 299, "bfloat16"),    # group 18
+             ((1, 300, 18, 1, 64), 257, "bfloat16"),
+             ((1, 300, 18, 1, 40), 299, "float32"),      # group 18, D 40
              ((1, 96, 2, 2, 256), 96, "bfloat16"),
-             ((1, 100, 4, 2, 36), 77, "bfloat16"),      # one-element loads
+             ((1, 100, 4, 2, 36), 77, "bfloat16"),       # CUDA-core bf16
              ((2, 70, 3, 3, 18), 70, "float32")]
     for shape, kv_len, dtype in cases:
         q, k, v = (torch.from_numpy(a).to(dev, TORCH_DTYPE[dtype])
                    for a in _inputs(5, *shape[:2], *shape[2:]))
+        form = DA._form(q, k, v)
+        assert form == ("tensor_cores" if dtype == "bfloat16"
+                        and shape[-1] in (64, 128, 256) else "cuda_cores")
         before = DA.LAUNCHES
+        before_form = DA.LAUNCHES_BY_FORM[form]
         got = DA.decode_attention(q, k, v, kv_len)
+        again = DA.decode_attention(q, k, v, kv_len)
         want = DA.decode_attention_plain(q, k, v, kv_len)
         torch.cuda.synchronize()
-        assert DA.LAUNCHES == before + 1
+        assert DA.LAUNCHES == before + 2
+        assert DA.LAUNCHES_BY_FORM[form] == before_form + 2
+        assert torch.equal(got, again)
         got, want = got.float(), want.float()
         atol, rtol = CUDA_TOL[dtype]
         if dtype == "bfloat16":
             atol *= float(want.abs().max())
         torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_in_a_cuda_graph():
+    """A CUDA graph of decode calls (the serving shape, two fill levels)
+    replayed twice gives the eager outputs both times: the last block of
+    each split group resets its counter, so a replay finds them at 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    dev = torch.device("cuda")
+    q, k, v = (torch.from_numpy(a).to(dev, torch.bfloat16)
+               for a in _inputs(6, 2, 4112, 28, 4, 128))
+    eager = [DA.decode_attention(q, k, v, n) for n in (4097, 4112)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for n in (4097, 4112):
+            DA.decode_attention(q, k, v, n)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [DA.decode_attention(q, k, v, n) for n in (4097, 4112)]
+    for _ in range(2):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, e in zip(outs, eager):
+            assert torch.equal(o, e)
