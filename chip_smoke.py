@@ -10,8 +10,10 @@ port's main paths:
 
   * the policy simulator: the hybrid keep-alive policy replayed over a
     1M-app, 14-day trace through ``repro_torch.core.experiment.run(
-    engine="kernel")``, checked against the float64 engine and the scalar
-    oracle, and the 34-config policy sweep;
+    engine="kernel")`` (one launch of the sweep-scan kernel, no step
+    launch), checked against the float64 engine and the scalar oracle,
+    the scan kernel held to the step kernel iterated (``scan_parity``, in
+    every form), and the 34-config policy sweep;
   * serving: full-width RecurrentGemma-2B (``use_kernels=True``, bf16) in
     two endpoints behind a ``WarmPool`` driven by the hybrid policy, with a
     short periodic request stream of ``generate([2, 4096], max_new=16)``
@@ -44,6 +46,7 @@ Exits non-zero without a result where there is no CUDA device or no
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -471,6 +474,14 @@ def ssd_close(got, want, tol, what: str) -> float:
     return float((got - want).abs().max())
 
 
+def ssd_within(got, want, tol) -> bool:
+    """Whether |got - want| <= atol * max(1, max |want|) + rtol * |want|
+    holds elementwise (ssd_close's bound, without raising)."""
+    got, want = got.double(), want.double()
+    atol = tol[0] * max(1.0, float(want.abs().max()))
+    return bool(((got - want).abs() <= atol + tol[1] * want.abs()).all())
+
+
 def ssd_recurrence_f64(x, dt, A, B, C, S0):
     """y_t = C_t . S_t with S_t = exp(dt_t A) S_{t-1} + dt_t B_t x_t^T, token
     by token in float64 on the card: an oracle that shares no code with
@@ -494,8 +505,10 @@ def ssd_parity(device):
     f32, and lengths that are not a multiple of the chunk (384 and 640 at
     chunk 256, where the TPU kernel leaves NaN, and 1), with and without an
     initial state; the f32 cases also against the float64 recurrence.
-    Tolerances: SSD_F32_TOL, SSD_BF16_Y_TOL. Returns the largest absolute
-    difference of y from the plain version seen."""
+    Tolerances: SSD_F32_TOL, SSD_BF16_Y_TOL; each bf16 case longer than a
+    chunk also checks that the bound catches a carry one chunk short.
+    Returns the largest absolute difference of y from the plain version
+    seen."""
     import torch
     from repro_torch.kernels import ssd_scan as SS
     from repro_torch.kernels.timing import ssd_inputs
@@ -511,6 +524,9 @@ def ssd_parity(device):
              ((2, 640, 8, 64, 128), bf16, True, False),
              ((2, 1, 80, 64, 128), f32, True, False),
              ((2, 1, 80, 64, 128), bf16, False, True)]
+    if SS._lib().ssd_scan_bf16_max_state() != SS.MAX_BF16_STATE:
+        raise AssertionError("ssd_scan.MAX_BF16_STATE disagrees with the "
+                             "kernel's shared-memory limit")
     worst = 0.0
     for k, (shape, dtype, with_state, model_like) in enumerate(cases):
         b, l, h, p, n = shape
@@ -539,6 +555,21 @@ def ssd_parity(device):
                 plain_vs_f64=ssd_close(want_y, o_y, y_tol, "plain vs f64"),
                 kernel_state_vs_f64=ssd_close(fin, o_fin, SSD_F32_TOL,
                                               "kernel state vs f64"))
+        Q = s["chunk"]
+        if dtype == bf16 and l > Q:
+            # a carry one chunk short: the plain version with chunk k - 1
+            # left out of the state entering chunk k (k the last chunk)
+            k = (l - 1) // Q
+            xz = x.clone()
+            xz[:, (k - 1) * Q:k * Q] = 0
+            y_drop, _ = SS.ssd_scan_plain(xz, dt, A, B, C, Q, S0)
+            y_drop[:, :k * Q] = want_y[:, :k * Q]
+            if ssd_within(y_drop, want_y, y_tol):
+                raise AssertionError(f"the bf16 bound at {shape} would not "
+                                     f"catch a carry one chunk short")
+            oracle["dropped_chunk_max_change"] = float(
+                (y_drop - want_y).abs().max())
+            oracle["dropped_chunk_caught"] = True
         worst = max(worst, err)
         emit("ssd_parity", shape=list(shape), chunk=s["chunk"],
              dtype=str(dtype), initial_state=with_state,
@@ -1029,17 +1060,28 @@ def scale_point(device):
     spec = HybridSpec(use_arima=False)
     opts = EngineOptions(app_chunk=SCALE_APPS, device=device)
 
+    from repro_torch.core.simulator import _chunked_buckets
+    # one scan launch per (chunk, band): one band (240 bins), and a chunk
+    # per event-count bucket of the trace
+    chunks = sum(1 for _ in _chunked_buckets(times, counts, SCALE_APPS))
+    form = H.scan_form(spec.to_config().histogram.n_bins)[0]
     torch.cuda.reset_peak_memory_stats()
-    H.LAUNCHES = 0                       # count the main path's launches
+    H.LAUNCHES = H.SCAN_LAUNCHES = 0     # count the main path's launches
+    for k in H.SCAN_LAUNCHES_BY_FORM:
+        H.SCAN_LAUNCHES_BY_FORM[k] = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     got = run(trace, spec, engine="kernel", options=opts)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = H.LAUNCHES
+    launches, by_form = H.SCAN_LAUNCHES, dict(H.SCAN_LAUNCHES_BY_FORM)
+    step_launches = H.LAUNCHES
     peak = torch.cuda.max_memory_allocated()
-    if launches <= 0:
-        raise AssertionError("the kernel engine launched no kernel")
+    if launches != chunks or by_form[form] != chunks or step_launches:
+        raise AssertionError(
+            f"the kernel engine made {launches} scan launches {by_form} and "
+            f"{step_launches} step launches; expected {chunks} {form} scan "
+            f"launches (one per chunk) and no step launch")
 
     t0 = time.perf_counter()
     fused = run(trace, spec, engine="fused", options=opts)
@@ -1056,7 +1098,6 @@ def scale_point(device):
             raise AssertionError(f"kernel vs scalar oracle: {field}")
     # host share: the engine's per-chunk preparation of the one chunk
     # (bucket slice, contiguous copy, pinned staging buffer)
-    from repro_torch.core.simulator import _chunked_buckets
     t0 = time.perf_counter()
     for _, sub in _chunked_buckets(times, counts, SCALE_APPS):
         torch.from_numpy(np.ascontiguousarray(sub)).pin_memory()
@@ -1065,12 +1106,13 @@ def scale_point(device):
     emit("scale_point", n_apps=SCALE_APPS, days=14.0, width=times.shape[1],
          app_steps=steps, invocations=int(counts.sum()),
          trace_gen_seconds=gen_s, seconds=seconds, host_prep_seconds=prep_s,
-         app_steps_per_s=steps / seconds, kernel_launches=launches,
+         app_steps_per_s=steps / seconds, scan_launches=launches,
+         scan_launches_by_form=by_form, step_launches=step_launches,
          peak_device_bytes=peak, fused_seconds=fused_s,
          cold_p75_pct=got.cold_pct_percentile(75),
          always_cold_fraction=got.always_cold_fraction,
          equal_to_fused=True, equal_to_scalar_on_sample=len(sample))
-    return trace, launches, dict(seconds=seconds, app_steps=steps)
+    return trace, launches, by_form, dict(seconds=seconds, app_steps=steps)
 
 
 def policy_sweep(device):
@@ -1108,28 +1150,122 @@ def policy_sweep(device):
 # ---------------------------------------------------------------------------
 
 
-def time_kernel(host: np.ndarray, device):
-    """Kernel and plain-version ms per launch over the event columns of
-    ``host`` [n, width] float64 (CUDA events), and the bound those columns
-    give."""
+def sweep_columns(trace, device):
+    """The scale trace's event columns as the engine scans them: float64
+    [width, n] on the card."""
+    import torch
+    times, counts = trace.to_padded()
+    return torch.from_numpy(np.ascontiguousarray(
+        times[:, :int(counts.max())].T.astype(np.float64))).to(device)
+
+
+def default_cfg_blocks(device):
+    """The paper's default hybrid config as the (int32, float32) knob
+    blocks the sweep kernels read, and its bin count."""
     import torch
     from repro_torch.core.policy import HybridConfig
     from repro_torch.core.simulator import _build_cfg_blocks
-    from repro_torch.kernels import histogram as H
-
-    cols = torch.from_numpy(np.ascontiguousarray(host.T)).to(device)
-    tdt = cols.dtype
     ci, cf = (torch.from_numpy(x).to(device)
               for x in _build_cfg_blocks([HybridConfig(use_arima=False)]))
-    S, n, n_bins = 1, cols.shape[1], int(ci[0, 0])
+    return ci, cf, int(ci[0, 0])
 
-    def fresh():
-        z = lambda dt: torch.zeros((S, n), dtype=dt, device=device)
-        return (torch.full((S, n), -np.inf, dtype=tdt, device=device),
-                torch.zeros((S, n, n_bins), dtype=torch.int32,
-                            device=device),
-                z(torch.int32), z(tdt), z(tdt), z(tdt),
-                cf[:, 6:7].to(tdt).repeat(1, n), z(torch.int32), z(tdt))
+
+def fresh_sweep_state(S, n, n_bins, cf, device):
+    """The simulator's initial carry of a chunk (float64 time)."""
+    import torch
+    tdt = torch.float64
+    z = lambda dt: torch.zeros((S, n), dtype=dt, device=device)
+    return (torch.full((S, n), -np.inf, dtype=tdt, device=device),
+            torch.zeros((S, n, n_bins), dtype=torch.int32, device=device),
+            z(torch.int32), z(tdt), z(tdt), z(tdt),
+            cf[:, 6:7].to(tdt).repeat(1, n), z(torch.int32), z(tdt))
+
+
+SWEEP_NAMES = ("prev_t", "cum", "oob", "cv_sum", "cv_sum_sq", "prewarm",
+               "unload_at", "cold", "waste")
+
+
+def assert_sweep_equal(got, want, what: str) -> float:
+    """All nine outputs torch.equal; returns the largest difference (0)."""
+    import torch
+    worst = 0.0
+    for name, g, w in zip(SWEEP_NAMES, got, want):
+        if not torch.equal(g, w):
+            diff = (g.double() - w.double()).abs()
+            raise AssertionError(f"{what}: {name} differs in "
+                                 f"{int((diff > 0).sum())} elements, max "
+                                 f"{float(diff.max())}")
+        worst = max(worst, float((g.double() - w.double()).abs().max()))
+    return worst
+
+
+def scan_parity(cols, device):
+    """The scan kernel against the step kernel iterated over the same event
+    columns from the same state, torch.equal on all nine outputs: at the
+    scale point (the trace's columns, S=1, 240 bins, the register form, 8
+    bins a lane) and, on small random streams from a random mid-trace
+    state (S=3), at each other form and layout: 60 bins (registers, 2 a
+    lane), and 300 and 2,400 bins (columns, the step a column). Launches
+    here do not count."""
+    import torch
+    from repro_torch.kernels import histogram as H
+
+    ci, cf, n_bins = default_cfg_blocks(device)
+    n = cols.shape[1]
+    cases = []
+    with uncounted(H):
+        scan = H.fused_hybrid_sweep_scan(
+            cols, *fresh_sweep_state(1, n, n_bins, cf, device), ci, cf)
+        step = fresh_sweep_state(1, n, n_bins, cf, device)
+        for t_now in cols:
+            step = H.fused_hybrid_sweep_step(t_now, *step, ci, cf)
+        torch.cuda.synchronize()
+        worst = assert_sweep_equal(scan, step, "scan vs step (scale point)")
+        cases.append(dict(S=1, n=n, n_bins=n_bins, width=cols.shape[0],
+                          form=H.scan_form(n_bins)[0]))
+        rng = np.random.default_rng(17)
+        for S, n, nb in ((3, 20_000, 60), (3, 20_000, 300),
+                         (3, 5_000, 2400)):
+            form = H.scan_form(nb)[0]
+            args = random_step_inputs(rng, S, n, nb, device)
+            ci_s, cf_s = args[10], args[11]
+            prev = args[1][0]
+            gaps = torch.from_numpy(rng.uniform(
+                0.0, 1.5 * nb, (16, n))).to(device)
+            cols_s = torch.where(torch.isfinite(prev), prev, 0.0) + \
+                torch.cumsum(gaps, 0)
+            cols_s[torch.from_numpy(rng.uniform(size=(16, n)) < 0.25)
+                   .to(device)] = np.inf
+            step = [x.clone() for x in args[1:10]]
+            for t_now in cols_s:
+                step = H.fused_hybrid_sweep_step(t_now, *step, ci_s, cf_s)
+            before = H.SCAN_LAUNCHES_BY_FORM[form]
+            scan = H.fused_hybrid_sweep_scan(
+                cols_s, *[x.clone() for x in args[1:10]], ci_s, cf_s)
+            torch.cuda.synchronize()
+            if H.SCAN_LAUNCHES_BY_FORM[form] != before + 1:
+                raise AssertionError(f"n_bins={nb} did not take the {form} "
+                                     f"form")
+            worst = max(worst, assert_sweep_equal(
+                scan, step, f"scan vs step ({form}, n_bins={nb})"))
+            cases.append(dict(S=S, n=n, n_bins=nb, width=16, form=form))
+    emit("scan_parity", cases=cases, outputs=len(SWEEP_NAMES),
+         torch_equal=True)
+    return worst
+
+
+def time_kernel(cols, device):
+    """Step kernel and plain-version ms per launch over the event columns
+    ``cols`` [width, n] float64 (CUDA events), and the bound those columns
+    give; also the operations summed over the columns, which bound the
+    scan of the same work."""
+    import torch
+    from repro_torch.kernels import histogram as H
+
+    tdt = cols.dtype
+    ci, cf, n_bins = default_cfg_blocks(device)
+    S, n = 1, cols.shape[1]
+    fresh = lambda: fresh_sweep_state(S, n, n_bins, cf, device)
 
     def replay(step):
         step(cols[0], *fresh(), ci, cf)                  # warm-up
@@ -1144,7 +1280,8 @@ def time_kernel(host: np.ndarray, device):
             total_ms += a.elapsed_time(b)
         return total_ms / cols.shape[0], state
 
-    kernel_ms, k_state = replay(H.fused_hybrid_sweep_step)
+    with uncounted(H):
+        kernel_ms, k_state = replay(H.fused_hybrid_sweep_step)
     plain_ms, p_state = replay(H.fused_hybrid_sweep_step_plain)
     for g, w in zip(k_state, p_state):
         if not torch.equal(g, w):
@@ -1154,12 +1291,15 @@ def time_kernel(host: np.ndarray, device):
     # states read and written (6 in the time dtype, 2 int32), the config
     # blocks, the cum rows of apps with an event read, and the suffix of
     # each recorded bin written. Least operations: per row with an event,
-    # the two scaled percentile compares over every bin (a multiply and a
-    # compare each), one add per suffix bin written, and about 40 scalar
-    # operations (verdict, Welford update, windows, gate).
+    # the two percentile searches (cum never decreases and
+    # MAX_SCALED_COUNT keeps cum * PCT_SCALE from wrapping, so each is a
+    # binary search of ceil(log2 n_bins) + 1 compares), one add per suffix
+    # bin written, and about 40 scalar operations (verdict, Welford update,
+    # windows, gate).
     tb = cols.element_size()
     per_state = S * n * (6 * tb + 2 * 4)
     binm = float(cf[0, 2])
+    search = 2 * (math.ceil(math.log2(n_bins)) + 1)
     bytes_total = ops_total = 0.0
     prev = torch.full((n,), -np.inf, dtype=torch.float64, device=device)
     for t_now in cols.double():
@@ -1172,7 +1312,7 @@ def time_kernel(host: np.ndarray, device):
         active = S * int(valid.sum())
         bytes_total += (tb * n + 2 * per_state + 44 * S
                         + 4 * n_bins * active + 4 * written)
-        ops_total += (4 * n_bins + 40) * active + written
+        ops_total += (search + 40) * active + written
         prev = torch.where(valid, t_now, prev)
     launches = cols.shape[0]
     bytes_ms = bytes_total / launches / HBM_BYTES_PER_S * 1e3
@@ -1187,25 +1327,79 @@ def time_kernel(host: np.ndarray, device):
          bound_by=bound_by, bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms,
          bound_all_rows_ms=all_rows_ms, library_ms=None,
          library_note="no single PyTorch call computes this step")
-    return kernel_ms, plain_ms, bound_ms, bound_by
+    return dict(kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, ops_total=ops_total, launches=launches)
+
+
+def time_scan(cols, device, step):
+    """The scan kernel's ms per scale replay (one launch over every column,
+    from the initial carry; CUDA events, mean of 5), the plain scan's, and
+    the bound of the same work: the columns read once and the nine state
+    tensors read once and written once (cum included) against the least
+    operations of the steps, summed over the columns (``step`` is
+    time_kernel's)."""
+    import torch
+    from repro_torch.kernels import histogram as H
+
+    ci, cf, n_bins = default_cfg_blocks(device)
+    S, (width, n) = 1, cols.shape
+
+    def timed(scan, reps):
+        ms = []
+        for _ in range(reps):
+            state = fresh_sweep_state(S, n, n_bins, cf, device)
+            torch.cuda.synchronize()
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            scan(cols, *state, ci, cf)
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b))
+        return sum(ms) / len(ms)
+
+    with uncounted(H):
+        timed(H.fused_hybrid_sweep_scan, 1)              # warm-up
+        kernel_ms = timed(H.fused_hybrid_sweep_scan, 5)
+    plain_ms = timed(H.fused_hybrid_sweep_scan_plain, 1)
+    tb = cols.element_size()
+    states = S * n * (6 * tb + 2 * 4) + 4 * S * n * n_bins
+    nbytes = tb * width * n + 2 * states + 44 * S
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = step["ops_total"] / SCALAR_OPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    out = dict(kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by)
+    emit("times_scan", shape=[S, n, n_bins], columns=width,
+         form=H.scan_form(n_bins)[0], kernel_ms_per_replay=kernel_ms,
+         plain_ms_per_replay=plain_ms, bound_ms_per_replay=bound_ms,
+         bound_by=bound_by, bytes=nbytes, bytes_bound_ms=bytes_ms,
+         operations=step["ops_total"], ops_bound_ms=ops_ms,
+         step_ms_per_replay=step["kernel_ms"] * width,
+         step_launches_per_replay=width, library_ms=None,
+         library_note="no single PyTorch call computes this scan")
+    return out
 
 
 class uncounted:
     """Timing launches do not count: the launch counters of a kernel
-    module (LAUNCHES and, where it has one, LAUNCHES_BY_FORM) are put back
-    as they were on exit."""
+    module (its integer LAUNCHES counts and its LAUNCHES_BY_FORM dicts)
+    are put back as they were on exit."""
 
     def __init__(self, mod):
         self.mod = mod
 
     def __enter__(self):
-        self.saved = (self.mod.LAUNCHES,
-                      dict(getattr(self.mod, "LAUNCHES_BY_FORM", {})))
+        self.saved = {k: (dict(v) if isinstance(v, dict) else v)
+                      for k, v in vars(self.mod).items()
+                      if "LAUNCHES" in k and isinstance(v, (int, dict))}
 
     def __exit__(self, *exc):
-        self.mod.LAUNCHES = self.saved[0]
-        if hasattr(self.mod, "LAUNCHES_BY_FORM"):
-            self.mod.LAUNCHES_BY_FORM.update(self.saved[1])
+        for k, v in self.saved.items():
+            if isinstance(v, dict):
+                getattr(self.mod, k).update(v)
+            else:
+                setattr(self.mod, k, v)
 
 
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
@@ -1329,22 +1523,25 @@ def time_rglru(device):
 
 def time_ssd(device):
     """The SSD kernel at the Mamba-2 serving path's shape (bf16 x, B and C
-    as views into the conv output) and its plain version; no single
-    PyTorch call computes this scan."""
+    as views into the conv output): device ms a call by CUDA-graph replay
+    (``kernel_ms``), ms a call with the wrapper's host work
+    (``call_ms``), device ms by kernel (``pass_device_ms``), and its plain
+    version; no single PyTorch call computes this scan."""
     import torch
     from repro_torch.kernels import ssd_scan as SS
-    from repro_torch.kernels.timing import launch_ms, pass_ms, ssd_inputs
+    from repro_torch.kernels.timing import (graph_ms, launch_ms, pass_ms,
+                                            ssd_inputs)
 
     s = SSD_SHAPE
     b, l, h, p, n, Q = (s[k] for k in ("b", "l", "h", "p", "n", "chunk"))
     x, dt, A, B, C = ssd_inputs(b, l, h, p, n, torch.bfloat16, device, 50,
                                 True)
-    n0 = SS.LAUNCHES
     run = lambda: SS.ssd_scan(x, dt, A, B, C, chunk=Q)
-    kernel_ms = launch_ms(run, 20)
-    passes = pass_ms(run)
+    with uncounted(SS):
+        call_ms = launch_ms(run, 20)
+        kernel_ms = graph_ms(run, 20)
+        passes = pass_ms(run)
     plain_ms = launch_ms(lambda: SS.ssd_scan_plain(x, dt, A, B, C, Q), 3)
-    SS.LAUNCHES = n0                     # timing launches do not count
     # Least operations: C_i . B_j for the live pairs j <= i of each chunk
     # once per batch row, the masked product with x over the same pairs and
     # C S_in and the chunk states (2 q n p each) per head. Least bytes: x, B
@@ -1361,8 +1558,8 @@ def time_ssd(device):
     bound_ms = max(ops_ms, bytes_ms)
     bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
     emit("times_ssd", shape=[b, l, h, p], n=n, chunk=Q, dtype="bfloat16",
-         kernel_ms=kernel_ms, pass_device_ms=passes, plain_ms=plain_ms,
-         operations=ops,
+         kernel_ms=kernel_ms, call_ms=call_ms, pass_device_ms=passes,
+         plain_ms=plain_ms, operations=ops,
          bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by,
          ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms,
          cuda_core_ops_bound_ms=ops / F32_CUDA_CORE_OPS_PER_S * 1e3,
@@ -1591,7 +1788,9 @@ def main() -> int:
     rglru_err = rglru_parity(device)
     ssd_err = ssd_parity(device)
     decode_err = decode_parity(device)
-    trace, launches, e2e = scale_point(device)
+    trace, launches, launches_by_form, e2e = scale_point(device)
+    sweep_cols = sweep_columns(trace, device)
+    max_err = max(max_err, scan_parity(sweep_cols, device))
     t_policy = time.perf_counter()
     policy_launches, policy_err, policy_cols = policy_update_parity(
         trace, device)
@@ -1616,10 +1815,11 @@ def main() -> int:
          "decode_attention": (DA, QWEN2_DECODE_PER_REQUEST)},
         SERVE_QWEN2_LOGITS_REL_TOL, decode_steps=SERVE_QWEN2_DECODE_STEPS)
     serve_qwen2_s = time.perf_counter() - t_serve
-    # time the kernel on the scale trace's columns, as the main path ran it
-    times, counts = trace.to_padded()
-    kernel_ms, plain_ms, bound_ms, bound_by = time_kernel(
-        times[:, :int(counts.max())].astype(np.float64), device)
+    # time the step and the scan on the scale trace's columns, as the main
+    # path ran them
+    step = time_kernel(sweep_cols, device)
+    scan = time_scan(sweep_cols, device, step)
+    del sweep_cols
     fa_rg = time_attention(device, ATTN_SHAPE, seed=30)
     fa_qw = time_attention(device, QWEN2_ATTN_SHAPE, seed=31)
     rg_ms, rg_plain_ms, rg_bound_ms = time_rglru(device)
@@ -1630,12 +1830,20 @@ def main() -> int:
 
     csrc = "src/repro_torch/kernels/csrc/"
     print(json.dumps({"kernels": [{
-        "name": "fused_hybrid_sweep_step", "route": "cuda",
+        # the main path runs the scan (one launch per chunk and band);
+        # ms, plain_ms and bound_ms per scale replay; the step, the
+        # per-column counterpart of the TPU kernel, beside it per launch
+        "name": "fused_hybrid_sweep_scan", "route": "cuda",
         "source": csrc + "hybrid_sweep_step.cu",
         "replaces": "src/repro/kernels/histogram.py:245",
-        "launches": launches, "max_abs_err": max_err, "ms": kernel_ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}, {
+        "launches": launches, "launches_by_form": launches_by_form,
+        "max_abs_err": max_err, "ms": scan["kernel_ms"],
+        "plain_ms": scan["plain_ms"], "bound_ms": scan["bound_ms"],
+        "bound_by": scan["bound_by"], "library_ms": None,
+        "step": {"name": "fused_hybrid_sweep_step", "launches": 0,
+                 "ms": step["kernel_ms"], "plain_ms": step["plain_ms"],
+                 "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
+                 "launches_per_replay": step["launches"]}}, {
         "name": "flash_attention", "route": "cuda",
         "source": csrc + "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:104",

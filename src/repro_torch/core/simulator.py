@@ -9,12 +9,13 @@ this module holds the engines, all deciding through
   * :func:`_run_fixed_sweep` — S fixed keep-alive configs in one float64
     pass over the padded trace columns.
   * :func:`_run_hybrid_sweep` — S hybrid configs in one pass: apps are
-    bucketed by event count, each bucket chunked over apps, and one fused
-    step per event column advances every config x app of the chunk. With
-    ``use_kernel`` the step is
-    :func:`repro_torch.kernels.histogram.fused_hybrid_sweep_step` (the CUDA
-    kernel on the card); otherwise its plain version. Per-config state is
-    carried unfactored, ``[S, n, n_bins]`` int32.
+    bucketed by event count, each bucket chunked over apps, and the fused
+    step, once per event column, advances every config x app of the chunk.
+    With ``use_kernel`` the chunk's columns go through
+    :func:`repro_torch.kernels.histogram.fused_hybrid_sweep_scan` (one
+    launch of the CUDA scan kernel on the card); otherwise through its
+    plain version, the plain step per column. Per-config state is carried
+    unfactored, ``[S, n, n_bins]`` int32.
 
 Every engine keeps time in float64, so none needs per-chunk rebasing: the
 TPU kernel's float32 rebased time is not exact on float32 minute stamps
@@ -294,14 +295,14 @@ def _build_cfg_blocks(cfgs: Sequence[HybridConfig]):
 
 def _hybrid_sweep_scan(cols: torch.Tensor, cfg_i32: torch.Tensor,
                        cfg_f32: torch.Tensor, bin_minutes: torch.Tensor,
-                       n_bins: int, step):
-    """One sweep over a chunk: ``cols`` [width, n] float64, one ``step`` per
-    column for all S configs — ``kernels.histogram.fused_hybrid_sweep_step``
-    (the CUDA kernel on the card) or its plain version. Idle times are
-    binned by the exact float64 ``bin_minutes`` [S]. The initial carry is
-    ``prev=-inf``, zero state, bounds ``(0, standard_keep)`` — the decision
-    of an empty histogram. Returns (cold, waste, oob_heavy, last_t,
-    prewarm, unload_at)."""
+                       n_bins: int, scan):
+    """One sweep over a chunk: ``cols`` [width, n] float64 through ``scan``
+    for all S configs — ``kernels.histogram.fused_hybrid_sweep_scan`` (one
+    launch of the CUDA kernel on the card) or its plain version (the plain
+    step once per column). Idle times are binned by the exact float64
+    ``bin_minutes`` [S]. The initial carry is ``prev=-inf``, zero state,
+    bounds ``(0, standard_keep)`` — the decision of an empty histogram.
+    Returns (cold, waste, oob_heavy, last_t, prewarm, unload_at)."""
     _check_scan_width(cols.shape[0])
     S, n = cfg_i32.shape[0], cols.shape[1]
     tdt, dev = cols.dtype, cols.device
@@ -314,10 +315,8 @@ def _hybrid_sweep_scan(cols: torch.Tensor, cfg_i32: torch.Tensor,
         cfg_f32[:, 6:7].to(tdt).repeat(1, n),              # unload_at
         zeros(torch.int32), zeros(tdt),
     )
-    for t_now in cols:
-        state = step(t_now, *state, cfg_i32, cfg_f32,
-                     bin_minutes=bin_minutes)
-    prev_t, cum, oob, _, _, prewarm, unload_at, cold, waste = state
+    prev_t, cum, oob, _, _, prewarm, unload_at, cold, waste = scan(
+        cols, *state, cfg_i32, cfg_f32, bin_minutes=bin_minutes)
     oobh = policy_math.oob_heavy(cum[..., -1], oob, cfg_f32[:, 5:6])
     # the clock is config-independent: any row of prev_t is the last event
     return cold, waste, oobh, prev_t[0], prewarm, unload_at
@@ -332,8 +331,9 @@ def _run_hybrid_sweep(trace: Trace, hybrids: Sequence[HybridConfig],
 
     Configs are banded by bin count (no config pays for another's wider
     histogram); the trace preparation and each chunk's transfer are shared
-    by every band. ``use_kernel`` steps through the kernel, otherwise
-    through its plain version; both in float64 time."""
+    by every band. ``use_kernel`` scans each chunk through the scan kernel
+    (one launch a chunk and band on the card), otherwise through its plain
+    version; both in float64 time."""
     if any(h.use_arima for h in hybrids):
         from .policy import ARIMA_NOT_PORTED
         raise NotImplementedError(ARIMA_NOT_PORTED)
@@ -366,17 +366,17 @@ def _run_hybrid_sweep(trace: Trace, hybrids: Sequence[HybridConfig],
         bands.append((np.asarray(idx), torch.from_numpy(ci).to(device),
                       torch.from_numpy(cf).to(device), bm, n_bins))
 
-    from ..kernels.histogram import (fused_hybrid_sweep_step,
-                                     fused_hybrid_sweep_step_plain)
-    step = fused_hybrid_sweep_step if use_kernel \
-        else fused_hybrid_sweep_step_plain
+    from ..kernels.histogram import (fused_hybrid_sweep_scan,
+                                     fused_hybrid_sweep_scan_plain)
+    scan = fused_hybrid_sweep_scan if use_kernel \
+        else fused_hybrid_sweep_scan_plain
     work = _chunked_buckets(times, counts, chunk)
     for sel, cols in _chunk_stream(work, device):
         for idx, ci, cf, bm, n_bins in bands:
             # oob_heavy feeds only the ARIMA post-pass, which is not ported
             c, w, _, last_t, pw, ub = (
                 x.cpu().numpy()
-                for x in _hybrid_sweep_scan(cols, ci, cf, bm, n_bins, step))
+                for x in _hybrid_sweep_scan(cols, ci, cf, bm, n_bins, scan))
             at = np.ix_(idx, sel)
             cold[at] = c
             waste[at], pre[at], keep[at] = _absolute_results(

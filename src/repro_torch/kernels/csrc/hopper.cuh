@@ -1,6 +1,6 @@
-// Hopper building blocks of the attention and decode kernels: mbarriers, TMA
-// tensor loads, wgmma descriptors and products, cp.async, ldmatrix,
-// movmatrix and mma.sync. Inline PTX for sm_90a only (wgmma does not exist
+// Hopper building blocks of the attention, decode and SSD kernels:
+// mbarriers, TMA tensor loads and bulk copies, wgmma descriptors and
+// products, cp.async, ldmatrix, movmatrix and mma.sync. Inline PTX for sm_90a only (wgmma does not exist
 // on plain sm_90). Header only; each kernel source that includes it is
 // built on its own (kernels/build.py hashes it with them).
 #pragma once
@@ -67,6 +67,29 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 // barrier counts the bytes in (out-of-bounds elements arrive as zeros and
 // count too)
 // ---------------------------------------------------------------------------
+
+// `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte
+// aligned) by the same engine, counted on the barrier the same way
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+         "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* tmap,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(tmap)), "r"(c0), "r"(c1),
+         "r"(c2), "r"(bar)
+      : "memory");
+}
 
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* tmap,
                                             uint32_t bar, int c0, int c1,
@@ -349,6 +372,12 @@ __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
                                             bool full) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(dst), "l"(src), "r"(full ? 16 : 0) : "memory");
+}
+
+// orders this thread's generic-proxy accesses of shared memory before later
+// async-proxy ones (TMA writes, wgmma reads)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -1,4 +1,4 @@
-// The Mamba-2 SSD (state-space duality) chunked scan, in four passes.
+// The Mamba-2 SSD (state-space duality) chunked scan.
 //
 // Replaces the TPU kernel repro/kernels/ssd_scan.py::_ssd_kernel
 // (ssd_scan_pallas). It computes what repro/models/mamba2.py::ssd_reference
@@ -23,46 +23,66 @@
 // bf16 tensor cores' 989 TFLOP/s (0.49 ms at the CUDA cores' 67 TFLOP/s);
 // x, y, dt, B, C and the final state are 180 MB, 0.054 ms at 3.35 TB/s.
 //
-// Design. The TPU grid (b, h, chunk) walks the chunks in order and keeps
-// the [n, p] state in VMEM; here the chunks are independent but for a
-// cheap carry, so every pass runs across all chunks at once:
-//   1. ssd_cb: C B^T of each (b, chunk), once for all heads (the TPU
-//      kernel recomputed it per head), into scratch [b, nc, Q, Q];
-//   2. ssd_state: per (b, chunk, head, n tile, p tile) the running sum of
-//      dt*A over the chunk, the chunk's decay exp(cum_last) and its local
-//      state sum_j B_j (w_j x_j)^T, w = exp(cum_last - cum) dt, into
-//      scratch [b, nc, h, n, p];
-//   3. ssd_carry: one thread per (b, h, n, p) element walks the chunks,
-//      overwrites each local state with the state entering the chunk and
-//      writes the final state;
-//   4. ssd_out: per (b, chunk, 64-row tile, p tile, head) C_i . S_in,
-//      scaled by exp(cum_i), plus the masked product with x over the
-//      tile's causal columns; y written once.
-// The causal mask is applied before the exp (exp(cum_i - cum_j) overflows
-// for j > i), and rows or columns past the chunk are staged as zeros.
-// Passes 2 and 4 produce 64 x 64 output tiles, the reduction staged 32 deep
-// in shared memory; pass 1 is the CUDA-core form below for both types.
-//   f32 inputs: IEEE f32 on the CUDA cores (TF32 would miss the reference's
-//   5e-5). 256 threads, 4 x 4 outputs each at a stride of 16 rows and 16
-//   columns, so shared-memory reads are conflict-free or broadcast.
-//   bf16 inputs (the serving path): the tensor cores, mma.sync.m16n8k16
-//   with f32 accumulation, 4 warps of 16 rows x 64 columns. x, B and C are
-//   exact in bf16 and go in as they are (B^T and x through ldmatrix.trans
-//   from row-major tiles, rows padded by 8 elements so fragment loads hit
-//   32 banks); each f32 operand (the masked M, w x, S_in) is split into
-//   two bf16 halves hi = bf16(v), lo = bf16(v - hi) and multiplied twice,
-//   so the products keep about 16 of f32's 24 bits.
-// The scratch is b*nc*(Q*Q + h*(Q + 1 + n*p)) floats (95 MB at the path's
-// shape, mostly the chunk states, which pass 4 reads back).
+// bf16 inputs (the serving path): two kernels, wgmma with f32
+// accumulation, operands brought by TMA into 128-byte swizzled rings.
+//   1. ssd_states_bf16, per (b, head, 64-row n tile, 64-column p tile), one
+//      warpgroup: walks the chunks in order with the state in its
+//      accumulators, writes the state entering each chunk once (in two
+//      bf16 halves, the form the next kernel's tensor cores take) and the
+//      chunk's cum and dt, and the final state in f32. The chunk states
+//      never make another trip: the TPU kernel keeps the state in VMEM
+//      across a sequential grid; here the sequential walk is inside the
+//      block.
+//   2. ssd_out_bf16, per (b, chunk, 64-row tile, p tile, group of heads),
+//      two warpgroups and a producer warp that keeps the TMA ring full
+//      (full and empty mbarriers, so the warpgroups meet only at the end
+//      of a head): C B^T of its rows once (B and C are exact in bf16),
+//      kept in shared memory for every head of the group; per head
+//      exp(cum_i) C_i . S_in plus M x, with the masked M = CB exp(cum_i -
+//      cum_j) dt_j built in registers as the A operand. The group size
+//      gives about four blocks an SM; each group computes its rows' C B^T
+//      again (five groups at the path's shape, 2% of the kernel's
+//      products), and the four row tiles of a chunk each read its states
+//      (adjacent blocks, so mostly from L2).
+//   Each f32 operand (M, w x and S_in) goes in as two bf16 halves hi =
+//   bf16(v), lo = bf16(v - hi) and is multiplied twice, so the products keep
+//   about 16 of f32's 24 bits; x, B and C go in as they are. One bf16
+//   operand in place of a pair missed the bf16 gate (atol 1e-3 of max |y|
+//   plus rtol 8e-3) by up to 2.1x at the parity cases. The causal mask is
+//   applied before the exp (exp(cum_i - cum_j) overflows for j > i), which
+//   is one ex2.approx.ftz of the difference times log2 e (the difference is
+//   taken first, so its error stays relative to it, not to cum). The
+//   scratch is the chunk states' two halves and the chunks' cum and dt
+//   (86 MB at the path's shape), kept by the wrapper from call to call.
+//   Inputs whose strides TMA does not take are staged element by element.
+//   Measured on the card with earlier forms of these kernels: with cp.async
+//   staging and mma.sync (16-row warps) both kernels were slower than the
+//   four-pass form they replace, their time in issuing copies and reading
+//   B tiles from shared memory; TMA and wgmma (a warpgroup reads a B tile
+//   once for 64 rows) took them about half of that time off, and a
+//   producer warp in place of a barrier a step another 8% (both sides on
+//   one card, in one process).
+//   What remains is a loop of short dependent steps (a few wgmma and
+//   their wait) at one block an SM; building a step's operands while the
+//   previous step's products ran, in two register sets, was no faster.
 //
-// Not yet done (the next steps toward the bound): C B^T on the tensor
-// cores, wgmma and TMA, and fusing passes 2-4 so the chunk states stay on
-// chip.
+// f32 inputs (parity checks only), four passes on the CUDA cores in IEEE
+// f32 (TF32 would miss the reference's 5e-5): 1. ssd_cb, C B^T of each
+// (b, chunk) into scratch; 2. ssd_state, the chunks' local states; 3.
+// ssd_carry, one thread per (b, h, n, p) element walking the chunks; 4.
+// ssd_out. 256 threads, 4 x 4 outputs each at a stride of 16 rows and 16
+// columns, the reduction staged 32 deep. Scratch b*nc*(Q*Q + h*(Q + 1 +
+// n*p)) floats.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -72,7 +92,8 @@ constexpr int kTile = 64;        // output tile is kTile x kTile
 constexpr int kK = 32;           // reduction depth staged per step
 constexpr int kLd = kTile + 1;   // padded row of a staged [kK][kTile] tile
 
-enum : int { kErrShape = -1, kErrDtype = -2 };
+enum : int { kErrShape = -1, kErrDtype = -2, kErrNoEncoder = -3,
+             kErrTensorMap = -4 };
 
 struct Dims {
   int b, l, h, p, n, Q, nc;
@@ -90,10 +111,6 @@ struct Scratch {
   float* st;    // [b, nc, h, n, p]
 };
 
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 
 __host__ __device__ __forceinline__ int cdiv(int a, int b) {
   return (a + b - 1) / b;
@@ -120,9 +137,8 @@ __device__ __forceinline__ void mac_tile(float (&acc)[4][4],
 }
 
 // Pass 1: CB[b, c, i, j] = C_i . B_j for the tiles with j-tile <= i-tile.
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    ssd_cb(const T* __restrict__ B, const T* __restrict__ C,
+    ssd_cb(const float* __restrict__ B, const float* __restrict__ C,
            Scratch s, Dims d) {
   __shared__ float Cs[kK][kLd];   // [n][i]
   __shared__ float Bs[kK][kLd];   // [n][j]
@@ -135,8 +151,8 @@ __global__ void __launch_bounds__(kThreads)
   const int i0 = ti * kTile, j0 = tj * kTile;
   if (tj > ti || i0 >= qlen) return;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const T* Cb = C + bb * d.scb + (int64_t)t0 * d.scl;
-  const T* Bb = B + bb * d.sbb + (int64_t)t0 * d.sbl;
+  const float* Cb = C + bb * d.scb + (int64_t)t0 * d.scl;
+  const float* Bb = B + bb * d.sbb + (int64_t)t0 * d.sbl;
   float acc[4][4] = {};
   for (int k0 = 0; k0 < d.n; k0 += kK) {
     #pragma unroll 4
@@ -144,8 +160,8 @@ __global__ void __launch_bounds__(kThreads)
       const int e = threadIdx.x + u * kThreads;
       const int k = e % kK, r = e / kK, nn = k0 + k;
       const bool kin = nn < d.n;
-      Cs[k][r] = (kin && i0 + r < qlen) ? ld(Cb + (i0 + r) * d.scl + nn) : 0.f;
-      Bs[k][r] = (kin && j0 + r < qlen) ? ld(Bb + (j0 + r) * d.sbl + nn) : 0.f;
+      Cs[k][r] = (kin && i0 + r < qlen) ? Cb[(i0 + r) * d.scl + nn] : 0.f;
+      Bs[k][r] = (kin && j0 + r < qlen) ? Bb[(j0 + r) * d.sbl + nn] : 0.f;
     }
     __syncthreads();
     mac_tile(acc, Cs, Bs, ty, tx);
@@ -373,394 +389,700 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// bf16 inputs: passes 2 and 4 on the tensor cores
+// bf16 inputs (the serving path): two kernels on the tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int kTcThreads = 128;   // 4 warps, 16 rows of the 64-row tile each
-constexpr int kAld = kK + 8;      // A tiles [kTile][kAld] bf16, k contiguous
-constexpr int kBld = kTile + 8;   // B tiles [kK][kBld] bf16, n contiguous
-constexpr int kNT = kTile / 8;    // n8 tiles of a warp's 16 x 64 output
-
 typedef __nv_bfloat16 bf16;
+using hopper::ldmatrix_x4_trans;
+using hopper::mma_bf16_16816;
+using hopper::smem_u32;
 
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
-                                               const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kKs = 32;              // reduction depth of one pipeline step
+constexpr int kTileElems = kKs * 64; // a [32][64] bf16 tile, 128-byte swizzle
+constexpr int kTileBytes = kTileElems * 2;
+constexpr int kStates = 128;         // ssd_states_bf16: one warpgroup
+constexpr int kStatesStages = 4;
+constexpr int kGroup = 4;            // chunks whose decays it finds at once
+constexpr int kOut = 256;            // ssd_out_bf16: two warpgroups
+constexpr int kOutThreads = kOut + 32;  // and a producer warp
+constexpr int kOutStages = 3;
+constexpr int kOutRows = 64;         // rows of a chunk per ssd_out_bf16 block
+constexpr int kCbLd = kMaxChunk + 8; // f32 row of C B^T (8 mod 32 words)
+constexpr int kRedLd = 64 + 8;       // f32 row of the halves' hand-over
+constexpr int kRow = 64 + 8;         // bf16 row of the state staging tile
+constexpr int kMaxSharedBytes = 232448;
+
+// The scratch of the bf16 form.
+struct Bf16Scratch {
+  bf16* sin_hi;   // [b, nc, h, n, pp]: the state entering each chunk, hi
+  bf16* sin_lo;   //   and lo halves (pp = p rounded up to 8)
+  float* cd;      // [b, nc, h, 2, Qp]: cum, then dt, of each chunk
+                  //   (Qp = Q rounded up to 4; zeros past qlen)
+  int pp, Qp;
+};
+
+__host__ __device__ __forceinline__ int round_up(int a, int m) {
+  return cdiv(a, m) * m;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// v = hi + lo with hi = bf16(v), lo = bf16(v - hi), each rounded to the
+// nearest bf16 (ties away from zero) by adding half a bf16 unit to the
+// bits before keeping the top 16: the pair carries about 16 of v's 24 bits
+// (within 2^-17 of |v|, without bias), so a product of the pair with an
+// exact bf16 operand, summed in f32, keeps about 16 bits. Integer adds,
+// masks and byte permutes on the ALU pipe: the packed rounding conversion
+// (cvt.rn.bf16x2.f32) cost the output kernel a fifth of its time on the
+// card, and a truncating split (biased toward zero) took Mamba-2's
+// last-token logits past 5% of the plain branches' after 64 layers.
+__device__ __forceinline__ uint32_t bf16_bits_rn(float v) {
+  return (__float_as_uint(v) + 0x8000u) & 0xffff0000u;
 }
 
-// B fragment of a k16 x n8 step from a row-major [k][n] tile: lanes 0-15
-// give the addresses of rows k0 .. k0 + 15 at column n0.
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t* r,
-                                                  const bf16* row) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(row)));
+__device__ __forceinline__ void split2(float a, float b, uint32_t* hi,
+                                       uint32_t* lo) {
+  const uint32_t ha = bf16_bits_rn(a), hb = bf16_bits_rn(b);
+  *hi = __byte_perm(ha, hb, 0x7632);
+  *lo = __byte_perm(bf16_bits_rn(a - __uint_as_float(ha)),
+                    bf16_bits_rn(b - __uint_as_float(hb)), 0x7632);
 }
 
-// A fragment of a m16 x k16 step from a row-major [k][m] tile (the
-// transpose of A): lane l gives the address of row k0 + (l & 7) + 8 (l >> 4)
-// at column m0 + 8 ((l >> 3) & 1).
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const bf16* row) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(row)));
+// exp(x) by one SFU instruction, results below 2^-126 flushed to zero
+// (__expf, without -ftz, also handles subnormal results: slower where most
+// of M's arguments are large and negative)
+__device__ __forceinline__ float exp_ftz(float x) {
+  return hopper::ex2(x * 1.4426950408889634f);
+}
+
+__device__ __forceinline__ float2 unpack2(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+__device__ __forceinline__ uint32_t pack_rn(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
 __device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// A fragment of a m16 x k16 step from a row-major [m][k] tile, rows m0..
-__device__ __forceinline__ void a_frag(uint32_t* a, const bf16* tile, int m0,
-                                       int k0, int g, int t) {
-  const bf16* r0 = tile + (m0 + g) * kAld + k0 + 2 * t;
-  const bf16* r1 = r0 + 8 * kAld;
-  a[0] = ld_u32(r0);
-  a[1] = ld_u32(r1);
-  a[2] = ld_u32(r0 + 8);
-  a[3] = ld_u32(r1 + 8);
+// Byte offset of element (r, c) of a [rows][64] bf16 tile in TMA's 128-byte
+// swizzle: rows of 128 bytes, the 16-byte piece k of row r at place
+// k ^ (r % 8) (the tile 1024-byte aligned).
+__device__ __forceinline__ uint32_t sw_off(int r, int c) {
+  return r * 128 + ((((c >> 3) ^ (r & 7)) << 4) | ((c & 7) << 1));
 }
 
-// v = hi + lo with hi = bf16(v), lo = bf16(v - hi): the pair carries 16 of
-// v's 24 bits, so a product of the pair with an exact bf16 operand, summed
-// in f32, is within about 2^-17 of v's own (the f32 tiles of passes 2 and
-// 4 go through the tensor cores this way).
-__device__ __forceinline__ void split_bf16(float v, bf16* hi, bf16* lo) {
-  const bf16 h = __float2bfloat16_rn(v);
-  *hi = h;
-  *lo = __float2bfloat16_rn(v - __bfloat162float(h));
-}
-
-// acc[nt] += A[16 rows of this warp][k16] B[k16][n8 tile nt] for both halves
-// of B, over one staged kK step (A exact in one tile).
-__device__ __forceinline__ void mma_step_bsplit(float (&acc)[kNT][4],
-                                                const bf16* A, int m0,
-                                                const bf16* Bhi,
-                                                const bf16* Blo, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < kK; kk += 16) {
-    uint32_t a[4];
-    a_frag(a, A, m0, kk, g, t);
-    const int row = (kk + (lane & 15)) * kBld;
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      uint32_t bh[2], bl[2];
-      ldmatrix_x2_trans(bh, Bhi + row + nt * 8);
-      ldmatrix_x2_trans(bl, Blo + row + nt * 8);
-      mma_bf16_16816(acc[nt], a, bh);
-      mma_bf16_16816(acc[nt], a, bl);
-    }
+// A [R][64] bf16 tile (rows past rlim and columns past clim zero) into the
+// swizzled tile at dst, element by element, by the block's `nthreads`
+// threads: the path for inputs whose strides or alignment TMA does not
+// take (the serving path's inputs go by TMA).
+template <int R>
+__device__ __forceinline__ void stage_sw_elems(bf16* dst, const bf16* src,
+                                               int64_t rs, int rlim,
+                                               int clim, int nthreads) {
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  unsigned char* base = reinterpret_cast<unsigned char*>(dst);
+  for (int e = threadIdx.x; e < R * 64; e += nthreads) {
+    const int r = e >> 6, c = e & 63;
+    *reinterpret_cast<bf16*>(base + sw_off(r, c)) =
+        (r < rlim && c < clim) ? src[r * rs + c] : zero;
   }
 }
 
-// Staging of the tensor-core passes. `vec`: 16-byte loads (8 bf16 or 4
-// f32) where the pointers, the row strides and the widths allow them (the
-// host checks; the serving path's views do), else one element at a time.
-// Rows past rlim and columns past clim are staged as zeros.
-
-// A [R][C] bf16 tile into dst (row stride ld), exact.
-template <int R, int C>
-__device__ __forceinline__ void tile_bf16(bf16* dst, int ld, const bf16* src,
-                                          int64_t rs, int rlim, int clim,
-                                          bool vec) {
-  if (vec) {
-    constexpr int C8 = C / 8, N = R * C8;
-#pragma unroll
-    for (int u = 0; u < N / kTcThreads; ++u) {
-      const int e = threadIdx.x + u * kTcThreads;
-      const int r = e / C8, c = (e % C8) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (r < rlim && c < clim)
-        v = *reinterpret_cast<const uint4*>(src + r * rs + c);
-      *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
-    }
-  } else {
-    const bf16 zero = __float2bfloat16_rn(0.f);
-#pragma unroll 4
-    for (int u = 0; u < R * C / kTcThreads; ++u) {
-      const int e = threadIdx.x + u * kTcThreads;
-      const int r = e / C, c = e % C;
-      dst[r * ld + c] = (r < rlim && c < clim) ? src[r * rs + c] : zero;
-    }
+// The same by one warp.
+template <int R>
+__device__ __forceinline__ void stage_sw_elems_warp(bf16* dst,
+                                                    const bf16* src,
+                                                    int64_t rs, int rlim,
+                                                    int clim) {
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  unsigned char* base = reinterpret_cast<unsigned char*>(dst);
+  for (int e = threadIdx.x & 31; e < R * 64; e += 32) {
+    const int r = e >> 6, c = e & 63;
+    *reinterpret_cast<bf16*>(base + sw_off(r, c)) =
+        (r < rlim && c < clim) ? src[r * rs + c] : zero;
   }
 }
 
-__device__ __forceinline__ uint32_t pack2(bf16 a, bf16 b) {
-  return (uint32_t)__bfloat16_as_ushort(a) |
-         ((uint32_t)__bfloat16_as_ushort(b) << 16);
+// Rows [kk, kk + 16) of a swizzled [32][64] tile at shared address `tile`
+// as an MN-major wgmma B operand (8-row groups 1024 bytes apart).
+__device__ __forceinline__ uint64_t tile_desc(uint32_t tile, int kk) {
+  return hopper::desc_sw128(tile + kk * 128, kTileBytes, 1024);
 }
 
-// Four f32 values, split, into hi[0..3] and lo[0..3] (8-byte stores).
-__device__ __forceinline__ void put4_split(bf16* hi, bf16* lo,
-                                           const float* v) {
-  bf16 h[4], l[4];
+// Warp-wide decays of one chunk of qlen <= 256 steps (lane L owns steps
+// [8L, 8L + 8)): the running log-decay cum_j = sum_{k<=j} dt_k a, w_j =
+// exp(cum_last - cum_j) dt_j into w_s (0 past qlen); with `cd` set, cum and
+// dt go to cd[0, Qp) and cd[Qp, 2 Qp). Returns exp(cum_last).
+__device__ float warp_decays(const float* dtb, int64_t sdl, float a,
+                             int qlen, float* w_s, float* cd, int Qp) {
+  constexpr int E = kMaxChunk / 32;
+  const int lane = threadIdx.x & 31;
+  float d[E], v[E];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) split_bf16(v[k], &h[k], &l[k]);
-  *reinterpret_cast<uint2*>(hi) = make_uint2(pack2(h[0], h[1]),
-                                             pack2(h[2], h[3]));
-  *reinterpret_cast<uint2*>(lo) = make_uint2(pack2(l[0], l[1]),
-                                             pack2(l[2], l[3]));
-}
-
-// A [R][C] f32 tile times a per-row factor (scale[r], or 1 if null), split
-// into the hi and lo tiles (row stride ld). src rows are f32 (src_f) or
-// bf16 (src_b), one of them set.
-template <int R, int C>
-__device__ __forceinline__ void tile_split(bf16* hi, bf16* lo, int ld,
-                                           const float* src_f,
-                                           const bf16* src_b, int64_t rs,
-                                           const float* scale, int rlim,
-                                           int clim, bool vec) {
-  constexpr int C4 = C / 4, N = R * C4;
-  if (vec) {
+  for (int e = 0; e < E; ++e) {
+    const int j = lane * E + e;
+    d[e] = j < qlen ? dtb[(int64_t)j * sdl] : 0.f;
+  }
+  float run = 0.f;
 #pragma unroll
-    for (int u = 0; u < N / kTcThreads; ++u) {
-      const int e = threadIdx.x + u * kTcThreads;
-      const int r = e / C4, c = (e % C4) * 4;
-      float v[4] = {0.f, 0.f, 0.f, 0.f};
-      if (r < rlim && c < clim) {
-        if (src_f) {
-          const float4 q = *reinterpret_cast<const float4*>(src_f + r * rs + c);
-          v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-        } else {
-          const uint2 q = *reinterpret_cast<const uint2*>(src_b + r * rs + c);
-          const bf16* b4 = reinterpret_cast<const bf16*>(&q);
+  for (int e = 0; e < E; ++e) {
+    run += d[e] * a;
+    v[e] = run;
+  }
+  float incl = run;
 #pragma unroll
-          for (int k = 0; k < 4; ++k) v[k] = __bfloat162float(b4[k]);
-        }
-        const float f = scale ? scale[r] : 1.f;
+  for (int off = 1; off < 32; off <<= 1) {
+    const float u = __shfl_up_sync(kFullMask, incl, off);
+    if (lane >= off) incl += u;
+  }
+  float excl = __shfl_up_sync(kFullMask, incl, 1);
+  if (lane == 0) excl = 0.f;
+  float last = 0.f;
 #pragma unroll
-        for (int k = 0; k < 4; ++k) v[k] *= f;
-      }
-      put4_split(hi + r * ld + c, lo + r * ld + c, v);
-    }
-  } else {
-#pragma unroll 4
-    for (int u = 0; u < R * C / kTcThreads; ++u) {
-      const int e = threadIdx.x + u * kTcThreads;
-      const int r = e / C, c = e % C;
-      float v = 0.f;
-      if (r < rlim && c < clim)
-        v = (src_f ? src_f[r * rs + c] : __bfloat162float(src_b[r * rs + c])) *
-            (scale ? scale[r] : 1.f);
-      split_bf16(v, hi + r * ld + c, lo + r * ld + c);
+  for (int e = 0; e < E; ++e) {
+    v[e] += excl;
+    if (lane * E + e == qlen - 1) last = v[e];
+  }
+  last = __shfl_sync(kFullMask, last, (qlen - 1) / E);
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int j = lane * E + e;
+    const bool in = j < qlen;
+    w_s[j] = in ? expf(last - v[e]) * d[e] : 0.f;
+    if (cd && j < Qp) {
+      cd[j] = in ? v[e] : 0.f;
+      cd[Qp + j] = d[e];
     }
   }
+  return expf(last);
 }
 
-// Pass 2 for bf16 inputs: S_c[n, p] = sum_j B_j[n] (w_j x_j[p]); A = B^T
-// from the [j][n] tile by ldmatrix.trans (exact), w x split in two halves.
-__global__ void __launch_bounds__(kTcThreads)
-    ssd_state_tc(const bf16* __restrict__ x, const float* __restrict__ dt,
-                 const float* __restrict__ A, const bf16* __restrict__ B,
-                 Scratch s, Dims d, bool vec) {
-  __shared__ float cum_s[kMaxChunk];
-  __shared__ float w_s[kMaxChunk];
-  __shared__ __align__(16) bf16 Bs[kK][kBld];    // [j][n]
-  __shared__ __align__(16) bf16 Xhi[kK][kBld];   // [j][p] of w x
-  __shared__ __align__(16) bf16 Xlo[kK][kBld];
-  const int ntn = cdiv(d.n, kTile), ntp = cdiv(d.p, kTile);
+// Kernel 1: the chunk states and the carry. One warpgroup per (b, head,
+// 64-row n tile, 64-column p tile) walks the chunks in order with the
+// state S[n, p] in its wgmma accumulators: at each chunk it writes S (the
+// state entering the chunk, split into bf16 halves, the operand kernel 2
+// feeds the tensor cores) once, scales it by the chunk's decay and adds
+// sum_j B_j[n] (w_j x_j[p]) with wgmma: A = (B w)^T in registers (B^T by
+// ldmatrix.trans from the swizzled B tile, times w, split into halves), B
+// = x from its swizzled tile. B and x come 32 steps at a time by TMA into
+// a 4-stage ring that runs across chunk boundaries; the decays of four
+// chunks are found at once, one warp each. The final state is written in
+// f32.
+__global__ void __launch_bounds__(kStates)
+    ssd_states_bf16(const __grid_constant__ CUtensorMap tb,
+                    const __grid_constant__ CUtensorMap tx,
+                    const bf16* __restrict__ x, const float* __restrict__ dt,
+                    const float* __restrict__ A, const bf16* __restrict__ B,
+                    const float* __restrict__ init,
+                    float* __restrict__ final_state, Bf16Scratch s, Dims d,
+                    bool tma) {
+  __shared__ __align__(1024) bf16 ring[kStatesStages][2][kTileElems];
+  __shared__ float w_g[kGroup][kMaxChunk];
+  __shared__ float dec_g[kGroup];
+  __shared__ __align__(16) bf16 out_s[kStates / 32][16][kRow];
+  __shared__ __align__(8) uint64_t full[kStatesStages];
+  const int ntn = cdiv(d.n, 64), ntp = cdiv(d.p, 64);
   int blk = blockIdx.x;
   const int pt = blk % ntp; blk /= ntp;
   const int nt0 = blk % ntn; blk /= ntn;
-  const int hh = blk % d.h; blk /= d.h;
-  const int c = blk % d.nc, bb = blk / d.nc;
-  const int t0 = c * d.Q, qlen = min(d.Q, d.l - t0);
-  const int n0 = nt0 * kTile, p0 = pt * kTile;
-  const int64_t bch = ((int64_t)bb * d.nc + c) * d.h + hh;
-  chunk_decays(dt + bb * d.sdb + (int64_t)t0 * d.sdl + hh, d.sdl, A[hh],
-               qlen, cum_s, w_s, s, bch, d.Q, nt0 == 0 && pt == 0);
-
+  const int hh = blk % d.h, bb = blk / d.h;
+  const int n0 = nt0 * 64, p0 = pt * 64;
+  const bool writer = nt0 == 0 && pt == 0;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const bf16* Bb = B + bb * d.sbb + (int64_t)t0 * d.sbl + n0;
-  const bf16* xb = x + bb * d.sxb + (int64_t)t0 * d.sxl + hh * d.sxh + p0;
-  float acc[kNT][4] = {};
-  for (int j0 = 0; j0 < qlen; j0 += kK) {
-    tile_bf16<kK, kTile>(&Bs[0][0], kBld, Bb + j0 * d.sbl, d.sbl, qlen - j0,
-                         d.n - n0, vec);
-    tile_split<kK, kTile>(&Xhi[0][0], &Xlo[0][0], kBld, nullptr,
-                          xb + j0 * d.sxl, d.sxl, w_s + j0, qlen - j0,
-                          d.p - p0, vec);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kK; kk += 16) {
-      uint32_t af[4];
-      const int mi = lane >> 3;
-      ldmatrix_x4_trans(af, &Bs[kk + (lane & 7) + 8 * (mi >> 1)]
-                                [16 * warp + 8 * (mi & 1)]);
-      const int row = kk + (lane & 15);
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        uint32_t bh[2], bl[2];
-        ldmatrix_x2_trans(bh, &Xhi[row][nt * 8]);
-        ldmatrix_x2_trans(bl, &Xlo[row][nt * 8]);
-        mma_bf16_16816(acc[nt], af, bh);
-        mma_bf16_16816(acc[nt], af, bl);
-      }
-    }
-    __syncthreads();
-  }
   const int g = lane >> 2, t = lane & 3;
-  float* out = s.st + bch * d.n * d.p;
-#pragma unroll
-  for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int nn = n0 + 16 * warp + g + 8 * (e >> 1);
-      const int pp = p0 + nt * 8 + 2 * t + (e & 1);
-      if (nn < d.n && pp < d.p) out[(int64_t)nn * d.p + pp] = acc[nt][e];
-    }
-}
-
-// The masked M[i, j] = CB[i, j] exp(cum_i - cum_j) dt_j (j <= i < qlen) of
-// rows i0.., columns j0.. into the hi and lo [kTile][kAld] tiles.
-__device__ __forceinline__ void tile_m(bf16* hi, bf16* lo, const float* cb,
-                                       int Q, const float* cum_s,
-                                       const float* dt_s, int i0, int j0,
-                                       int qlen, bool vec) {
-  constexpr int C4 = kK / 4, N = kTile * C4;
-  if (vec) {
-#pragma unroll
-    for (int u = 0; u < N / kTcThreads; ++u) {
-      const int e = threadIdx.x + u * kTcThreads;
-      const int r = e / C4, c = (e % C4) * 4, i = i0 + r, j = j0 + c;
-      float v[4] = {0.f, 0.f, 0.f, 0.f};
-      if (i < qlen && j <= i) {
-        const float4 q =
-            *reinterpret_cast<const float4*>(cb + (int64_t)i * Q + j);
-        const float cv[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          if (j + k <= i)
-            v[k] = cv[k] * expf(cum_s[i] - cum_s[j + k]) * dt_s[j + k];
-      }
-      put4_split(hi + r * kAld + c, lo + r * kAld + c, v);
-    }
-  } else {
-#pragma unroll 4
-    for (int u = 0; u < kTile * kK / kTcThreads; ++u) {
-      const int e = threadIdx.x + u * kTcThreads;
-      const int r = e / kK, c = e % kK, i = i0 + r, j = j0 + c;
-      const float v = (j <= i && i < qlen)
-                          ? cb[(int64_t)i * Q + j] *
-                                expf(cum_s[i] - cum_s[j]) * dt_s[j]
-                          : 0.f;
-      split_bf16(v, hi + r * kAld + c, lo + r * kAld + c);
-    }
-  }
-}
-
-// Pass 4 for bf16 inputs: y = exp(cum_i) C_i . S_in + M x, with C and x
-// exact and S_in and M split in two halves. Held to 96 registers so that
-// five blocks share an SM (0.42 ms at the path's shape, against 0.59 ms at
-// the 136 registers it takes unbounded, with three).
-__global__ void __launch_bounds__(kTcThreads, 5)
-    ssd_out_tc(const bf16* __restrict__ x, const float* __restrict__ dt,
-               const bf16* __restrict__ C, bf16* __restrict__ y, Scratch s,
-               Dims d, bool vec) {
-  __shared__ float cum_s[kMaxChunk];
-  __shared__ float dt_s[kMaxChunk];
-  __shared__ __align__(16) bf16 Ahi[kTile][kAld];   // [i][k] of C, then M
-  __shared__ __align__(16) bf16 Alo[kTile][kAld];
-  __shared__ __align__(16) bf16 Bhi[kK][kBld];      // [k][p] of S_in, then x
-  __shared__ __align__(16) bf16 Blo[kK][kBld];
-  const int nti = cdiv(d.Q, kTile), ntp = cdiv(d.p, kTile);
-  int blk = blockIdx.x;
-  const int hh = blk % d.h; blk /= d.h;
-  const int pt = blk % ntp; blk /= ntp;
-  const int it = blk % nti; blk /= nti;
-  const int c = blk % d.nc, bb = blk / d.nc;
-  const int t0 = c * d.Q, qlen = min(d.Q, d.l - t0);
-  const int i0 = it * kTile, p0 = pt * kTile;
-  if (i0 >= qlen) return;
-  const int64_t bch = ((int64_t)bb * d.nc + c) * d.h + hh;
-  const int jmax = min(qlen, i0 + kTile);
-  for (int j = threadIdx.x; j < jmax; j += kTcThreads) {
-    cum_s[j] = s.cum[bch * d.Q + j];
-    dt_s[j] = dt[bb * d.sdb + (int64_t)(t0 + j) * d.sdl + hh];
+  const float a = A[hh];
+  const bf16* Bb = B + bb * d.sbb + n0;
+  const bf16* xb = x + bb * d.sxb + hh * d.sxh + p0;
+  const float* dtb = dt + bb * d.sdb + hh;
+  const int64_t np = (int64_t)d.n * s.pp;
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < kStatesStages; ++k)
+      hopper::mbar_init(smem_u32(&full[k]), 1);
+    hopper::fence_mbar_init();
   }
   __syncthreads();
 
+  float acc[32];                   // wgmma layout: [n8 tile][4]
+  const int64_t bh = (int64_t)bb * d.h + hh;
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const int nn = n0 + 16 * warp + g + 8 * ((e >> 1) & 1);
+    const int pp = p0 + (e >> 2) * 8 + 2 * t + (e & 1);
+    acc[e] = (init && nn < d.n && pp < d.p)
+                 ? init[(bh * d.n + nn) * d.p + pp] : 0.f;
+  }
+
+  const int spc = cdiv(d.Q, kKs);
+  const int steps = (d.nc - 1) * spc + cdiv(d.l - (d.nc - 1) * d.Q, kKs);
+  auto issue = [&](int st) {
+    if (st >= steps) return;
+    const int c = st / spc, j0 = (st % spc) * kKs;
+    const int row = c * d.Q + j0;
+    bf16* tB = ring[st % kStatesStages][0];
+    bf16* tX = ring[st % kStatesStages][1];
+    if (tma) {
+      if (threadIdx.x == 0) {
+        const uint32_t bar = smem_u32(&full[st % kStatesStages]);
+        hopper::mbar_expect_tx(bar, 2 * kTileBytes);
+        hopper::tma_load_3d(smem_u32(tB), &tb, bar, n0, row, bb);
+        hopper::tma_load_4d(smem_u32(tX), &tx, bar, p0, hh, row, bb);
+      }
+    } else {
+      // rows past the chunk are those of the next one, or past l zeros;
+      // either way w is 0 there
+      const int rlim = d.l - row;
+      stage_sw_elems<kKs>(tB, Bb + (int64_t)row * d.sbl, d.sbl, rlim,
+                          d.n - n0, kStates);
+      stage_sw_elems<kKs>(tX, xb + (int64_t)row * d.sxl, d.sxl, rlim,
+                          d.p - p0, kStates);
+    }
+  };
+
+  for (int st = 0; st < kStatesStages - 1; ++st) issue(st);
+  for (int st = 0; st < steps; ++st) {
+    const int c = st / spc, j0 = (st % spc) * kKs, slot = c % kGroup;
+    if (j0 == 0) {
+      if (slot == 0) {
+        __syncthreads();           // the last group's decays are read
+        const int cc = c + warp;
+        if (cc < d.nc) {
+          const int64_t bch = ((int64_t)bb * d.nc + cc) * d.h + hh;
+          const float dec = warp_decays(
+              dtb + (int64_t)cc * d.Q * d.sdl, d.sdl, a,
+              min(d.Q, d.l - cc * d.Q), w_g[warp],
+              writer ? s.cd + bch * 2 * s.Qp : nullptr, s.Qp);
+          if (lane == 0) dec_g[warp] = dec;
+        }
+        __syncthreads();
+      }
+      // the state entering chunk c, once, in halves (each warp's 16 rows
+      // through its own staging tile, so that the stores are whole 16-byte
+      // pieces of rows); then the chunk's decay
+      const int64_t base = (((int64_t)bb * d.nc + c) * d.h + hh) * np +
+                           (int64_t)(n0 + 16 * warp) * s.pp + p0;
+      const float dec = dec_g[slot];
+      uint32_t hi[16], lo[16];
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        split2(acc[2 * k], acc[2 * k + 1], &hi[k], &lo[k]);
+        acc[2 * k] *= dec;
+        acc[2 * k + 1] *= dec;
+      }
+      bf16 (*tile)[kRow] = out_s[warp];
+#pragma unroll
+      for (int part = 0; part < 2; ++part) {
+        __syncwarp();
+#pragma unroll
+        for (int k = 0; k < 16; ++k)   // k = 2 nt + half
+          *reinterpret_cast<uint32_t*>(
+              &tile[g + 8 * (k & 1)][(k >> 1) * 8 + 2 * t]) =
+              part ? lo[k] : hi[k];
+        __syncwarp();
+        bf16* dst = (part ? s.sin_lo : s.sin_hi) + base;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int e = lane + 32 * k, r = e >> 3, c8 = (e & 7) * 8;
+          if (n0 + 16 * warp + r < d.n && p0 + c8 < s.pp)
+            *reinterpret_cast<uint4*>(dst + (int64_t)r * s.pp + c8) =
+                *reinterpret_cast<const uint4*>(&tile[r][c8]);
+        }
+      }
+    }
+    if (tma)
+      hopper::mbar_wait(smem_u32(&full[st % kStatesStages]),
+                        (st / kStatesStages) & 1);
+    __syncthreads();               // the stage refilled next is read
+    if (!tma) hopper::fence_proxy_async();
+    issue(st + kStatesStages - 1);
+
+    const uint32_t tB = smem_u32(ring[st % kStatesStages][0]);
+    const uint32_t tX = smem_u32(ring[st % kStatesStages][1]);
+    const float* w = w_g[slot] + j0;
+    uint32_t ahi[2][4], alo[2][4];
+#pragma unroll
+    for (int k2 = 0; k2 < 2; ++k2) {
+      // A = (B w)^T: fragments 0 and 1 hold steps kk + 2t and kk + 2t + 1,
+      // fragments 2 and 3 the same plus 8
+      const int kk = 16 * k2, mi = lane >> 3;
+      const int r = kk + (lane & 7) + 8 * (mi >> 1);
+      uint32_t af[4];
+      ldmatrix_x4_trans(af, tB + sw_off(r, 16 * warp + 8 * (mi & 1)));
+      const float2 w01 = make_float2(w[kk + 2 * t], w[kk + 2 * t + 1]);
+      const float2 w23 = make_float2(w[kk + 2 * t + 8], w[kk + 2 * t + 9]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float2 v = unpack2(af[q]), wq = q < 2 ? w01 : w23;
+        split2(v.x * wq.x, v.y * wq.y, &ahi[k2][q], &alo[k2][q]);
+      }
+    }
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int k2 = 0; k2 < 2; ++k2) {
+      hopper::wgmma_rs_n64(acc, ahi[k2], tile_desc(tX, 16 * k2));
+      hopper::wgmma_rs_n64(acc, alo[k2], tile_desc(tX, 16 * k2));
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs<32>(acc);
+  }
+
+  float* out = final_state + bh * d.n * d.p;
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const int nn = n0 + 16 * warp + g + 8 * ((e >> 1) & 1);
+    const int pp = p0 + (e >> 2) * 8 + 2 * t + (e & 1);
+    if (nn < d.n && pp < d.p) out[(int64_t)nn * d.p + pp] = acc[e];
+  }
+}
+
+// Dynamic shared memory of ssd_out_bf16 (bytes), and the layout of it.
+struct OutSmem {
+  int ldc, npad, Qp, ring, cb, cs, cd, red, bar, total;
+};
+
+constexpr int kKo = 64;              // ssd_out_bf16's step depth
+constexpr int kOTileElems = kKo * 64;        // a [64][64] swizzled tile
+constexpr int kOTileBytes = kOTileElems * 2;
+constexpr int kPairElems = 4 * kOTileElems;  // a stage: two steps' tiles
+
+__host__ __device__ __forceinline__ OutSmem out_smem(int n, int Q) {
+  OutSmem m;
+  m.npad = round_up(n, 2 * kKo);
+  m.ldc = m.npad + 8;
+  m.Qp = round_up(Q, 4);
+  const int stages = kOutStages * kPairElems * 2, brows = 64 * m.ldc * 2;
+  m.ring = 0;                      // stages, or B [64][ldc]; 1024-aligned
+  m.cb = m.ring + round_up(stages > brows ? stages : brows, 1024);
+  m.cs = m.cb + kOutRows * kCbLd * 4;              // bf16 [64][ldc]
+  m.cd = m.cs + kOutRows * m.ldc * 2;              // f32 [4][2][Qp]
+  m.red = m.cd + 4 * 2 * m.Qp * 4;                 // f32 [64][kRedLd]
+  m.bar = m.red + kOutRows * kRedLd * 4;           // full, empty
+  m.total = m.bar + 16 * kOutStages + 1024;        // + slack to align
+  return m;
+}
+
+// Kernel 2: the outputs. One block per (b, chunk, 64-row tile, 64-column
+// p tile, group of heads); the heaviest row tile of a chunk first. It
+// computes C B^T for its rows once (mma.sync, exact bf16 operands, f32
+// into shared memory) and keeps it for every head of the group; per head,
+// y = exp(cum_i) C_i . S_in plus M x with wgmma: the masked M[i, j] =
+// CB[i, j] exp(cum_i - cum_j) dt_j (j <= i) is built in registers as the A
+// operand, in two bf16 halves, and so is C; S_in (two halves, from kernel
+// 1) and x are the B operands, read by the tensor cores from 128-byte
+// swizzled tiles that TMA fills. Two warpgroups split each head's
+// reduction (n for C . S_in, j for M x) between them, and at the end of a
+// head the second hands its sums to the first through shared memory. A
+// ninth warp streams the tiles through a 3-stage ring of steps 128 deep
+// (64 a warpgroup), each head's cum and dt beside them (a bulk copy on the
+// same barrier), refilling a stage once all eight consumer warps have
+// released it.
+__global__ void __launch_bounds__(kOutThreads, 1)
+    ssd_out_bf16(const __grid_constant__ CUtensorMap tsh,
+                 const __grid_constant__ CUtensorMap tsl,
+                 const __grid_constant__ CUtensorMap tx,
+                 const bf16* __restrict__ x, const bf16* __restrict__ B,
+                 const bf16* __restrict__ C, bf16* __restrict__ y,
+                 Bf16Scratch s, Dims d, int heads_per_block, bool tma) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const OutSmem m = out_smem(d.n, d.Q);
+  float* cb = reinterpret_cast<float*>(smem + m.cb);
+  bf16* cs = reinterpret_cast<bf16*>(smem + m.cs);
+  float* cdr = reinterpret_cast<float*>(smem + m.cd);
+  float* red = reinterpret_cast<float*>(smem + m.red);
+  bf16* ring = reinterpret_cast<bf16*>(smem + m.ring);
+  const uint32_t bars = smem_u32(smem + m.bar);
+
+  const int nti = cdiv(d.Q, kOutRows), ntp = cdiv(d.p, 64);
+  const int ng = cdiv(d.h, heads_per_block);
+  int blk = blockIdx.x;
+  const int it = nti - 1 - blk % nti; blk /= nti;
+  const int pt = blk % ntp; blk /= ntp;
+  const int hg = blk % ng; blk /= ng;
+  const int c = blk % d.nc, bb = blk / d.nc;
+  const int t0 = c * d.Q, qlen = min(d.Q, d.l - t0);
+  const int i0 = it * kOutRows, p0 = pt * 64;
+  if (i0 >= qlen) return;
+  const int jmax = min(qlen, i0 + kOutRows);
+  const int h0 = hg * heads_per_block;
+  const int h1 = min(d.h, h0 + heads_per_block);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  float acc[kNT][4] = {};
-  // inter-chunk first: acc = C_i . S_in, then scaled by exp(cum_i)
+  const int rg = warp & 3, kh = warp >> 2;          // warpgroup kh
+  const int ra = 16 * rg + g, rb = ra + 8;          // rows in the tile
+  // full[k] at bars + 8k (the producer's arrival and the bytes), empty[k]
+  // at bars + 8 (kOutStages + k) (one arrival per consumer warp)
+  const uint32_t empties = bars + 8 * kOutStages;
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < kOutStages; ++k) {
+      hopper::mbar_init(bars + 8 * k, 1);
+      hopper::mbar_init(empties + 8 * k, kOut / 32);
+    }
+    hopper::fence_mbar_init();
+  }
+
+  // C of the tile's rows, whole n (zeros past qlen and n)
+  // 16-byte loads of C and B rows: strides of whole pieces and n of them
+  const bool vec = tma && d.n % 8 == 0;
   const bf16* Cb = C + bb * d.scb + (int64_t)(t0 + i0) * d.scl;
-  const float* sin = s.st + bch * d.n * d.p + p0;
-  for (int k0 = 0; k0 < d.n; k0 += kK) {
-    tile_bf16<kTile, kK>(&Ahi[0][0], kAld, Cb + k0, d.scl, qlen - i0,
-                         d.n - k0, vec);
-    tile_split<kK, kTile>(&Bhi[0][0], &Blo[0][0], kBld,
-                          sin + (int64_t)k0 * d.p, nullptr, d.p, nullptr,
-                          d.n - k0, d.p - p0, vec);
-    __syncthreads();
-    mma_step_bsplit(acc, &Ahi[0][0], 16 * warp, &Bhi[0][0], &Blo[0][0],
-                    lane);
-    __syncthreads();
-  }
-  const int ra = i0 + 16 * warp + g, rb = ra + 8;
-  const float ea = ra < qlen ? expf(cum_s[ra]) : 0.f;
-  const float eb = rb < qlen ? expf(cum_s[rb]) : 0.f;
-#pragma unroll
-  for (int nt = 0; nt < kNT; ++nt) {
-    acc[nt][0] *= ea;
-    acc[nt][1] *= ea;
-    acc[nt][2] *= eb;
-    acc[nt][3] *= eb;
-  }
-  // intra-chunk: M[i, j] = CB[i, j] exp(cum_i - cum_j) dt_j for j <= i
-  const float* cb = s.cb + ((int64_t)bb * d.nc + c) * d.Q * d.Q;
-  const bf16* xb = x + bb * d.sxb + (int64_t)t0 * d.sxl + hh * d.sxh + p0;
-  for (int j0 = 0; j0 < jmax; j0 += kK) {
-    tile_m(&Ahi[0][0], &Alo[0][0], cb, d.Q, cum_s, dt_s, i0, j0, qlen, vec);
-    tile_bf16<kK, kTile>(&Bhi[0][0], kBld, xb + j0 * d.sxl, d.sxl, jmax - j0,
-                         d.p - p0, vec);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kK; kk += 16) {
-      uint32_t ah[4], al[4];
-      a_frag(ah, &Ahi[0][0], 16 * warp, kk, g, t);
-      a_frag(al, &Alo[0][0], 16 * warp, kk, g, t);
-      const int row = kk + (lane & 15);
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        uint32_t bx[2];
-        ldmatrix_x2_trans(bx, &Bhi[row][nt * 8]);
-        mma_bf16_16816(acc[nt], ah, bx);
-        mma_bf16_16816(acc[nt], al, bx);
-      }
-    }
-    __syncthreads();
-  }
-  bf16* yb = y + (((int64_t)bb * d.l + t0) * d.h + hh) * d.p;
-#pragma unroll
-  for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; e += 2) {
-      const int i = e < 2 ? ra : rb;
-      const int pp = p0 + nt * 8 + 2 * t;
-      if (i >= qlen || pp >= d.p) continue;
-      bf16* dst = yb + (int64_t)i * d.h * d.p + pp;
-      if (vec) {          // p even: the pair lies in the row, 4-byte aligned
-        *reinterpret_cast<uint32_t*>(dst) =
-            pack2(__float2bfloat16_rn(acc[nt][e]),
-                  __float2bfloat16_rn(acc[nt][e + 1]));
+  const bf16* Bb = B + bb * d.sbb + (int64_t)t0 * d.sbl;
+  auto stage_rows = [&](bf16* dst, const bf16* src, int64_t rs, int rlim) {
+    const int cw = m.npad / 8;
+    for (int e = threadIdx.x; e < kOutRows * cw; e += kOutThreads) {
+      const int r = e / cw, c8 = (e % cw) * 8;
+      bf16* to = dst + r * m.ldc + c8;
+      if (vec) {
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (r < rlim && c8 < d.n)
+          v = *reinterpret_cast<const uint4*>(src + r * rs + c8);
+        *reinterpret_cast<uint4*>(to) = v;
       } else {
-        dst[0] = __float2bfloat16_rn(acc[nt][e]);
-        if (pp + 1 < d.p) dst[1] = __float2bfloat16_rn(acc[nt][e + 1]);
+        for (int k = 0; k < 8; ++k)
+          to[k] = (r < rlim && c8 + k < d.n) ? src[r * rs + c8 + k]
+                                             : __float2bfloat16_rn(0.f);
       }
     }
+  };
+  stage_rows(cs, Cb, d.scl, qlen - i0);
+
+  // CB[i, j] = C_i . B_j for the tile's rows, j < jmax, 64 columns at a
+  // time: warp (rg, kh) the 16 x 32 block of its rows at column j0 + 32 kh,
+  // unless the block lies right of the warp's diagonal
+  for (int jb = 0; jb < jmax; jb += 64) {
+    __syncthreads();                 // the last B block is read
+    stage_rows(ring, Bb + (int64_t)jb * d.sbl, d.sbl, jmax - jb);
+    __syncthreads();
+    const int j0 = jb + 32 * kh;
+    if (warp >= kOut / 32 || j0 > i0 + 16 * rg + 15 || j0 >= jmax) continue;
+    float a4[4][4] = {};
+    for (int k0 = 0; k0 < m.npad; k0 += 16) {
+      uint32_t af[4], bf[4][2];
+      const bf16* r0 = cs + ra * m.ldc + k0 + 2 * t;
+      const bf16* r1 = r0 + 8 * m.ldc;
+      af[0] = ld_u32(r0);
+      af[1] = ld_u32(r1);
+      af[2] = ld_u32(r0 + 8);
+      af[3] = ld_u32(r1 + 8);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const bf16* br = ring + (32 * kh + 8 * nt + g) * m.ldc + k0 + 2 * t;
+        bf[nt][0] = ld_u32(br);
+        bf[nt][1] = ld_u32(br + 8);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) mma_bf16_16816(a4[nt], af, bf[nt]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int j = j0 + 8 * nt + 2 * t;
+      *reinterpret_cast<float2*>(cb + ra * kCbLd + j) =
+          make_float2(a4[nt][0], a4[nt][1]);
+      *reinterpret_cast<float2*>(cb + rb * kCbLd + j) =
+          make_float2(a4[nt][2], a4[nt][3]);
+    }
+  }
+  __syncthreads();                   // CB written, the B blocks read
+  hopper::fence_proxy_async();       // before TMA writes where B was
+
+  // per head: pairs of 64-deep steps, first over n (C . S_in; npad is a
+  // multiple of 128), then over j (M x); warpgroup kh takes step 2u + kh
+  // of pair u
+  const int pairs_n = m.npad / (2 * kKo);
+  const int pairs = pairs_n + cdiv(jmax, 2 * kKo);
+  const int iters = (h1 - h0) * pairs;
+  const int64_t np = (int64_t)d.n * s.pp;
+  const bf16* xb = x + bb * d.sxb + (int64_t)t0 * d.sxl + p0;
+  auto issue = [&](int q) {
+    if (q >= iters) return;
+    const int hl = q / pairs, u = q % pairs, hh = h0 + hl;
+    const int bch = (bb * d.nc + c) * d.h + hh;
+    bf16* dst = ring + (q % kOutStages) * kPairElems;
+    const uint32_t bar = bars + 8 * (q % kOutStages);
+    const bool x_tma = u >= pairs_n && tma;
+    if (u >= pairs_n && !tma) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int j0 = (2 * (u - pairs_n) + half) * kKo;
+        stage_sw_elems_warp<kKo>(dst + 2 * half * kOTileElems,
+                                 xb + hh * d.sxh + (int64_t)j0 * d.sxl,
+                                 d.sxl, jmax - j0, d.p - p0);
+      }
+      hopper::fence_proxy_async();
+      __syncwarp();
+    }
+    if (lane == 0) {
+      // the stage's tiles, and with a head's first stage its cum and dt
+      const uint32_t cd_bytes = u == 0 ? 8 * m.Qp : 0;
+      const uint32_t tiles = u < pairs_n ? 4 * kOTileBytes
+                             : x_tma ? 2 * kOTileBytes : 0;
+      hopper::mbar_expect_tx(bar, tiles + cd_bytes);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const uint32_t to = smem_u32(dst + 2 * half * kOTileElems);
+        if (u < pairs_n) {
+          const int r0 = (2 * u + half) * kKo;
+          hopper::tma_load_3d(to, &tsh, bar, p0, r0, bch);
+          hopper::tma_load_3d(to + kOTileBytes, &tsl, bar, p0, r0, bch);
+        } else if (x_tma) {
+          const int j0 = (2 * (u - pairs_n) + half) * kKo;
+          hopper::tma_load_4d(to, &tx, bar, p0, hh, t0 + j0, bb);
+        }
+      }
+      if (cd_bytes)
+        hopper::bulk_load(smem_u32(cdr + (hl & 3) * 2 * m.Qp),
+                          s.cd + (int64_t)bch * 2 * m.Qp, cd_bytes, bar);
+    }
+  };
+
+  // One step: this warpgroup's A operands (C, or the masked M in halves),
+  // then its products; the warp then releases the stage.
+  float acc[32];                   // wgmma layout: [n8 tile][4]
+  uint32_t ahi[4][4], alo[4][4];
+  const bool in_a = i0 + ra < qlen, in_b = i0 + rb < qlen;
+  const int ia = i0 + ra, ib = i0 + rb;
+  auto step = [&](int q) {
+    const int hl = q / pairs, u = q % pairs;
+    hopper::mbar_wait(bars + 8 * (q % kOutStages), (q / kOutStages) & 1);
+    const float* cum = cdr + (hl & 3) * 2 * m.Qp;
+    const float* dtv = cum + m.Qp;
+    const float cum_a = in_a ? cum[ia] : 0.f, cum_b = in_b ? cum[ib] : 0.f;
+    const bool sin = u < pairs_n;
+    const int j0 = sin ? 0 : (2 * (u - pairs_n) + kh) * kKo;
+    const bool mx = !sin && j0 < jmax;
+    const int ks = sin ? 4 : min(4, cdiv(jmax - j0, 16));
+    if (sin) {
+      // C_i over this warpgroup's 64 of n, exact
+      const int k0 = (2 * u + kh) * kKo;
+#pragma unroll
+      for (int k2 = 0; k2 < 4; ++k2) {
+        const bf16* r0 = cs + ra * m.ldc + k0 + 16 * k2 + 2 * t;
+        const bf16* r1 = r0 + 8 * m.ldc;
+        ahi[k2][0] = ld_u32(r0);
+        ahi[k2][1] = ld_u32(r1);
+        ahi[k2][2] = ld_u32(r0 + 8);
+        ahi[k2][3] = ld_u32(r1 + 8);
+      }
+    } else if (mx) {
+      // M over this warpgroup's 64 of the chunk's columns j, in halves
+#pragma unroll
+      for (int k2 = 0; k2 < 4; ++k2)
+#pragma unroll
+        for (int q2 = 0; q2 < 2; ++q2) {       // columns 2t(+1), 2t+8(+9)
+          const int j = j0 + 16 * k2 + 2 * t + 8 * q2;
+          const float2 cj = *reinterpret_cast<const float2*>(cum + j);
+          const float2 dj = *reinterpret_cast<const float2*>(dtv + j);
+          const float2 ca = *reinterpret_cast<const float2*>(
+              cb + ra * kCbLd + j);
+          const float2 cbb = *reinterpret_cast<const float2*>(
+              cb + rb * kCbLd + j);
+          const float m0 = (in_a && j <= ia)
+              ? ca.x * exp_ftz(cum_a - cj.x) * dj.x : 0.f;
+          const float m1 = (in_a && j + 1 <= ia)
+              ? ca.y * exp_ftz(cum_a - cj.y) * dj.y : 0.f;
+          const float m2 = (in_b && j <= ib)
+              ? cbb.x * exp_ftz(cum_b - cj.x) * dj.x : 0.f;
+          const float m3 = (in_b && j + 1 <= ib)
+              ? cbb.y * exp_ftz(cum_b - cj.y) * dj.y : 0.f;
+          split2(m0, m1, &ahi[k2][2 * q2], &alo[k2][2 * q2]);
+          split2(m2, m3, &ahi[k2][2 * q2 + 1], &alo[k2][2 * q2 + 1]);
+        }
+    }
+    if (u == 0) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+    }
+
+    const uint32_t stg = smem_u32(ring + (q % kOutStages) * kPairElems +
+                                  2 * kh * kOTileElems);
+    if (sin || mx) {
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int k2 = 0; k2 < 4; ++k2) {
+        if (k2 >= ks) break;
+        const uint64_t db = tile_desc(stg, 16 * k2);
+        if (sin) {                 // S_in's halves against exact C
+          hopper::wgmma_rs_n64(acc, ahi[k2], db);
+          hopper::wgmma_rs_n64(acc, ahi[k2],
+                               tile_desc(stg + kOTileBytes, 16 * k2));
+        } else {                   // M's halves against exact x
+          hopper::wgmma_rs_n64(acc, ahi[k2], db);
+          hopper::wgmma_rs_n64(acc, alo[k2], db);
+        }
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs<32>(acc);
+    }
+    __syncwarp();                  // this warp is done with the stage
+    if (lane == 0) hopper::mbar_arrive(empties + 8 * (q % kOutStages));
+    if (sin && u == pairs_n - 1) {
+      // C_i . S_in is complete: scale by exp(cum_i)
+      const float ea = in_a ? exp_ftz(cum_a) : 0.f;
+      const float eb = in_b ? exp_ftz(cum_b) : 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        acc[4 * nt + 0] *= ea;
+        acc[4 * nt + 1] *= ea;
+        acc[4 * nt + 2] *= eb;
+        acc[4 * nt + 3] *= eb;
+      }
+    }
+    if (u == pairs - 1) {
+      // the head's sums: warpgroup 1 hands its rows to warpgroup 0, which
+      // adds them and writes y
+      if (kh == 1) {
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const int col = 8 * nt + 2 * t;
+          *reinterpret_cast<float2*>(red + ra * kRedLd + col) =
+              make_float2(acc[4 * nt], acc[4 * nt + 1]);
+          *reinterpret_cast<float2*>(red + rb * kRedLd + col) =
+              make_float2(acc[4 * nt + 2], acc[4 * nt + 3]);
+        }
+      }
+      asm volatile("bar.sync 1, %0;\n" :: "r"(kOut) : "memory");
+      if (kh == 0) {
+        const int hh = h0 + hl;
+        bf16* yb = y + (((int64_t)bb * d.l + t0 + i0) * d.h + hh) * d.p;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int i = half ? rb : ra;
+            const int col = 8 * nt + 2 * t, pp = p0 + col;
+            if (i0 + i >= qlen || pp >= d.p) continue;
+            const float2 o = *reinterpret_cast<const float2*>(
+                red + i * kRedLd + col);
+            const float v0 = acc[4 * nt + 2 * half] + o.x;
+            const float v1 = acc[4 * nt + 2 * half + 1] + o.y;
+            bf16* dst = yb + (int64_t)i * d.h * d.p + pp;
+            if ((d.p & 1) == 0) {  // the pair lies in the row, 4-byte aligned
+              *reinterpret_cast<uint32_t*>(dst) = pack_rn(v0, v1);
+            } else {
+              dst[0] = __float2bfloat16_rn(v0);
+              if (pp + 1 < d.p) dst[1] = __float2bfloat16_rn(v1);
+            }
+          }
+      }
+      // the hand-over buffer is read before the next head's is written
+      asm volatile("bar.sync 1, %0;\n" :: "r"(kOut) : "memory");
+    }
+  };
+
+  if (warp == kOut / 32) {         // the producer: a stage once both
+    for (int q = 0; q < iters; ++q) {     // warpgroups released it
+      if (q >= kOutStages)
+        hopper::mbar_wait(empties + 8 * (q % kOutStages),
+                          ((q / kOutStages) - 1) & 1);
+      issue(q);
+    }
+    return;
+  }
+  for (int q = 0; q < iters; ++q) step(q);
 }
 
 Dims make_dims(int b, int l, int h, int p, int n, int chunk) {
@@ -781,18 +1103,93 @@ Scratch carve(float* base, const Dims& d) {
   return s;
 }
 
+Bf16Scratch carve_bf16(void* base, const Dims& d) {
+  Bf16Scratch s;
+  s.pp = round_up(d.p, 8);
+  s.Qp = round_up(d.Q, 4);
+  const int64_t cells = (int64_t)d.b * d.nc * d.h * d.n * s.pp;
+  s.sin_hi = static_cast<bf16*>(base);
+  s.sin_lo = s.sin_hi + cells;     // cells is a multiple of 8: 16-byte rows
+  s.cd = reinterpret_cast<float*>(s.sin_lo + cells);
+  return s;
+}
+
+int64_t scratch_bytes(int dtype, const Dims& d) {
+  const int64_t bnc = (int64_t)d.b * d.nc;
+  if (dtype == 0)
+    return 4 * bnc * ((int64_t)d.Q * d.Q + (int64_t)d.h * (d.Q + 1) +
+                      (int64_t)d.h * d.n * d.p);
+  return 2 * 2 * bnc * d.h * d.n * round_up(d.p, 8) +
+         4 * bnc * d.h * 2 * round_up(d.Q, 4);
+}
+
+// cuTensorMapEncodeTiled from the driver, found at run time so that the
+// library needs no -lcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A bf16 tensor of `rank` dims (innermost first; strides in elements of
+// dims 1..rank-1) whose boxes are [rows][64] tiles in 128-byte swizzle:
+// `box` gives the box's extent in each dim.
+bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int rank,
+              const int64_t* dims, const int64_t* strides,
+              const int* box) {
+  cuuint64_t gd[5], gs[4];
+  cuuint32_t bx[5], unit[5];
+  for (int k = 0; k < rank; ++k) {
+    gd[k] = (cuuint64_t)dims[k];
+    bx[k] = (cuuint32_t)box[k];
+    unit[k] = 1;
+    if (k > 0) gs[k - 1] = (cuuint64_t)strides[k - 1] * 2;
+  }
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+             const_cast<void*>(ptr), gd, gs, bx, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Floats of scratch ssd_scan_fwd needs for these sizes.
-int64_t ssd_scan_scratch_floats(int b, int l, int h, int p, int n,
-                                int chunk) {
+// Bytes of scratch ssd_scan_fwd needs for these sizes and dtype (0 = f32,
+// 1 = bf16).
+int64_t ssd_scan_scratch_bytes(int dtype, int b, int l, int h, int p, int n,
+                               int chunk) {
   if (b < 1 || l < 1 || h < 1 || p < 1 || n < 1 || chunk < 1) return 0;
-  const Dims d = make_dims(b, l, h, p, n, chunk);
-  const int64_t bnc = (int64_t)d.b * d.nc;
-  return bnc * ((int64_t)d.Q * d.Q + (int64_t)d.h * (d.Q + 1) +
-                (int64_t)d.h * d.n * d.p);
+  return scratch_bytes(dtype, make_dims(b, l, h, p, n, chunk));
+}
+
+// The widest state (n) the bf16 form takes: its output kernel holds C of
+// 64 rows and 64 rows of B, n wide, in shared memory.
+int ssd_scan_bf16_max_state() {
+  int n = 2 * kKo;
+  while (out_smem(n + 2 * kKo, kMaxChunk).total <= kMaxSharedBytes)
+    n += 2 * kKo;
+  return n;
 }
 
 // dtype: 0 = f32, 1 = bf16 (of x, B, C and y). init may be null (zero
@@ -800,7 +1197,7 @@ int64_t ssd_scan_scratch_floats(int b, int l, int h, int p, int n,
 // kErrDtype.
 int ssd_scan_fwd(const void* x, const float* dt, const float* A,
                  const void* B, const void* C, const float* init, void* y,
-                 float* final_state, float* scratch, int dtype, int b, int l,
+                 float* final_state, void* scratch, int dtype, int b, int l,
                  int h, int p, int n, int chunk, int64_t sxb, int64_t sxl,
                  int64_t sxh, int64_t sdb, int64_t sdl, int64_t sbb,
                  int64_t sbl, int64_t scb, int64_t scl, void* stream) {
@@ -813,48 +1210,94 @@ int ssd_scan_fwd(const void* x, const float* dt, const float* A,
   d.sbb = sbb; d.sbl = sbl;
   d.scb = scb; d.scl = scl;
   if (dtype != 0 && dtype != 1) return kErrDtype;
-  const Scratch s = carve(scratch, d);
   cudaStream_t st = (cudaStream_t)stream;
   const int nt = cdiv(d.Q, kTile), ntp = cdiv(d.p, kTile);
   const int64_t bnc = (int64_t)d.b * d.nc;
-  const unsigned grid_cb = (unsigned)(bnc * nt * nt);
-  const unsigned grid_state = (unsigned)(bnc * d.h * cdiv(d.n, kTile) * ntp);
-  const unsigned grid_out = (unsigned)(bnc * nt * ntp * d.h);
-  const int64_t cells = (int64_t)d.b * d.h * d.n * d.p;
-  const unsigned grid_carry = (unsigned)((cells + kThreads - 1) / kThreads);
   if (dtype == 0) {
+    const Scratch s = carve(static_cast<float*>(scratch), d);
+    const unsigned grid_cb = (unsigned)(bnc * nt * nt);
+    const unsigned grid_state =
+        (unsigned)(bnc * d.h * cdiv(d.n, kTile) * ntp);
+    const unsigned grid_out = (unsigned)(bnc * nt * ntp * d.h);
+    const int64_t cells = (int64_t)d.b * d.h * d.n * d.p;
+    const unsigned grid_carry = (unsigned)((cells + kThreads - 1) / kThreads);
     const float* xf = static_cast<const float*>(x);
     const float* Bf = static_cast<const float*>(B);
     const float* Cf = static_cast<const float*>(C);
-    ssd_cb<float><<<grid_cb, kThreads, 0, st>>>(Bf, Cf, s, d);
+    ssd_cb<<<grid_cb, kThreads, 0, st>>>(Bf, Cf, s, d);
     ssd_state<<<grid_state, kThreads, 0, st>>>(xf, dt, A, Bf, s, d);
     ssd_carry<<<grid_carry, kThreads, 0, st>>>(init, final_state, s, d);
     ssd_out<<<grid_out, kThreads, 0, st>>>(xf, dt, Cf, static_cast<float*>(y),
                                           s, d);
-  } else {
-    const bf16* xb = static_cast<const bf16*>(x);
-    const bf16* Bb = static_cast<const bf16*>(B);
-    const bf16* Cb = static_cast<const bf16*>(C);
-    ssd_cb<bf16><<<grid_cb, kThreads, 0, st>>>(Bb, Cb, s, d);
-    // 16-byte staging: 8-element rows in x, B and C, aligned pointers and
-    // strides, 4-float rows in the chunk states and C B^T
-    auto al16 = [](const void* q) { return ((uintptr_t)q & 15) == 0; };
-    const bool vec = d.p % 8 == 0 && d.n % 8 == 0 && d.Q % 4 == 0 &&
-                     al16(x) && al16(B) && al16(C) && al16(scratch) &&
-                     (d.sxb | d.sxl | d.sxh | d.sbb | d.sbl | d.scb |
-                      d.scl) % 8 == 0;
-    ssd_state_tc<<<grid_state, kTcThreads, 0, st>>>(xb, dt, A, Bb, s, d, vec);
-    ssd_carry<<<grid_carry, kThreads, 0, st>>>(init, final_state, s, d);
-    ssd_out_tc<<<grid_out, kTcThreads, 0, st>>>(
-        xb, dt, Cb, static_cast<bf16*>(y), s, d, vec);
+    return (int)cudaGetLastError();
   }
+  const OutSmem m = out_smem(d.n, d.Q);
+  if (m.total > kMaxSharedBytes) return kErrShape;
+  const Bf16Scratch s = carve_bf16(scratch, d);
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* Bb = static_cast<const bf16*>(B);
+  const bf16* Cb = static_cast<const bf16*>(C);
+  // TMA takes x and B where their strides are whole 16-byte pieces and the
+  // pointers 16-byte aligned (the serving path's views are); else they are
+  // staged element by element. The chunk states always go by TMA.
+  auto al16 = [](const void* q) { return ((uintptr_t)q & 15) == 0; };
+  const bool tma = al16(x) && al16(B) && al16(C) &&
+                   (d.sxb | d.sxl | d.sxh | d.sbb | d.sbl | d.scb | d.scl) %
+                           8 == 0;
+  EncodeTiled enc = encoder();
+  if (enc == nullptr) return kErrNoEncoder;
+  // boxes of 32 rows (ssd_states_bf16's steps) and 64 (ssd_out_bf16's)
+  CUtensorMap mx{}, mx2{}, mb{}, msh{}, msl{};
+  {
+    const int64_t dims[3] = {s.pp, d.n, (int64_t)d.b * d.nc * d.h};
+    const int64_t strides[2] = {s.pp, (int64_t)d.n * s.pp};
+    const int box[3] = {64, kKo, 1};
+    if (!make_map(enc, &msh, s.sin_hi, 3, dims, strides, box) ||
+        !make_map(enc, &msl, s.sin_lo, 3, dims, strides, box))
+      return kErrTensorMap;
+  }
+  if (tma) {
+    const int64_t xd[4] = {d.p, d.h, d.l, d.b};
+    const int64_t xs[3] = {d.sxh, d.sxl, d.sxb};
+    const int xbox[4] = {64, 1, kKs, 1}, xbox2[4] = {64, 1, kKo, 1};
+    const int64_t bd[3] = {d.n, d.l, d.b};
+    const int64_t bs[2] = {d.sbl, d.sbb};
+    const int bbox[3] = {64, kKs, 1};
+    if (!make_map(enc, &mx, x, 4, xd, xs, xbox) ||
+        !make_map(enc, &mx2, x, 4, xd, xs, xbox2) ||
+        !make_map(enc, &mb, B, 3, bd, bs, bbox))
+      return kErrTensorMap;
+  }
+  const unsigned grid_states =
+      (unsigned)((int64_t)d.b * d.h * cdiv(d.n, 64) * ntp);
+  ssd_states_bf16<<<grid_states, kStates, 0, st>>>(
+      mb, mx, xb, dt, A, Bb, init, final_state, s, d, tma);
+  // heads per output block: about four blocks an SM in all
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int64_t tiles = bnc * cdiv(d.Q, kOutRows) * ntp;
+  const int groups =
+      (int)std::max<int64_t>(1, std::min<int64_t>(d.h, (4 * sms + tiles - 1) /
+                                                           tiles));
+  const int hpb = cdiv(d.h, groups);
+  cudaError_t e = cudaFuncSetAttribute(
+      ssd_out_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, m.total);
+  if (e != cudaSuccess) return (int)e;
+  ssd_out_bf16<<<(unsigned)(tiles * cdiv(d.h, hpb)), kOutThreads, m.total,
+                 st>>>(
+      msh, msl, mx2, xb, Bb, Cb, static_cast<bf16*>(y), s, d, hpb, tma);
   return (int)cudaGetLastError();
 }
 
 const char* ssd_scan_error_string(int code) {
   if (code == kErrShape)
-    return "bad shape (b, l, h, p, n >= 1 and 1 <= chunk <= 256)";
+    return "bad shape (b, l, h, p, n >= 1, 1 <= chunk <= 256, and for bf16 "
+           "n at most ssd_scan_bf16_max_state())";
   if (code == kErrDtype) return "dtype must be 0 (float32) or 1 (bfloat16)";
+  if (code == kErrNoEncoder)
+    return "the driver has no cuTensorMapEncodeTiled";
+  if (code == kErrTensorMap) return "cuTensorMapEncodeTiled refused a map";
   return cudaGetErrorString((cudaError_t)code);
 }
 

@@ -16,6 +16,16 @@ updated IN PLACE and returned as the second output — it is the one large
 state (about 0.96 GB at a million apps and 240 bins); the other eight
 outputs are new tensors.
 
+:func:`fused_hybrid_sweep_scan` is the step over every event column of a
+chunk in one call — the port of the reference's ``lax.scan`` over the TPU
+kernel (``repro/core/simulator.py``), with the loop moved into the kernel:
+on CUDA tensors one launch of the scan kernel in the same source (each
+row's histogram kept on chip across the columns, in the form
+:func:`scan_form` picks from the row width), on CPU tensors
+:func:`fused_hybrid_sweep_scan_plain` (the plain step iterated). Its
+outputs are the iterated step's, bit for bit. The step stays: it is the
+S=1 parity surface and what the scan is held to on the card.
+
 :func:`policy_update` is one control-plane tick for the whole fleet — the
 port of ``repro/kernels/histogram.py::policy_update_pallas`` (body
 ``_policy_kernel``): on CUDA tensors ``csrc/policy_update.cu``, on CPU
@@ -32,9 +42,12 @@ import torch
 from ..core import policy_math
 
 __all__ = ["CFG_I32_COLS", "CFG_F32_COLS", "LAUNCHES",
-           "POLICY_UPDATE_LAUNCHES", "fused_hybrid_sweep_step",
-           "fused_hybrid_sweep_step_plain", "fused_hybrid_step",
-           "policy_update", "policy_update_plain"]
+           "POLICY_UPDATE_LAUNCHES", "SCAN_LAUNCHES", "SCAN_LAUNCHES_BY_FORM",
+           "SCAN_BINS_PER_LANE",
+           "fused_hybrid_sweep_step",
+           "fused_hybrid_sweep_step_plain", "fused_hybrid_sweep_scan",
+           "fused_hybrid_sweep_scan_plain", "fused_hybrid_step",
+           "policy_update", "policy_update_plain", "scan_form"]
 
 # Column layout of the per-config knob blocks (built by
 # ``repro_torch.core.simulator._build_cfg_blocks``).
@@ -47,6 +60,16 @@ CFG_F32_COLS = ("margin_lo", "margin_hi", "bin_minutes", "range_f32",
 LAUNCHES = 0
 #: Policy-update kernel launches made by this process.
 POLICY_UPDATE_LAUNCHES = 0
+#: Sweep-scan calls that reached the card (one launch each, but for the
+#: ``columns`` form, which launches the step once a column), and the same
+#: by form (:func:`scan_form`).
+SCAN_LAUNCHES = 0
+SCAN_LAUNCHES_BY_FORM = {"registers": 0, "columns": 0}
+
+#: Bins a lane of the scan's register form may hold (a warp a row): 2 for
+#: rows of up to 64 bins (the sweep point's 60), 8 for up to 256 (the
+#: paper's 240). ``csrc/hybrid_sweep_step.cu`` instantiates these two.
+SCAN_BINS_PER_LANE = (2, 8)
 
 
 def _step_config(cfg_i32, cfg_f32, bin_minutes=None
@@ -190,6 +213,130 @@ def fused_hybrid_step(t_now, prev_t, cum, oob, cv_sum, cv_sum_sq, prewarm,
         cv_sum_sq[None], prewarm[None], unload_at[None], cold[None],
         waste[None], cfg_i32, cfg_f32)
     return tuple(o[0] for o in outs)
+
+
+# ---------------------------------------------------------------------------
+# The scan of a chunk: every event column in one launch
+# ---------------------------------------------------------------------------
+
+
+def scan_form(n_bins: int) -> tuple:
+    """The scan kernel's form for rows of ``n_bins`` bins: ``("registers",
+    bins_per_lane)`` with the fewest bins a lane of ``SCAN_BINS_PER_LANE``
+    that cover the row (up to 32 x 8 = 256 bins), else ``("columns", 0)``
+    (the step, one launch a column)."""
+    if n_bins < 1:
+        raise ValueError(f"scan_form: n_bins must be >= 1, got {n_bins}")
+    for bpl in SCAN_BINS_PER_LANE:
+        if n_bins <= 32 * bpl:
+            return "registers", bpl
+    return "columns", 0
+
+
+def fused_hybrid_sweep_scan_plain(cols, prev_t, cum, oob, cv_sum, cv_sum_sq,
+                                  prewarm, unload_at, cold, waste, cfg_i32,
+                                  cfg_f32, *, bin_minutes=None):
+    """:func:`fused_hybrid_sweep_step_plain` over the event columns ``cols``
+    ``[width, n]`` in order, on any device and in any time dtype; ``cum`` is
+    updated in place."""
+    state = (prev_t, cum, oob, cv_sum, cv_sum_sq, prewarm, unload_at, cold,
+             waste)
+    for t_now in cols:
+        state = fused_hybrid_sweep_step_plain(t_now, *state, cfg_i32,
+                                              cfg_f32,
+                                              bin_minutes=bin_minutes)
+    return state
+
+
+def _check_cols(cols, n) -> None:
+    if cols.dim() != 2 or cols.shape[1] != n:
+        raise ValueError(f"fused_hybrid_sweep_scan: cols must be [width, "
+                         f"{n}] event columns, got {tuple(cols.shape)}")
+
+
+def _check_scan_args(cols, args, bin_minutes) -> None:
+    """What the scan kernel takes: contiguous float64 ``cols`` ``[width,
+    n]`` on the state's device, and the step's state and config blocks."""
+    cum = args[1]
+    _check_cols(cols, cum.shape[1])
+    if cols.dtype != torch.float64 or cols.device != cum.device \
+            or not cols.is_contiguous():
+        raise ValueError(f"fused_hybrid_sweep_scan: cols must be a "
+                         f"contiguous float64 tensor on {cum.device}, got "
+                         f"{cols.dtype} on {cols.device}")
+    # the step's own checks, with a stand-in event column
+    _check_cuda_args((cols[0] if cols.shape[0] else
+                      cols.new_empty((cum.shape[1],)), *args), bin_minutes)
+
+
+def _scan_lib() -> ctypes.CDLL:
+    lib = _lib()
+    if not getattr(lib, "_scan_typed", False):
+        fn = lib.hybrid_sweep_scan
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + \
+            [ctypes.c_void_p] * 20 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib._scan_typed = True
+    return lib
+
+
+def _scan_launch(cols, args, bin_minutes):
+    global SCAN_LAUNCHES
+    cfg_f32 = args[10]
+    if bin_minutes is None:
+        bin_minutes = cfg_f32[:, 2].to(torch.float64).contiguous()
+    _check_scan_args(cols, args, bin_minutes)
+    cum = args[1]
+    S, n, n_bins = cum.shape
+    form, bpl = scan_form(n_bins)
+    if form == "columns":
+        state = args[:9]
+        for t_now in cols:
+            state = _launch((t_now, *state, *args[9:]), bin_minutes)
+        SCAN_LAUNCHES += 1
+        SCAN_LAUNCHES_BY_FORM[form] += 1
+        return state
+    lib = _scan_lib()
+    outs = [torch.empty_like(x) for x in (args[0], *args[2:9])]
+    with torch.cuda.device(cum.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.hybrid_sweep_scan(
+            cols.data_ptr(), cols.shape[0],
+            *(x.data_ptr() for x in (*args, bin_minutes)),
+            *(o.data_ptr() for o in outs), S, n, n_bins, bpl, stream)
+    if rc != 0:
+        raise RuntimeError("hybrid_sweep_scan launch failed: "
+                           + lib.hybrid_error_string(rc).decode())
+    SCAN_LAUNCHES += 1
+    SCAN_LAUNCHES_BY_FORM[form] += 1
+    o_prev, o_oob, o_cvs, o_cvss, o_pre, o_unload, o_cold, o_waste = outs
+    return (o_prev, cum, o_oob, o_cvs, o_cvss, o_pre, o_unload, o_cold,
+            o_waste)
+
+
+def fused_hybrid_sweep_scan(cols, prev_t, cum, oob, cv_sum, cv_sum_sq,
+                            prewarm, unload_at, cold, waste, cfg_i32,
+                            cfg_f32, *, bin_minutes=None):
+    """:func:`fused_hybrid_sweep_step` over every event column of ``cols``
+    ``[width, n]`` (``+inf`` = no event), in one call: returns exactly what
+    the step iterated over the columns returns, the nine tensors in the
+    step's order, with ``cum`` updated in place.
+
+    CPU tensors run :func:`fused_hybrid_sweep_scan_plain`, in any time
+    dtype; CUDA tensors (float64 ``cols`` and time) launch the scan kernel
+    in the form :func:`scan_form` picks from ``n_bins`` (counted in
+    ``SCAN_LAUNCHES`` and ``SCAN_LAUNCHES_BY_FORM``) or raise. ``cols``
+    must be ``[width, n]`` on every device."""
+    args = (prev_t, cum, oob, cv_sum, cv_sum_sq, prewarm, unload_at, cold,
+            waste, cfg_i32, cfg_f32)
+    _check_cols(cols, cum.shape[-2] if cum.dim() >= 2 else -1)
+    if cols.device.type == "cpu":
+        return fused_hybrid_sweep_scan_plain(cols, *args,
+                                             bin_minutes=bin_minutes)
+    if cols.device.type == "cuda":
+        return _scan_launch(cols, args, bin_minutes)
+    raise ValueError(f"fused_hybrid_sweep_scan: no kernel for device "
+                     f"{cols.device}")
 
 
 # ---------------------------------------------------------------------------

@@ -4,9 +4,11 @@ PyTorch version.
 :func:`ssd_scan` is the port of the TPU kernel
 ``repro/kernels/ssd_scan.py::ssd_scan_pallas`` (body ``_ssd_kernel``)
 behind ``repro/kernels/ops.py::ssd_scan``. On CUDA tensors it launches
-``csrc/ssd_scan.cu`` (four passes: the chunks' ``C B^T``, their local
-states, a carry across chunks, the outputs; see the note at the top of that
-file for its design and its bound on the card); on CPU tensors it runs
+``csrc/ssd_scan.cu`` (bf16, the serving path: two kernels, the chunk
+states walked in order with the state on chip, then the outputs with
+``C B^T`` shared by a group of heads; f32: four passes; see the note at
+the top of that file for the design and its bound on the card); on CPU
+tensors it runs
 :func:`ssd_scan_plain`, which is also the model's branch when the kernels
 are off (the port of ``repro/models/mamba2.py::ssd_reference``). There is
 no fallback: a CUDA tensor either reaches the kernel or the call raises.
@@ -22,7 +24,8 @@ import ctypes
 
 import torch
 
-__all__ = ["LAUNCHES", "MAX_CHUNK", "ssd_scan", "ssd_scan_plain"]
+__all__ = ["LAUNCHES", "MAX_BF16_STATE", "MAX_CHUNK", "release_scratch",
+           "ssd_scan", "ssd_scan_plain"]
 
 #: Kernel launches made by this process (plain-version calls do not count).
 LAUNCHES = 0
@@ -31,7 +34,21 @@ LAUNCHES = 0
 #: chunk's log-decays).
 MAX_CHUNK = 256
 
+#: The widest state (n) of a bf16 call: the output kernel holds 64 rows of
+#: C and of B, n wide, in shared memory (``ssd_scan_bf16_max_state()`` in
+#: the source says the same).
+MAX_BF16_STATE = 256
+
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# One scratch buffer per device, kept from call to call and grown when a
+# call needs more (the chunk states, 86 MB at Mamba-2's serving shape), until
+# release_scratch() frees it (the serve engine calls it when its last
+# Mamba-2 endpoint unloads). Calls on one device share it, so they must run
+# on one stream. Growing it frees the old buffer: a CUDA graph captured
+# before a call that grew it points at freed memory and must be captured
+# again.
+_SCRATCH: dict = {}
 
 
 def _effective_chunk(l: int, chunk: int) -> int:
@@ -134,6 +151,9 @@ def _check_cuda_args(x, dt, A, B, C, chunk, initial_state) -> None:
     if not 1 <= chunk <= MAX_CHUNK:
         raise ValueError(f"ssd_scan: chunk must be in [1, {MAX_CHUNK}], "
                          f"got {chunk}")
+    if x.dtype == torch.bfloat16 and B.shape[2] > MAX_BF16_STATE:
+        raise ValueError(f"ssd_scan: a bf16 state is at most "
+                         f"{MAX_BF16_STATE} wide, got n = {B.shape[2]}")
 
 
 def _lib() -> ctypes.CDLL:
@@ -141,14 +161,35 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("ssd_scan")
     if not getattr(lib, "_typed", False):
         i32, i64, ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
-        lib.ssd_scan_scratch_floats.argtypes = [i32] * 6
-        lib.ssd_scan_scratch_floats.restype = i64
+        lib.ssd_scan_scratch_bytes.argtypes = [i32] * 7
+        lib.ssd_scan_scratch_bytes.restype = i64
+        lib.ssd_scan_bf16_max_state.argtypes = []
+        lib.ssd_scan_bf16_max_state.restype = i32
         lib.ssd_scan_fwd.argtypes = [ptr] * 9 + [i32] * 7 + [i64] * 9 + [ptr]
         lib.ssd_scan_fwd.restype = i32
         lib.ssd_scan_error_string.argtypes = [i32]
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
+
+
+def _scratch(dev, nbytes: int) -> torch.Tensor:
+    buf = _SCRATCH.get(dev)
+    if buf is None or buf.numel() < nbytes:
+        _SCRATCH.pop(dev, None)
+        buf = _SCRATCH[dev] = torch.empty(max(nbytes, 16), dtype=torch.uint8,
+                                          device=dev)
+    return buf
+
+
+def release_scratch(device=None) -> None:
+    """Free the scratch kept for ``device`` (every device's when None); the
+    next call makes it anew."""
+    dev = None if device is None else torch.device(device)
+    for key in list(_SCRATCH):
+        if dev is None or (key.type == dev.type
+                           and dev.index in (None, key.index)):
+            del _SCRATCH[key]
 
 
 def _launch(x, dt, A, B, C, chunk, initial_state):
@@ -160,8 +201,8 @@ def _launch(x, dt, A, B, C, chunk, initial_state):
     dev = x.device
     y = torch.empty((b, l, h, p), dtype=x.dtype, device=dev)
     final = torch.empty((b, h, n, p), dtype=torch.float32, device=dev)
-    scratch = torch.empty(lib.ssd_scan_scratch_floats(b, l, h, p, n, chunk),
-                          dtype=torch.float32, device=dev)
+    scratch = _scratch(dev, lib.ssd_scan_scratch_bytes(
+        _DTYPES[x.dtype], b, l, h, p, n, chunk))
     init_ptr = 0 if initial_state is None else initial_state.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream

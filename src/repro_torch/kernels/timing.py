@@ -2,10 +2,10 @@
 run back to back, the wrapper's host work included), per call on the
 device alone (CUDA events around the replay of a CUDA graph of the
 calls) and per CUDA function (``torch.profiler`` device time).
-``chip_smoke.py`` times every kernel with :func:`launch_ms`, the decode
-kernel and the calls it is compared with also with :func:`graph_ms`, and
-splits the SSD scan by pass with :func:`pass_ms`; it makes the SSD inputs
-with :func:`ssd_inputs`.
+``chip_smoke.py`` times the kernels with :func:`launch_ms`, the
+attention, decode and SSD kernels and the calls they are compared with
+also with :func:`graph_ms`, and splits the SSD scan by kernel with
+:func:`pass_ms`; it makes the SSD inputs with :func:`ssd_inputs`.
 """
 from __future__ import annotations
 
@@ -81,9 +81,11 @@ def graph_ms(fn, reps: int, replays: int = 5) -> float:
 
 
 def pass_ms(fn, reps: int = 5) -> dict:
-    """Device ms per call of each SSD pass ``fn`` launches (a CUDA function
-    whose name holds ``ssd_<pass>``, keyed by that), from ``torch.profiler``
-    over ``reps`` calls; empty where the profiler records no device
+    """Device ms per launch of each SSD kernel ``fn`` launches (a CUDA
+    function whose name holds ``ssd_<pass>``, keyed by that), from
+    ``torch.profiler`` over ``reps`` calls; each kernel's total over the
+    launches the profiler recorded, which after a long process can be
+    fewer than ``reps``. Empty where the profiler records no device
     events."""
     import torch
     from torch.autograd import DeviceType
@@ -96,13 +98,14 @@ def pass_ms(fn, reps: int = 5) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    out = {}
+    us, count = {}, {}
     for e in prof.key_averages():
         m = re.search(r"ssd_\w+", e.key)
         if e.device_type != DeviceType.CUDA or not m:
             continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        out[m.group(0)] = out.get(m.group(0), 0.0) + us / 1e3 / reps
-    return out
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = e.self_cuda_time_total
+        us[m.group(0)] = us.get(m.group(0), 0.0) + t
+        count[m.group(0)] = count.get(m.group(0), 0) + e.count
+    return {k: us[k] / 1e3 / count[k] for k in us if count[k]}

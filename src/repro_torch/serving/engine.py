@@ -27,6 +27,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..kernels import ssd_scan
 from ..models import Model, build
 from ..models.layers import FP32_AT_USE, compute_dtype
 from .registry import Registry
@@ -142,7 +143,13 @@ class ServeEngine:
         return time.perf_counter() - t0
 
     def unload(self, app_id: str) -> None:
-        self._loaded.pop(app_id, None)
+        """Drop the app's device copy; when the last loaded Mamba-2 (SSM)
+        app goes, the SSD scan's scratch on the device goes with it."""
+        if self._loaded.pop(app_id, None) is None:
+            return
+        ssm = lambda a: self.registry.get(a).cfg.family == "ssm"
+        if ssm(app_id) and not any(ssm(a) for a in self._loaded):
+            ssd_scan.release_scratch(self.device)
 
     def is_loaded(self, app_id: str) -> bool:
         return app_id in self._loaded

@@ -20,7 +20,10 @@ TPU kernel it replaces and the reference's plain scan.
     x, B and C (the kernel rounds y to bf16, at most 2^-8 of |y|: rtol
     8e-3 and atol 1e-3 of the largest |y|; the final state, which stays
     f32, within 1e-4 of its largest magnitude), at ragged lengths and with
-    an initial state.
+    an initial state; where there is more than one chunk, a carry one
+    chunk short (the plain version without one chunk's contribution to the
+    state entering the next) must fail the same bf16 bound;
+  * the bf16 form's widest state is checked before any launch.
 """
 from types import SimpleNamespace
 
@@ -178,6 +181,63 @@ def test_timing_inputs_are_views_the_kernel_takes():
         assert bool((dt > 0).all()) and bool((A < 0).all())
 
 
+def _y_close(got, want):
+    """The bf16 gate: y rounded to bf16 (at most 2^-8 of |y|, rtol 8e-3)
+    over an f32 result, atol 1e-3 of the largest |y|."""
+    atol = 1e-3 * max(1.0, float(want.abs().max()))
+    return bool(((got.float() - want).abs()
+                 <= atol + 8e-3 * want.abs()).all())
+
+
+def _carry_dropped(x, dt, A, B, C, chunk, S0, k):
+    """The plain scan's y with the state entering chunk k short of chunk
+    k - 1's contribution (x of chunk k - 1 zeroed for chunks >= k only)."""
+    y, _ = S.ssd_scan_plain(x, dt, A, B, C, chunk, S0)
+    xz = x.clone()
+    xz[:, (k - 1) * chunk:k * chunk] = 0
+    y_drop, _ = S.ssd_scan_plain(xz, dt, A, B, C, chunk, S0)
+    y_drop[:, :k * chunk] = y[:, :k * chunk]
+    return y_drop
+
+
+def test_bf16_state_width_is_checked():
+    b, l, h, p = 1, 8, 2, 8
+    n = S.MAX_BF16_STATE
+    x, dt, A, B, C = _torch(_inputs(0, b, l, h, p, n + 1))
+    S._check_cuda_args(x, dt, A, B, C, 8, None)          # f32: any n
+    xb, Bb, Cb = x.bfloat16(), B.bfloat16(), C.bfloat16()
+    S._check_cuda_args(xb, dt, A, Bb[..., :n], Cb[..., :n], 8, None)
+    with pytest.raises(ValueError, match="at most"):
+        S._check_cuda_args(xb, dt, A, Bb, Cb, 8, None)
+
+
+def test_release_scratch_frees_the_named_device_only():
+    dev = torch.device
+    saved = dict(S._SCRATCH)
+    try:
+        S._SCRATCH.clear()
+        for d in ("cuda:0", "cuda:1", "cpu"):
+            S._SCRATCH[dev(d)] = torch.empty(16, dtype=torch.uint8)
+        S.release_scratch("cuda:1")
+        assert set(S._SCRATCH) == {dev("cuda:0"), dev("cpu")}
+        S.release_scratch("cuda")            # any index of the type
+        assert set(S._SCRATCH) == {dev("cpu")}
+        S.release_scratch()
+        assert not S._SCRATCH
+    finally:
+        S._SCRATCH.clear()
+        S._SCRATCH.update(saved)
+
+
+def test_dropped_chunk_fails_the_bf16_gate():
+    """Leaving one chunk out of the carried state moves y past the bound
+    the card's bf16 check holds the kernel to."""
+    x, dt, A, B, C = _torch(_inputs(5, 1, 96, 2, 8, 4))
+    want, _ = S.ssd_scan_plain(x, dt, A, B, C, 32)
+    assert _y_close(want.bfloat16(), want)
+    assert not _y_close(_carry_dropped(x, dt, A, B, C, 32, None, 2), want)
+
+
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain_version():
     if not torch.cuda.is_available():
@@ -185,7 +245,10 @@ def test_cuda_kernel_matches_plain_version():
     dev = torch.device("cuda")
     cases = [(2, 256, 3, 16, 8, 64, False), (1, 384, 2, 16, 8, 256, True),
              (1, 640, 2, 64, 128, 256, False), (2, 1, 4, 64, 128, 256, True),
-             (2, 1000, 5, 72, 130, 128, True)]
+             (2, 1000, 5, 72, 130, 128, True),
+             (2, 384, 6, 64, 128, 256, True), (1, 640, 4, 64, 128, 256, True),
+             (2, 1, 3, 64, 128, 256, False),
+             (2, 1024, 16, 64, 128, 256, True)]
     for b, l, h, p, n, chunk, with_state in cases:
         arrays = _inputs(l + h, b, l, h, p, n)
         x, dt, A, B, C = _torch(arrays, dev)
@@ -208,3 +271,7 @@ def test_cuda_kernel_matches_plain_version():
             atol=1e-3 * max(1.0, float(want_y.abs().max())))
         assert float((s - want_s).abs().max()) <= \
             1e-4 * float(want_s.abs().max())
+        nc = -(-l // chunk)
+        if nc > 1:      # the gate catches a carry that is one chunk short
+            assert not _y_close(
+                _carry_dropped(xb, dt, A, Bb, Cb, chunk, S0, nc - 1), want_y)

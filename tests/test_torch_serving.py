@@ -300,6 +300,36 @@ def test_engine_keeps_the_ssm_decay_and_step_bias_fp32():
                        host["layers.0.A_log"])
 
 
+def test_engine_frees_the_ssd_scratch_with_its_last_mamba2_app():
+    """The SSD scan's scratch (86 MB on the card at Mamba-2's serving
+    shape) goes when the last loaded Mamba-2 app unloads, not before, and
+    not when another family's app unloads."""
+    from repro_torch.kernels import ssd_scan as port_ssd
+    ssm = port_configs.reduced(port_configs.get("mamba2-2.7b")).with_(
+        n_layers=1)
+    rg = port_configs.reduced(port_configs.get("recurrentgemma-2b")).with_(
+        n_layers=1)
+    reg = port_registry.Registry()
+    for app, cfg in (("m0", ssm), ("m1", ssm), ("r0", rg)):
+        reg.register(port_registry.ModelEndpoint(app, cfg, seed=3))
+    eng = port_engine.ServeEngine(reg, device="cpu")
+    for app in ("m0", "m1", "r0"):
+        eng.load(app)
+    cpu = torch.device("cpu")
+    saved = dict(port_ssd._SCRATCH)
+    try:
+        port_ssd._SCRATCH[cpu] = torch.empty(16, dtype=torch.uint8)
+        eng.unload("m0")
+        eng.unload("r0")
+        assert cpu in port_ssd._SCRATCH      # m1 still runs the scan
+        eng.unload("m1")
+        assert cpu not in port_ssd._SCRATCH
+        eng.unload("m1")                     # not loaded: nothing to do
+    finally:
+        port_ssd._SCRATCH.clear()
+        port_ssd._SCRATCH.update(saved)
+
+
 def test_dense_endpoint_behind_the_warm_pool():
     """A reduced Qwen2 endpoint (KV cache, ``use_kernels``) served behind
     the hybrid-policy pool on the CPU: the first request is cold and loads
