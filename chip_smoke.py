@@ -32,13 +32,17 @@ port's main paths:
   * the fleet's policy-update tick over the scale trace (phase
     ``policy_update_parity``): one tick per event column through the CUDA
     kernel, every output equal to the plain version's at every tick and,
-    on 1,000 sampled apps, to the scalar ``AppHistogram``.
+    on 1,000 sampled apps, to the scalar ``AppHistogram``; and one more
+    tick at 1,000 bins on a seeded small fleet with rows past
+    ``MAX_SCALED_COUNT``, equal to the plain version.
 
 Then it times each kernel at its path's shapes beside its bound, its plain
 version and, where one exists, the one PyTorch call computing the same
-function. Each phase prints one JSON line; any mismatch raises. The last
-lines are the kernel table, the card's name and power limit
-(``nvidia-smi``), and ``{"ok": true, "device": ...}``.
+function (the fleet tick per call and back to back, the RG-LRU scan by
+CUDA-graph replay and with its host work). Each phase prints one JSON
+line; any mismatch raises. The last lines are the kernel table, the
+card's name and power limit (``nvidia-smi``), and ``{"ok": true,
+"device": ...}``.
 
 Exits non-zero without a result where there is no CUDA device or no
 ``src/repro_torch`` beside this file. Imports nothing of JAX or ``repro``.
@@ -90,12 +94,22 @@ ATTN_BF16_TOL = (3e-3, 8e-3)
 ATTN_DROPPED_TILE = 64
 # The forms every launch of the serving paths must take, and the
 # instantiations they run, which must build with no register spills.
-SERVE_FORMS = {"flash_attention": "hopper", "decode_attention": "tensor_cores"}
+SERVE_FORMS = {"flash_attention": "hopper", "decode_attention": "tensor_cores",
+               "rglru_scan": "vec4"}
 NO_SPILL_KERNELS = {
     "flash_attention": ("flash_attention_hopper_kernel<256>",
                         "flash_attention_hopper_kernel<128>"),
-    "decode_attention": ("decode_attention_mma_kernel<128,1,3>",)}
+    "decode_attention": ("decode_attention_mma_kernel<128,1,3>",),
+    "policy_update": ("policy_update_kernel<4>", "policy_update_kernel<1>"),
+    "rglru_scan": ("rglru_scan_kernel<4>", "rglru_scan_kernel<1>")}
 RGLRU_SHAPE = (SERVE_BATCH, SERVE_SEQ, 2560)
+# rglru_parity's shapes: the path's, L=384 (which the TPU kernel gets
+# wrong), a ragged L at a width that is not a multiple of the kernel's 32
+# channels a block, and a width that is not a multiple of 4 (the scalar
+# form)
+RGLRU_PARITY_SHAPES = (RGLRU_SHAPE, (2, 384, 2560), (3, 1000, 200),
+                       (1, 777, 130))
+RGLRU_TOL = (2e-5, 2e-4)
 ATTN_PER_PREFILL, RGLRU_PER_PREFILL = 8, 18
 # (minute, endpoint): both cold first, both warm 30 minutes on, and the
 # first again after its 240-minute standard keep-alive ran out (a reload).
@@ -166,6 +180,10 @@ SERVE_QWEN2_LOGITS_REL_TOL = 5e-2
 # bins.
 POLICY_BINS = 240
 POLICY_SAMPLE = 1000
+# policy_update_parity's extra tick past one 256-bin tile of the kernel, on
+# a seeded small fleet whose first rows sit at and past MAX_SCALED_COUNT
+# (where cum * PCT_SCALE wraps around, int32 as in the reference)
+POLICY_WIDE = dict(n=4099, n_bins=1000)
 # Both serving phases also run the plain branches in f32 on f32 copies of
 # the same weights. The kernel path's bf16 logits must lie no further from
 # them than 1.5x as far as the plain branches' bf16 logits do: the kernels
@@ -436,30 +454,57 @@ def attention_parity(device):
     return worst
 
 
+def rglru_one_chunk_short(b_in, a, want_h):
+    """What a scan whose carry into the last chunk of R.CHUNK steps left out
+    the chunk before it would give: the plain version restarted there from
+    the state two chunks back (zero where there is none)."""
+    import torch
+    from repro_torch.kernels import rglru_scan as R
+    L, Q = a.shape[1], R.CHUNK
+    k = (L - 1) // Q
+    start = want_h[:, k * Q - Q - 1] if k > 1 else torch.zeros_like(
+        want_h[:, 0])
+    tail, _ = R.rglru_scan_plain(b_in[:, k * Q:], a[:, k * Q:], start)
+    return torch.cat([want_h[:, :k * Q], tail], dim=1)
+
+
 def rglru_parity(device):
     """The scan kernel against its plain version (the doubling scan) within
-    atol 2e-5, rtol 2e-4: the path's width over 4,096 steps, and L=384,
-    which the TPU kernel gets wrong. Returns the largest absolute
-    difference seen."""
+    RGLRU_TOL at RGLRU_PARITY_SHAPES, h_last equal to h[:, -1], the form
+    each case took, and at every shape longer than a chunk a carry one
+    chunk short, which the tolerance must reject. Returns the largest
+    absolute difference seen."""
     import torch
     from repro_torch.kernels import rglru_scan as R
 
+    atol, rtol = RGLRU_TOL
     worst = 0.0
-    for k, shape in enumerate((RGLRU_SHAPE, (2, 384, 2560), (3, 1000, 200))):
+    for k, shape in enumerate(RGLRU_PARITY_SHAPES):
         b_in, a = rglru_inputs(*shape, device, seed=20 + k)
+        forms = dict(R.LAUNCHES_BY_FORM)
         h, h_last = R.rglru_scan(b_in, a)
         want_h, want_last = R.rglru_scan_plain(b_in, a)
         torch.cuda.synchronize()
-        torch.testing.assert_close(h, want_h, atol=2e-5, rtol=2e-4)
-        torch.testing.assert_close(h_last, want_last, atol=2e-5, rtol=2e-4)
+        form = [f for f, c in R.LAUNCHES_BY_FORM.items() if c != forms[f]]
+        torch.testing.assert_close(h, want_h, atol=atol, rtol=rtol)
+        torch.testing.assert_close(h_last, want_last, atol=atol, rtol=rtol)
         if not torch.equal(h_last, h[:, -1]):
             raise AssertionError("rglru_scan: h_last != h[:, -1]")
         err = float((h - want_h).abs().max())
-        share = float(((h - want_h).abs() / (2e-5 + 2e-4 * want_h.abs()))
+        share = float(((h - want_h).abs() / (atol + rtol * want_h.abs()))
                       .max())
         worst = max(worst, err)
-        emit("rglru_parity", shape=list(shape), max_abs_err=err,
-             worst_share_of_tolerance=share)
+        fields = {}
+        if shape[1] > R.CHUNK:
+            short = rglru_one_chunk_short(b_in, a, want_h)
+            if torch.allclose(short, want_h, atol=atol, rtol=rtol):
+                raise AssertionError(f"the RG-LRU bound at {shape} would "
+                                     f"not catch a carry one chunk short")
+            fields = dict(short_carry_max_change=float(
+                (short - want_h).abs().max()), short_carry_caught=True)
+        emit("rglru_parity", shape=list(shape), form=form, atol=atol,
+             rtol=rtol, max_abs_err=err, worst_share_of_tolerance=share,
+             **fields)
     return worst
 
 
@@ -667,6 +712,38 @@ def fresh_policy_state(n, device):
             z(torch.float32))
 
 
+def wide_policy_state(n, n_bins, device, seed):
+    """A seeded fleet of ``n`` apps x ``n_bins`` for one tick: random counts
+    (0-4 a bin, a fifth of the rows empty), totals and Welford sums that
+    agree with them, this tick's bins in [-3, n_bins + 8) and half the rows
+    active; then its first three rows at the int32 edge of the scaled
+    compares, active on a bin in range: 300,000 samples in the last bin
+    (cum * PCT_SCALE wraps negative there), MAX_SCALED_COUNT samples (one
+    more this tick), and 2 x MAX_SCALED_COUNT spread over the row (the
+    scaled sums wrap part way along it). Tensors in the tick's argument
+    order."""
+    import torch
+    from repro_torch.core import policy_math
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 5, (n, n_bins)).astype(np.int32)
+    counts[rng.uniform(size=n) < 0.2] = 0
+    bins = rng.integers(-3, n_bins + 8, n).astype(np.int32)
+    active = rng.integers(0, 2, n).astype(np.int32)
+    edge = policy_math.MAX_SCALED_COUNT
+    counts[:3] = 0
+    counts[0, -1] = 300_000
+    counts[1, 0], counts[1, -1] = edge // 2, edge - edge // 2
+    counts[2] = 2 * edge // n_bins
+    counts[2, -1] += 2 * edge - int(counts[2].sum())
+    bins[:3], active[:3] = (n_bins - 1, 0, n_bins // 2), 1
+    total = counts.sum(1, dtype=np.int64)
+    arrays = (counts, rng.integers(0, 3, n).astype(np.int32),
+              total.astype(np.int32), total.astype(np.float32),
+              (counts.astype(np.int64) ** 2).sum(1).astype(np.float32),
+              bins, active)
+    return [torch.from_numpy(x).to(device) for x in arrays]
+
+
 def policy_update_parity(trace, device):
     """The fleet's policy-update tick over the scale trace, one tick per
     event column, through ``kernels.ops.policy_update`` (the CUDA kernel;
@@ -730,12 +807,34 @@ def policy_update_parity(trace, device):
               and host[6][a] == np.float32(ka))
         if not ok:
             raise AssertionError(f"policy_update != AppHistogram at app {a}")
+
+    # one more tick past the kernel's 256-bin tile, with rows at the int32
+    # edge (a comparison launch: not counted)
+    wn, wb = POLICY_WIDE["n"], POLICY_WIDE["n_bins"]
+    with uncounted(H):
+        got = H.policy_update(*wide_policy_state(wn, wb, device, seed=7),
+                              range_minutes=float(wb))
+        want = H.policy_update_plain(*wide_policy_state(wn, wb, device,
+                                                        seed=7),
+                                     range_minutes=float(wb))
+        torch.cuda.synchronize()
+    for name, g, w in zip(names, got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(
+                f"policy_update kernel != plain on {name} at {wb} bins: "
+                f"{int((g != w).sum())} elements differ")
+    if int(got[2][1]) != policy_math.MAX_SCALED_COUNT + 1:
+        raise AssertionError("the wide tick's edge row is not past "
+                             "MAX_SCALED_COUNT")
     emit("policy_update_parity", n_apps=n, n_bins=POLICY_BINS,
          ticks=len(columns), active_app_ticks=active_rows,
          column_prep_seconds=prep_s, outputs=len(names), torch_equal=True,
          launches=launches, sampled_apps=len(sample),
          sampled_using_histogram=int(n_hist),
-         equal_to_app_histogram=True)
+         equal_to_app_histogram=True,
+         wide_tick=dict(n_apps=wn, n_bins=wb, form=H._policy_form(
+             wb, got[0].data_ptr()), rows_past_max_scaled_count=3,
+             torch_equal=True))
     return launches, worst, columns
 
 
@@ -961,8 +1060,7 @@ def _kernel_class(name: str) -> str:
         return "ssd_kernel"
     if "flash_attention" in name:
         return "attention_kernel"
-    if "chunk_summary" in name or "chunk_carry" in name \
-            or "chunk_replay" in name:
+    if "rglru_scan" in name:
         return "scan_kernel"
     if any(s in name.lower() for s in ("gemm", "cutlass", "xmma", "nvjet")):
         return "matmul"
@@ -1497,28 +1595,57 @@ def time_attention(device, a, seed):
     return out
 
 
-def time_rglru(device):
-    """The scan kernel at the path's width over a 4,096-step prompt and its
-    plain version; no single PyTorch call computes this recurrence."""
+def time_rglru(device, ptxas):
+    """The scan kernel at the path's width over a 4,096-step prompt: device
+    ms a call by CUDA-graph replay (``kernel_ms``) and ms a call with the
+    wrapper's host work (``call_ms``, the measure of earlier runs), its
+    plain version, the bytes the kernel moves beside the bound's, a
+    PyTorch product that moves the same bytes as a yardstick, and its
+    registers and spills; no single PyTorch call computes this
+    recurrence."""
+    import torch
     from repro_torch.kernels import rglru_scan as R
-    from repro_torch.kernels.timing import launch_ms
+    from repro_torch.kernels.timing import graph_ms, launch_ms
 
     B, L, D = RGLRU_SHAPE
     b_in, a = rglru_inputs(B, L, D, device, seed=31)
-    n0 = R.LAUNCHES
-    kernel_ms = launch_ms(lambda: R.rglru_scan(b_in, a), 20)
-    plain_ms = launch_ms(lambda: R.rglru_scan_plain(b_in, a), 5)
-    R.LAUNCHES = n0                      # timing launches do not count
+    form = R._form(D, b_in.data_ptr(), a.data_ptr())
+    run = lambda: R.rglru_scan(b_in, a)
+    with uncounted(R):
+        # three of each in turns, the median kept: on an H100 a graph
+        # replay of this kernel spread by up to 10% between repeats
+        graph, call = [], []
+        for _ in range(3):
+            graph.append(graph_ms(run, 20))
+            call.append(launch_ms(run, 20))
+        kernel_ms, call_ms = sorted(graph)[1], sorted(call)[1]
+        plain_ms = launch_ms(lambda: R.rglru_scan_plain(b_in, a), 5)
+    # a yardstick, not the same function: one PyTorch product a * b_in
+    # moves the scan's bytes (reads both, writes one array like h), so its
+    # rate is what the card streams for this pattern
+    prod = torch.empty_like(a)
+    yard_ms = graph_ms(lambda: torch.mul(a, b_in, out=prod), 20)
     # a and b_in read once, h and h_last written once; ~6 operations per
-    # element are far below the bytes
+    # element are far below the bytes. The kernel reads a and b_in once and
+    # writes h and h_last once, in one launch with no scratch: it moves
+    # exactly these bytes.
     nbytes = 4 * (3 * B * L * D + B * D)
+    moved = nbytes
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    emit("times_rglru", shape=[B, L, D], kernel_ms=kernel_ms,
-         plain_ms=plain_ms, bytes=nbytes, bound_ms=bound_ms,
-         bound_by="bytes", library_ms=None,
+    emit("times_rglru", shape=[B, L, D], form=form, kernel_ms=kernel_ms,
+         timed_by="CUDA graph replay (device only), median of 3",
+         graph_ms_runs=graph, call_ms=call_ms, call_ms_runs=call,
+         plain_ms=plain_ms, bytes=nbytes, bytes_moved=moved,
+         bytes_moved_over_bound=moved / nbytes, bound_ms=bound_ms,
+         bound_by="bytes", share_of_bound=bound_ms / kernel_ms,
+         achieved_bytes_per_s=moved / (kernel_ms * 1e-3),
+         yardstick_mul_ms=yard_ms,
+         yardstick_bytes_per_s=3 * 4 * B * L * D / (yard_ms * 1e-3),
+         library_ms=None,
          library_note="no single PyTorch call computes this recurrence",
-         launches_per_request=RGLRU_PER_PREFILL)
-    return kernel_ms, plain_ms, bound_ms
+         launches_per_request=RGLRU_PER_PREFILL,
+         ptxas=ptxas["rglru_scan"])
+    return kernel_ms, call_ms, plain_ms, bound_ms
 
 
 def time_ssd(device):
@@ -1656,38 +1783,55 @@ def time_decode(device):
     return out
 
 
-def time_policy_update(columns, device):
-    """The policy-update kernel and its plain version, ms per tick over the
-    scale trace's ticks replayed from an empty fleet (CUDA events around
-    each call), and the bound those ticks give; no single PyTorch call
-    computes this tick."""
+def time_policy_update(columns, device, ptxas):
+    """The policy-update kernel and its plain version over the scale
+    trace's ticks replayed from an empty fleet: ms a tick per call (CUDA
+    events around each call, ``kernel_ms``) and device ms a tick back to
+    back (one event pair around all the ticks, issued without a wait,
+    ``back_to_back_ms``); the bound those ticks give; the kernel's
+    registers and spills. No single PyTorch call computes this tick."""
     import torch
     from repro_torch.core import policy_math
     from repro_torch.kernels import histogram as H
+    from repro_torch.kernels.timing import launch_ms
 
-    def replay(tick):
+    def replay(tick, per_call):
         tick(*fresh_policy_state(columns[0][0].shape[0], device),
              *columns[1])                                  # warm-up
+        state = fresh_policy_state(columns[0][0].shape[0], device)
         torch.cuda.synchronize()
-        state, total_ms = fresh_policy_state(columns[0][0].shape[0],
-                                             device), 0.0
+        total_ms = 0.0
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
         for bins, active in columns:
-            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            a.record()
+            if per_call:
+                a, b = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+                a.record()
             out = tick(*state, bins, active)
-            b.record()
-            b.synchronize()
-            total_ms += a.elapsed_time(b)
+            if per_call:
+                b.record()
+                b.synchronize()
+                total_ms += a.elapsed_time(b)
             state = out[:5]
+        end.record()
+        end.synchronize()
+        if not per_call:
+            total_ms = start.elapsed_time(end)
         return total_ms / len(columns), out
 
-    n0 = H.POLICY_UPDATE_LAUNCHES
-    kernel_ms, got = replay(H.policy_update)
-    plain_ms, want = replay(H.policy_update_plain)
-    H.POLICY_UPDATE_LAUNCHES = n0        # timing launches do not count
-    for g, w in zip(got, want):
-        if not torch.equal(g, w):
+    with uncounted(H):
+        kernel_ms, got = replay(H.policy_update, True)
+        back_ms, again = replay(H.policy_update, False)
+        plain_ms, want = replay(H.policy_update_plain, True)
+    for g, w, x in zip(got, want, again):
+        if not (torch.equal(g, w) and torch.equal(x, w)):
             raise AssertionError("timed policy_update replay != plain replay")
+    # a yardstick, not the same function: one PyTorch copy of the counts
+    # (each byte read and written once) gives the card's streaming rate
+    copy = torch.empty_like(got[0])
+    copy_ms = launch_ms(lambda: copy.copy_(got[0]), 10)
+    del copy
 
     # Least bytes a tick must move: each row's counts up to the later of
     # its two percentile bins (the whole row where a threshold is not
@@ -1719,12 +1863,23 @@ def time_policy_update(columns, device):
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
     all_rows_ms = (4 * n * POLICY_BINS + 52 * n) / HBM_BYTES_PER_S * 1e3
     emit("times_policy_update", shape=[n, POLICY_BINS],
+         form=H._policy_form(POLICY_BINS, got[0].data_ptr()),
          ticks_timed=len(columns), kernel_ms_per_tick=kernel_ms,
-         plain_ms_per_tick=plain_ms, bound_ms_per_tick=bound_ms,
-         bound_by=bound_by, bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms,
-         bound_all_rows_read_ms=all_rows_ms, library_ms=None,
-         library_note="no single PyTorch call computes this tick")
-    return kernel_ms, plain_ms, bound_ms, bound_by
+         back_to_back_ms_per_tick=back_ms, plain_ms_per_tick=plain_ms,
+         bound_ms_per_tick=bound_ms, bound_by=bound_by,
+         share_of_bound_per_call=bound_ms / kernel_ms,
+         share_of_bound_back_to_back=bound_ms / back_ms,
+         bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms,
+         bound_all_rows_read_ms=all_rows_ms,
+         # at 240 bins the kernel reads every row whole (one 256-bin tile)
+         streamed_bytes_per_s_back_to_back=(4 * n * POLICY_BINS + 52 * n)
+         / (back_ms * 1e-3),
+         yardstick_copy_ms=copy_ms,
+         yardstick_bytes_per_s=8 * n * POLICY_BINS / (copy_ms * 1e-3),
+         library_ms=None,
+         library_note="no single PyTorch call computes this tick",
+         ptxas=ptxas["policy_update"])
+    return kernel_ms, back_ms, plain_ms, bound_ms, bound_by
 
 
 def release_host_memory():
@@ -1822,11 +1977,11 @@ def main() -> int:
     del sweep_cols
     fa_rg = time_attention(device, ATTN_SHAPE, seed=30)
     fa_qw = time_attention(device, QWEN2_ATTN_SHAPE, seed=31)
-    rg_ms, rg_plain_ms, rg_bound_ms = time_rglru(device)
+    rg_ms, rg_call_ms, rg_plain_ms, rg_bound_ms = time_rglru(device, ptxas)
     ssd_ms, ssd_plain_ms, ssd_bound_ms, ssd_bound_by = time_ssd(device)
     da = time_decode(device)
-    pu_ms, pu_plain_ms, pu_bound_ms, pu_bound_by = time_policy_update(
-        policy_cols, device)
+    pu_ms, pu_back_ms, pu_plain_ms, pu_bound_ms, pu_bound_by = \
+        time_policy_update(policy_cols, device, ptxas)
 
     csrc = "src/repro_torch/kernels/csrc/"
     print(json.dumps({"kernels": [{
@@ -1864,8 +2019,12 @@ def main() -> int:
         "name": "rglru_scan", "route": "cuda",
         "source": csrc + "rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan.py:73",
-        "launches": serve_launches["rglru_scan"], "max_abs_err": rglru_err,
-        "ms": rg_ms, "plain_ms": rg_plain_ms, "bound_ms": rg_bound_ms,
+        # ms: device time a call by CUDA-graph replay; call_ms with the
+        # wrapper's host work (what ms held before)
+        "launches": serve_launches["rglru_scan"],
+        "launches_by_form": serve_forms["rglru_scan"],
+        "max_abs_err": rglru_err, "ms": rg_ms, "call_ms": rg_call_ms,
+        "plain_ms": rg_plain_ms, "bound_ms": rg_bound_ms,
         "bound_by": "bytes", "library_ms": None}, {
         "name": "ssd_scan", "route": "cuda",
         "source": csrc + "ssd_scan.cu",
@@ -1885,8 +2044,10 @@ def main() -> int:
         "name": "policy_update", "route": "cuda",
         "source": csrc + "policy_update.cu",
         "replaces": "src/repro/kernels/histogram.py:128",
+        # ms a tick per call (events around each call); back to back
+        # beside it (one event pair around the 64 ticks)
         "launches": policy_launches, "max_abs_err": policy_err,
-        "ms": pu_ms,
+        "ms": pu_ms, "back_to_back_ms": pu_back_ms,
         "plain_ms": pu_plain_ms, "bound_ms": pu_bound_ms,
         "bound_by": pu_bound_by, "library_ms": None}]}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start,

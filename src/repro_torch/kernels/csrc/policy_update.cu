@@ -19,18 +19,29 @@
 // tick needs depend on the data; chip_smoke.py computes that bound from the
 // tick's inputs.
 //
-// Design: one warp per row, lanes across the bins (coalesced 128-byte
-// loads). The warp walks the row in 32-bin tiles: an inclusive shuffle scan
-// plus the carry gives the cumulative counts, and a ballot of the scaled
-// compares finds the first hit of each threshold; the walk stops after the
-// tile where both are found. The old count is read before the walk and the
-// new one written after it. The bounds check on the row index replaces the
-// reference's padding to the 512-app tile. What this simple design leaves
-// on the table: a tick issues about 400 warp instructions a row, 64 of
-// them shuffles and ballots, which the SM issues one a clock (about 0.28
-// ms a tick at a million apps for those alone); a lane scanning eight
-// contiguous bins itself, and a warp owning 32 rows whose scalars it loads
-// and writes coalesced, would cut both.
+// Design: a warp owns 32 consecutive rows.
+//   * Lane r loads row r's vectors (bins, active, total, oob, both CV sums)
+//     coalesced, reads the row's old count, and later runs the row's scalar
+//     part (Welford, windows, gate) and writes its seven outputs coalesced:
+//     the scalar part runs once per row, not once per lane.
+//   * The warp walks its rows' counts in turn, in tiles of 256 bins: each
+//     lane holds 8 contiguous bins (two 16-byte loads where the row is
+//     16-byte aligned, the vec4 form; eight 4-byte loads otherwise, the
+//     scalar form). The loads of the next tile (the next row's first tile
+//     at 240 bins) are issued before the current tile is scanned, so a
+//     whole row is in flight while the previous one is scanned.
+//   * A tile's scan: each lane sums its 8 bins itself, one shuffle scan of
+//     the 32 lane totals (5 shuffles) and one shuffle for the tile's total
+//     give every cumulative count; each lane finds its first hit of each
+//     threshold and two warp min-reductions give the row's. That is 8
+//     shuffles and reductions a tile, plus 3 a row to broadcast lane r's
+//     recorded bin and thresholds (the old design: 64 a row at 240 bins).
+//   * The walk of a row stops after the tile where both percentiles are
+//     found; a row whose thresholds are not reached is read in full. Rows
+//     past n are masked, and the warp does not leave early: its lanes
+//     serve other rows.
+// The old count is read before the walk and the recorded bin written after
+// it (the walk scans the old counts plus one at the recorded bin).
 //
 // Bit-identity hazards and what is done about them:
 //   * no contraction: built with -fmad=false, and every rounding op is an
@@ -40,8 +51,11 @@
 //   * the cumulative sums and the scaled products cum * PCT_SCALE and
 //     total * numer are int32 with two's-complement wrap-around, as the
 //     reference's int32 arithmetic gives (computed in unsigned, where C++
-//     defines the wrap); a row whose counts pass MAX_SCALED_COUNT wraps
-//     there exactly as the reference and the plain version do;
+//     defines the wrap, and where the sum's order does not change it); a
+//     row whose counts pass MAX_SCALED_COUNT wraps there exactly as the
+//     reference and the plain version do. Then cum * PCT_SCALE is not
+//     monotone, so the search is a first hit over every bin read, never a
+//     binary search;
 //   * the window products run left to right as in the reference.
 
 #include <cuda_runtime.h>
@@ -51,13 +65,42 @@
 namespace {
 
 constexpr unsigned kPctScale = 10000;   // policy_math.PCT_SCALE
-constexpr int kWarpsPerBlock = 8;
+constexpr int kWarpsPerBlock = 4;
+constexpr int kLaneBins = 8;
+constexpr int kTileBins = 32 * kLaneBins;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kNone = 0x7fffffff;
 
 __device__ __forceinline__ int wrap_mul(int a, unsigned b) {
   return (int)((unsigned)a * b);
 }
 
+// A lane's 8 bins [first, first + 8) of one row; bins past n_bins read as
+// 0. kVec 4: two 16-byte loads (the row 16-byte aligned and n_bins % 4 ==
+// 0, so each load lies wholly inside or outside the row); kVec 1: eight
+// 4-byte loads.
+template <int kVec>
+__device__ __forceinline__ void load_bins(const int* row, int first,
+                                          int n_bins, int (&v)[kLaneBins]) {
+  if constexpr (kVec == 4) {
+#pragma unroll
+    for (int q = 0; q < kLaneBins; q += 4) {
+      int4 x = make_int4(0, 0, 0, 0);
+      if (first + q < n_bins)
+        x = __ldcs(reinterpret_cast<const int4*>(row + first + q));
+      v[q] = x.x;
+      v[q + 1] = x.y;
+      v[q + 2] = x.z;
+      v[q + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kLaneBins; ++k)
+      v[k] = first + k < n_bins ? __ldcs(row + first + k) : 0;
+  }
+}
+
+template <int kVec>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 policy_update_kernel(
     int* __restrict__ counts, const int* __restrict__ oob,
@@ -71,56 +114,121 @@ policy_update_kernel(
     float margin_lo, float margin_hi, float bin_f, float range_f,
     float cv_threshold, float oob_threshold) {
   const int lane = threadIdx.x & 31;
-  const int64_t row =
-      (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= n) return;                  // the whole warp leaves together
+  const int64_t first_row =
+      ((int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) * 32;
+  if (first_row >= n) return;            // the whole warp leaves together
+  const int rows = (int)min((int64_t)32, (int64_t)n - first_row);
+  const int64_t row = first_row + lane;  // lane r's row
+  const bool mine = lane < rows;
 
-  // classify this tick's bin
-  const int bin = bins[row];
-  const bool act = active[row] != 0;
-  const bool in_b = act && bin >= 0 && bin < n_bins;
-  const bool oob_hit = act && bin >= n_bins;
+  // lane r: row r's vectors, this tick's bin classified
+  int bin = 0, act = 0, tot_in = 0, oob_in = 0;
+  float cvs_in = 0.0f, cvss_in = 0.0f;
+  if (mine) {
+    bin = bins[row];
+    act = active[row];
+    tot_in = total[row];
+    oob_in = oob[row];
+    cvs_in = cv_sum[row];
+    cvss_in = cv_sum_sq[row];
+  }
+  const bool in_b = act != 0 && bin >= 0 && bin < n_bins;
+  const bool oob_hit = act != 0 && bin >= n_bins;
   const int safe = min(max(bin, 0), n_bins - 1);
   int* crow = counts + row * (int64_t)n_bins;
   const int old = in_b ? crow[safe] : 0;
-  const int tot = (int)((unsigned)total[row] + (in_b ? 1u : 0u));
-  const int n_oob = (int)((unsigned)oob[row] + (oob_hit ? 1u : 0u));
-
-  // Welford accumulators from the old count
-  const float inb = in_b ? 1.0f : 0.0f;
-  const float cvs = __fadd_rn(cv_sum[row], inb);
-  const float cvss = __fadd_rn(
-      cv_sum_sq[row],
-      __fmul_rn(inb, __fadd_rn(__fmul_rn(2.0f, (float)old), 1.0f)));
-
-  // percentile bins: first bin with cum * PCT_SCALE >= threshold
+  const int tot = (int)((unsigned)tot_in + (in_b ? 1u : 0u));
+  const int n_oob = (int)((unsigned)oob_in + (oob_hit ? 1u : 0u));
   const int head_thr = max(wrap_mul(tot, (unsigned)head_numer),
                            (int)kPctScale);
   const int tail_thr = max(wrap_mul(tot, (unsigned)tail_numer),
                            (int)kPctScale);
+  const int rec = in_b ? safe : -1;      // the bin the walk adds one to
+
+  // the walk: step (j, t) scans row j's tile t; the next step's loads are
+  // issued before this one's scan
+  const int ntiles = (n_bins + kTileBins - 1) / kTileBins;
+  const int lane_first = lane * kLaneBins;
+  const int* wrows = counts + first_row * (int64_t)n_bins;
+  int cur[kLaneBins], nxt[kLaneBins];
+  load_bins<kVec>(wrows, lane_first, n_bins, cur);
+  int head = n_bins, tail = n_bins;      // lane r: row r's percentile bins
+  int j = 0, t = 0, hj = n_bins, tj = n_bins;
+  int rec_j = __shfl_sync(kFull, rec, 0);
+  int hthr_j = __shfl_sync(kFull, head_thr, 0);
+  int tthr_j = __shfl_sync(kFull, tail_thr, 0);
   unsigned carry = 0;
-  int head = n_bins, tail = n_bins;
-  for (int base = 0; base < n_bins; base += 32) {
-    const int b = base + lane;
-    const bool live = b < n_bins;
-    unsigned c = 0;
-    if (live) c = (unsigned)crow[b] + ((in_b && b == safe) ? 1u : 0u);
+  while (true) {
+    const bool row_ends = t + 1 == ntiles;
+    const int jn = row_ends ? j + 1 : j, tn = row_ends ? 0 : t + 1;
+    if (jn < rows)
+      load_bins<kVec>(wrows + jn * (int64_t)n_bins,
+                      tn * kTileBins + lane_first, n_bins, nxt);
+
+    // cumulative counts of this lane's bins (unsigned: int32 wrap)
+    const int first = t * kTileBins + lane_first;
+    unsigned s[kLaneBins], acc = 0;
+#pragma unroll
+    for (int k = 0; k < kLaneBins; ++k) {
+      acc += (unsigned)cur[k] + (first + k == rec_j ? 1u : 0u);
+      s[k] = acc;
+    }
+    unsigned x = acc;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
-      const unsigned y = __shfl_up_sync(kFull, c, off);
-      if (lane >= off) c += y;
+      const unsigned y = __shfl_up_sync(kFull, x, off);
+      if (lane >= off) x += y;
     }
-    c += carry;
-    carry = __shfl_sync(kFull, c, 31);
-    const int scaled = (int)(c * kPctScale);
-    const unsigned hh = __ballot_sync(kFull, live && scaled >= head_thr);
-    const unsigned th = __ballot_sync(kFull, live && scaled >= tail_thr);
-    if (head == n_bins && hh) head = base + __ffs(hh) - 1;
-    if (tail == n_bins && th) tail = base + __ffs(th) - 1;
-    if (head < n_bins && tail < n_bins) break;   // warp-uniform
+    const unsigned before = carry + (x - acc);
+    carry += __shfl_sync(kFull, x, 31);
+
+    // first hits: this lane's, then the warp's
+    int hh = kNone, th = kNone;
+#pragma unroll
+    for (int k = kLaneBins - 1; k >= 0; --k) {
+      const int b = first + k;
+      const int scaled = (int)((before + s[k]) * kPctScale);
+      const bool live = b < n_bins;
+      if (live && scaled >= hthr_j) hh = b;
+      if (live && scaled >= tthr_j) th = b;
+    }
+    hj = min(hj, __reduce_min_sync(kFull, hh));
+    tj = min(tj, __reduce_min_sync(kFull, th));
+
+    if (row_ends || (hj < n_bins && tj < n_bins)) {   // warp-uniform
+      if (lane == j) {
+        head = hj;
+        tail = tj;
+      }
+      if (++j == rows) break;
+      rec_j = __shfl_sync(kFull, rec, j);
+      hthr_j = __shfl_sync(kFull, head_thr, j);
+      tthr_j = __shfl_sync(kFull, tail_thr, j);
+      t = 0;
+      carry = 0;
+      hj = tj = n_bins;
+      if (row_ends) {
+#pragma unroll
+        for (int k = 0; k < kLaneBins; ++k) cur[k] = nxt[k];
+      } else {                             // stopped early: the prefetched
+        load_bins<kVec>(wrows + j * (int64_t)n_bins, lane_first, n_bins,
+                        cur);              // tile was this row's, not j's
+      }
+    } else {
+      ++t;
+#pragma unroll
+      for (int k = 0; k < kLaneBins; ++k) cur[k] = nxt[k];
+    }
   }
-  __syncwarp();                          // every lane has read the row
-  if (lane == 0 && in_b) crow[safe] = old + 1;
+  __syncwarp();                          // every lane has read its rows
+  if (!mine) return;
+  if (in_b) crow[safe] = old + 1;
+
+  // Welford accumulators from the old count
+  const float inb = in_b ? 1.0f : 0.0f;
+  const float cvs = __fadd_rn(cvs_in, inb);
+  const float cvss = __fadd_rn(
+      cvss_in, __fmul_rn(inb, __fadd_rn(__fmul_rn(2.0f, (float)old), 1.0f)));
 
   // windows (float32, left to right) and the gate
   const float load = __fmul_rn(__fmul_rn((float)head, bin_f), margin_lo);
@@ -140,15 +248,13 @@ policy_update_kernel(
       seen >= min_samples && cv >= cv_threshold && tot > 0 && !heavy;
   const float prewarm = use_hist ? load : 0.0f;
 
-  if (lane == 0) {
-    o_oob[row] = n_oob;
-    o_total[row] = tot;
-    o_cvs[row] = cvs;
-    o_cvss[row] = cvss;
-    o_prewarm[row] = prewarm;
-    o_keep[row] = __fsub_rn(use_hist ? unload : range_f, prewarm);
-    o_use_hist[row] = use_hist ? 1 : 0;
-  }
+  o_oob[row] = n_oob;
+  o_total[row] = tot;
+  o_cvs[row] = cvs;
+  o_cvss[row] = cvss;
+  o_prewarm[row] = prewarm;
+  o_keep[row] = __fsub_rn(use_hist ? unload : range_f, prewarm);
+  o_use_hist[row] = use_hist ? 1 : 0;
 }
 
 }  // namespace
@@ -156,7 +262,9 @@ policy_update_kernel(
 extern "C" {
 
 // Launch the tick on `stream`; `counts` [n, n_bins] is updated in place.
-// Returns cudaGetLastError() (0 = launched), or -1 for n_bins < 1.
+// vec 4 takes the vec4 form (counts 16-byte aligned and n_bins % 4 == 0,
+// which the caller checks), vec 1 the scalar form. Returns
+// cudaGetLastError() (0 = launched), or -1 for n_bins < 1 or another vec.
 int policy_update(void* counts, const void* oob, const void* total,
                   const void* cv_sum, const void* cv_sum_sq,
                   const void* bins, const void* active, void* o_oob,
@@ -165,12 +273,13 @@ int policy_update(void* counts, const void* oob, const void* total,
                   int head_numer, int tail_numer, int min_samples,
                   float margin_lo, float margin_hi, float bin_f,
                   float range_f, float cv_threshold, float oob_threshold,
-                  void* stream) {
-  if (n_bins < 1) return -1;
+                  int vec, void* stream) {
+  if (n_bins < 1 || (vec != 1 && vec != 4)) return -1;
   if (n == 0) return 0;
-  const int64_t blocks = ((int64_t)n + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  policy_update_kernel<<<(unsigned)blocks, kWarpsPerBlock * 32, 0,
-                         (cudaStream_t)stream>>>(
+  const int64_t rows_per_block = kWarpsPerBlock * 32;
+  const int64_t blocks = ((int64_t)n + rows_per_block - 1) / rows_per_block;
+  auto kernel = vec == 4 ? policy_update_kernel<4> : policy_update_kernel<1>;
+  kernel<<<(unsigned)blocks, kWarpsPerBlock * 32, 0, (cudaStream_t)stream>>>(
       (int*)counts, (const int*)oob, (const int*)total,
       (const float*)cv_sum, (const float*)cv_sum_sq, (const int*)bins,
       (const int*)active, (int*)o_oob, (int*)o_total, (float*)o_cvs,
@@ -181,7 +290,7 @@ int policy_update(void* counts, const void* oob, const void* total,
 }
 
 const char* policy_update_error_string(int code) {
-  if (code == -1) return "n_bins must be >= 1";
+  if (code == -1) return "n_bins must be >= 1 and vec 1 or 4";
   return cudaGetErrorString((cudaError_t)code);
 }
 

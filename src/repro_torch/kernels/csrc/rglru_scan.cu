@@ -1,4 +1,4 @@
-// The RG-LRU linear recurrence over time, as a chunked scan in three passes.
+// The RG-LRU linear recurrence over time, in one pass over the inputs.
 //
 // Replaces the TPU kernel repro/kernels/rglru_scan.py::_rglru_kernel
 // (rglru_scan_pallas, with its in-block doubling _scan_block). It computes
@@ -11,23 +11,30 @@
 // Bound on an H100: bytes. a and b_in are read and h is written once:
 // 12*B*L*D bytes, 252 MB at the serving path's shape (B=2, L=4096,
 // D=2560), 0.075 ms at 3.35 TB/s; about 6 operations per element are
-// negligible. The recurrence is sequential in time, and one thread per
-// (b, d) walking all of L would leave 5,120 threads for 4,096 dependent
-// steps, most of the card idle and each step waiting on a load.
+// negligible.
 //
-// Design: time is cut into chunks of `chunk` steps, one thread per
-// (b, chunk, d), d fastest so that a warp's loads at one step are 128
-// contiguous bytes.
-//   1. summary: each thread walks its chunk from h = 0 and keeps the
-//      product of a and the chunk's local end state;
-//   2. carry: one thread per (b, d) runs the chunks' affine maps in order
-//      and writes each chunk's incoming state (B*nc*D floats, in L2);
-//   3. replay: each thread walks its chunk again from its incoming state
-//      and writes h; the thread of the last step writes h_last, so h_last
-//      equals h[:, L-1] bit for bit.
-// At the path's shape that is 327,680 threads in passes 1 and 3. Passes 1
-// and 3 both read a and b_in, so the kernel moves 420 MB against the
-// bound's 252 MB; a single pass with a look-back across chunks would not.
+// Design: as the reference's sequential grid over time blocks, a block
+// owns (b, 32 d) and walks the whole of L, carrying the state from one
+// tile of kTile steps to the next; a, b_in and h each cross device memory
+// once (252 MB at the path's shape), in one launch with no scratch.
+//   * A tile is cut into time segments: a thread holds kVec d (a 16-byte
+//     load and store along d where D % 4 == 0 and the tensors are 16-byte
+//     aligned, the vec4 form; one float otherwise, the scalar form) over
+//     kSeg consecutive steps, in registers, loaded through the read-only
+//     path (a and b_in are never written here). The next tile's loads
+//     are issued before the current tile is scanned (a register double
+//     buffer: 32 KB in flight a block).
+//   * Each thread walks its segment from h = 0 (the product of its a and
+//     its local end state); a shuffle scan across the warp's segments and
+//     the warps' aggregates in shared memory give the state entering each
+//     segment and the carry into the next tile; each thread then replays
+//     its segment from its entering state and writes h. The thread of step
+//     L-1 writes h_last, so h_last equals h[:, L-1] bit for bit.
+//   * Steps past L read a = 1, b_in = 0 (the identity) and are not stored.
+// At the path's shape that is 160 blocks of 256 threads, all resident at
+// two blocks an SM, so there is no partial last wave. Probed on the card
+// and slower: 16 d a block (320 blocks), 64-step tiles (at two or three
+// blocks an SM), streaming loads (__ldcs), streaming or L2-only stores.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -36,6 +43,9 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kDTile = 32;               // d a block owns
+constexpr int kTile = 128;               // time steps a tile (CHUNK)
+constexpr unsigned kFull = 0xffffffffu;
 
 enum : int { kErrShape = -1 };
 
@@ -43,97 +53,193 @@ __device__ __forceinline__ float gated(float a, float x) {
   return sqrtf(fmaxf(1.f - a * a, 0.f)) * x;
 }
 
-__global__ void chunk_summary(const float* __restrict__ b_in,
-                              const float* __restrict__ a,
-                              float* __restrict__ sum_a,
-                              float* __restrict__ sum_h, int L, int D,
-                              int chunk, int nc, int64_t n) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const int d = (int)(idx % D);
-  const int64_t bc = idx / D;                 // b * nc + c
-  const int c = (int)(bc % nc), b = (int)(bc / nc);
-  const int t0 = c * chunk, t1 = min(L, t0 + chunk);
-  const int64_t base = (int64_t)b * L * D + d;
-  float pa = 1.f, h = 0.f;
-  for (int t = t0; t < t1; ++t) {
-    const float at = a[base + (int64_t)t * D];
-    h = at * h + gated(at, b_in[base + (int64_t)t * D]);
-    pa *= at;
+template <int kVec>
+struct Layout {
+  static constexpr int kGroups = kDTile / kVec;     // threads across d
+  static constexpr int kRows = kThreads / kGroups;  // segments a tile
+  static constexpr int kSeg = kTile / kRows;        // steps a segment
+  static constexpr int kRowsPerWarp = 32 / kGroups;
+};
+
+// kSeg steps from t0 of kVec d at off (a and b_in); steps past L read the
+// identity (a 1, b_in 0), as do d past D (live false).
+template <int kVec, int kSeg = Layout<kVec>::kSeg>
+__device__ __forceinline__ void load_seg(const float* __restrict__ a,
+                                         const float* __restrict__ b_in,
+                                         int64_t off, int t0, int L, int D,
+                                         bool live, float (&av)[kSeg][kVec],
+                                         float (&bv)[kSeg][kVec]) {
+#pragma unroll
+  for (int k = 0; k < kSeg; ++k) {
+    const bool in = live && t0 + k < L;
+    const int64_t j = off + (int64_t)(t0 + k) * D;
+    if constexpr (kVec == 4) {
+      float4 x = make_float4(1.f, 1.f, 1.f, 1.f);
+      float4 y = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (in) {
+        x = __ldg(reinterpret_cast<const float4*>(a + j));
+        y = __ldg(reinterpret_cast<const float4*>(b_in + j));
+      }
+      av[k][0] = x.x; av[k][1] = x.y; av[k][2] = x.z; av[k][3] = x.w;
+      bv[k][0] = y.x; bv[k][1] = y.y; bv[k][2] = y.z; bv[k][3] = y.w;
+    } else {
+      av[k][0] = in ? __ldg(a + j) : 1.f;
+      bv[k][0] = in ? __ldg(b_in + j) : 0.f;
+    }
   }
-  sum_a[idx] = pa;
-  sum_h[idx] = h;
 }
 
-__global__ void chunk_carry(const float* __restrict__ sum_a,
-                            const float* __restrict__ sum_h,
-                            float* __restrict__ carry, int D, int nc,
-                            int64_t n) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const int d = (int)(idx % D), b = (int)(idx / D);
-  float h = 0.f;
-  for (int c = 0; c < nc; ++c) {
-    const int64_t j = ((int64_t)b * nc + c) * D + d;
-    carry[j] = h;
-    h = sum_a[j] * h + sum_h[j];
-  }
+template <int kVec>
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[kVec]) {
+  if constexpr (kVec == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else
+    p[0] = v[0];
 }
 
-__global__ void chunk_replay(const float* __restrict__ b_in,
-                             const float* __restrict__ a,
-                             const float* __restrict__ carry,
-                             float* __restrict__ h_out,
-                             float* __restrict__ h_last, int L, int D,
-                             int chunk, int nc, int64_t n) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const int d = (int)(idx % D);
-  const int64_t bc = idx / D;
-  const int c = (int)(bc % nc), b = (int)(bc / nc);
-  const int t0 = c * chunk, t1 = min(L, t0 + chunk);
-  const int64_t base = (int64_t)b * L * D + d;
-  float h = carry[idx];
-  for (int t = t0; t < t1; ++t) {
-    const int64_t j = base + (int64_t)t * D;
-    const float at = a[j];
-    h = at * h + gated(at, b_in[j]);
-    h_out[j] = h;
-  }
-  if (c == nc - 1) h_last[(int64_t)b * D + d] = h;
-}
+template <int kVec>
+__global__ void __launch_bounds__(kThreads, 2)
+rglru_scan_kernel(const float* __restrict__ b_in, const float* __restrict__ a,
+                  float* __restrict__ h, float* __restrict__ h_last, int L,
+                  int D) {
+  using Lay = Layout<kVec>;
+  constexpr int kSeg = Lay::kSeg, kGroups = Lay::kGroups;
+  constexpr int kRowsPerWarp = Lay::kRowsPerWarp;
+  constexpr int kWarps = kThreads / 32;
+  // each warp's aggregate (product of a, local end state) by tile parity
+  __shared__ float2 agg[2][kWarps][kDTile];
 
-unsigned blocks_for(int64_t n) {
-  return (unsigned)((n + kThreads - 1) / kThreads);
+  const int g = threadIdx.x % kGroups, r = threadIdx.x / kGroups;
+  const int warp = threadIdx.x / 32, wr = r % kRowsPerWarp;
+  const int d0 = blockIdx.x * kDTile + g * kVec;
+  const bool live = d0 < D;              // kVec 4: D % 4 == 0, all 4 live
+  const int64_t off = (int64_t)blockIdx.y * L * D + d0;
+  const int ntiles = (L + kTile - 1) / kTile;
+
+  float av[kSeg][kVec], bv[kSeg][kVec], an[kSeg][kVec], bn[kSeg][kVec];
+  load_seg<kVec>(a, b_in, off, r * kSeg, L, D, live, av, bv);
+  float carry[kVec];
+#pragma unroll
+  for (int v = 0; v < kVec; ++v) carry[v] = 0.f;
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    const int par = tile & 1;
+    const int t0 = tile * kTile + r * kSeg;
+    if (tile + 1 < ntiles)
+      load_seg<kVec>(a, b_in, off, t0 + kTile, L, D, live, an, bn);
+
+    // the segment from h = 0: its product of a and its end state
+    float A[kVec], H[kVec];
+#pragma unroll
+    for (int v = 0; v < kVec; ++v) {
+      A[v] = 1.f;
+      H[v] = 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < kSeg; ++k) {
+#pragma unroll
+      for (int v = 0; v < kVec; ++v) {
+        bv[k][v] = gated(av[k][v], bv[k][v]);
+        H[v] = av[k][v] * H[v] + bv[k][v];
+        A[v] *= av[k][v];
+      }
+    }
+    // inclusive scan over the warp's segments (kGroups lanes apart):
+    // (A', H') then (A, H) is (A' A, A H' + H)
+#pragma unroll
+    for (int s = 1; s < kRowsPerWarp; s <<= 1) {
+#pragma unroll
+      for (int v = 0; v < kVec; ++v) {
+        const float Ap = __shfl_up_sync(kFull, A[v], s * kGroups);
+        const float Hp = __shfl_up_sync(kFull, H[v], s * kGroups);
+        if (wr >= s) {
+          H[v] = A[v] * Hp + H[v];
+          A[v] *= Ap;
+        }
+      }
+    }
+    // exclusive: the segments before this one in the warp
+    float Ae[kVec], He[kVec];
+#pragma unroll
+    for (int v = 0; v < kVec; ++v) {
+      Ae[v] = 1.f;
+      He[v] = 0.f;
+      if (kRowsPerWarp > 1) {
+        const float Ap = __shfl_up_sync(kFull, A[v], kGroups);
+        const float Hp = __shfl_up_sync(kFull, H[v], kGroups);
+        if (wr > 0) {
+          Ae[v] = Ap;
+          He[v] = Hp;
+        }
+      }
+    }
+    if (wr == kRowsPerWarp - 1) {
+#pragma unroll
+      for (int v = 0; v < kVec; ++v)
+        agg[par][warp][g * kVec + v] = make_float2(A[v], H[v]);
+    }
+    __syncthreads();
+    // the state entering this warp's segments, and the next tile's carry
+    float hin[kVec];
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+#pragma unroll
+      for (int v = 0; v < kVec; ++v) {
+        if (w == warp) hin[v] = carry[v];
+        const float2 x = agg[par][w][g * kVec + v];
+        carry[v] = x.x * carry[v] + x.y;
+      }
+    }
+    // replay the segment from its entering state and write h
+    float hv[kVec];
+#pragma unroll
+    for (int v = 0; v < kVec; ++v) hv[v] = Ae[v] * hin[v] + He[v];
+#pragma unroll
+    for (int k = 0; k < kSeg; ++k) {
+#pragma unroll
+      for (int v = 0; v < kVec; ++v) hv[v] = av[k][v] * hv[v] + bv[k][v];
+      const int t = t0 + k;
+      if (live && t < L) {
+        store_vec<kVec>(h + off + (int64_t)t * D, hv);
+        if (t == L - 1)
+          store_vec<kVec>(h_last + (int64_t)blockIdx.y * D + d0, hv);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kSeg; ++k) {
+#pragma unroll
+      for (int v = 0; v < kVec; ++v) {
+        av[k][v] = an[k][v];
+        bv[k][v] = bn[k][v];
+      }
+    }
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// scratch holds 3 * B * nc * D floats, nc = ceil(L / chunk). Returns 0, a
-// CUDA error code, or kErrShape.
+// One launch on `stream`. vec 4 takes the vec4 form (D % 4 == 0 and every
+// pointer 16-byte aligned, which the caller checks), vec 1 the scalar
+// form. Returns 0, a CUDA error code, or kErrShape.
 int rglru_scan_fwd(const float* b_in, const float* a, float* h,
-                   float* h_last, float* scratch, int B, int L, int D,
-                   int chunk, void* stream) {
-  if (B < 1 || L < 1 || D < 1 || chunk < 1) return kErrShape;
-  const int nc = (L + chunk - 1) / chunk;
-  const int64_t n_chunk = (int64_t)B * nc * D, n_row = (int64_t)B * D;
-  float* sum_a = scratch;
-  float* sum_h = scratch + n_chunk;
-  float* carry = scratch + 2 * n_chunk;
-  cudaStream_t s = (cudaStream_t)stream;
-  chunk_summary<<<blocks_for(n_chunk), kThreads, 0, s>>>(
-      b_in, a, sum_a, sum_h, L, D, chunk, nc, n_chunk);
-  chunk_carry<<<blocks_for(n_row), kThreads, 0, s>>>(sum_a, sum_h, carry, D,
-                                                     nc, n_row);
-  chunk_replay<<<blocks_for(n_chunk), kThreads, 0, s>>>(
-      b_in, a, carry, h, h_last, L, D, chunk, nc, n_chunk);
+                   float* h_last, int B, int L, int D, int vec,
+                   void* stream) {
+  if (B < 1 || L < 1 || D < 1 || B > 65535 || (vec != 1 && vec != 4) ||
+      (vec == 4 && D % 4 != 0))
+    return kErrShape;
+  const dim3 grid((unsigned)((D + kDTile - 1) / kDTile), (unsigned)B);
+  auto kernel = vec == 4 ? rglru_scan_kernel<4> : rglru_scan_kernel<1>;
+  kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(b_in, a, h, h_last, L,
+                                                      D);
   return (int)cudaGetLastError();
 }
 
 const char* rglru_scan_error_string(int code) {
-  if (code == kErrShape) return "bad shape (B, L, D and chunk must be >= 1)";
+  if (code == kErrShape)
+    return "bad shape (B in [1, 65535], L and D >= 1; vec 1, or 4 with "
+           "D % 4 == 0)";
   return cudaGetErrorString((cudaError_t)code);
 }
 

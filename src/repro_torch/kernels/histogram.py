@@ -28,8 +28,9 @@ S=1 parity surface and what the scan is held to on the card.
 
 :func:`policy_update` is one control-plane tick for the whole fleet — the
 port of ``repro/kernels/histogram.py::policy_update_pallas`` (body
-``_policy_kernel``): on CUDA tensors ``csrc/policy_update.cu``, on CPU
-tensors :func:`policy_update_plain`. Its raw ``counts`` ``[n, n_bins]`` are
+``_policy_kernel``): on CUDA tensors ``csrc/policy_update.cu`` (a warp
+per 32 rows, in the form :func:`_policy_form` picks), on CPU tensors
+:func:`policy_update_plain`. Its raw ``counts`` ``[n, n_bins]`` are
 likewise updated in place and returned first.
 """
 from __future__ import annotations
@@ -405,13 +406,22 @@ def _check_policy_args(args) -> None:
                 f"on {x.device}")
 
 
+def _policy_form(n_bins: int, counts_ptr: int) -> str:
+    """The tick kernel's form for rows of ``n_bins`` at address
+    ``counts_ptr``: ``vec4`` where every row starts 16-byte aligned (n_bins
+    a multiple of 4 and the address 16-byte aligned; each lane then reads
+    its 8 bins in two 16-byte loads), else ``scalar`` (eight 4-byte loads).
+    Both forms are the same kernel, chosen before the launch."""
+    return "vec4" if n_bins % 4 == 0 and counts_ptr % 16 == 0 else "scalar"
+
+
 def _policy_lib() -> ctypes.CDLL:
     from . import build
     lib = build.load("policy_update")
     if not getattr(lib, "_typed", False):
         fn = lib.policy_update
         fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + \
-            [ctypes.c_float] * 6 + [ctypes.c_void_p]
+            [ctypes.c_float] * 6 + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.policy_update_error_string.argtypes = [ctypes.c_int]
         lib.policy_update_error_string.restype = ctypes.c_char_p
@@ -438,7 +448,9 @@ def _policy_launch(args, knobs):
             policy_math.pct_numer(knobs["tail_pct"]),
             int(knobs["min_samples"]), float(lo), float(hi),
             f32(knobs["bin_minutes"]), f32(knobs["range_minutes"]),
-            f32(knobs["cv_threshold"]), f32(knobs["oob_threshold"]), stream)
+            f32(knobs["cv_threshold"]), f32(knobs["oob_threshold"]),
+            4 if _policy_form(n_bins, counts.data_ptr()) == "vec4" else 1,
+            stream)
     if rc != 0:
         raise RuntimeError("policy_update launch failed: "
                            + lib.policy_update_error_string(rc).decode())

@@ -4,10 +4,12 @@ PyTorch version.
 :func:`rglru_scan` is the port of the TPU kernel
 ``repro/kernels/rglru_scan.py::rglru_scan_pallas`` (body ``_rglru_kernel``)
 behind ``repro/kernels/ops.py::rglru_scan``. On CUDA tensors it launches
-``csrc/rglru_scan.cu`` (a chunked scan in three passes; see the note at the
-top of that file for its design and its bound on the card); on CPU tensors
-it runs :func:`rglru_scan_plain`, which is also the model's branch when the
-kernels are off (the port of ``repro/models/rglru.py::rglru_scan_ref``).
+``csrc/rglru_scan.cu`` (one pass: a block per batch row and 32 channels
+walks the whole of L, the inputs read and h written once; see the note at
+the top of that file for its design and its bound on the card); on CPU
+tensors it runs :func:`rglru_scan_plain`, which is also the model's branch
+when the kernels are off (the port of
+``repro/models/rglru.py::rglru_scan_ref``).
 There is no fallback: a CUDA tensor either reaches the kernel or the call
 raises.
 """
@@ -17,13 +19,20 @@ import ctypes
 
 import torch
 
-__all__ = ["LAUNCHES", "CHUNK", "rglru_scan", "rglru_scan_plain"]
+__all__ = ["LAUNCHES", "LAUNCHES_BY_FORM", "CHUNK", "rglru_scan",
+           "rglru_scan_plain"]
 
 #: Kernel launches made by this process (plain-version calls do not count).
 LAUNCHES = 0
 
-#: Time steps per chunk of the kernel's scan.
-CHUNK = 64
+#: The same launches by form: ``vec4`` (16-byte loads and stores along d)
+#: or ``scalar``.
+LAUNCHES_BY_FORM = {"vec4": 0, "scalar": 0}
+
+#: Time steps per tile of the kernel's scan (``kTile`` in
+#: ``csrc/rglru_scan.cu``): the carry crosses from one chunk of CHUNK steps
+#: to the next.
+CHUNK = 128
 
 
 def rglru_scan_plain(x_gated, a, h0=None):
@@ -61,12 +70,22 @@ def _check_cuda_args(b_in, a) -> None:
         raise ValueError(f"rglru_scan: empty shape {tuple(a.shape)}")
 
 
+def _form(D: int, *data_ptrs: int) -> str:
+    """The kernel's form for width ``D`` and the tensors' addresses:
+    ``vec4`` where D is a multiple of 4 and every address 16-byte aligned
+    (each thread then loads and stores 4 channels at once), else
+    ``scalar``. Both forms are the same kernel, chosen before the launch."""
+    if D % 4 == 0 and all(p % 16 == 0 for p in data_ptrs):
+        return "vec4"
+    return "scalar"
+
+
 def _lib() -> ctypes.CDLL:
     from . import build
     lib = build.load("rglru_scan")
     if not getattr(lib, "_typed", False):
         fn = lib.rglru_scan_fwd
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + \
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.rglru_scan_error_string.argtypes = [ctypes.c_int]
@@ -80,20 +99,20 @@ def _launch(b_in, a):
     _check_cuda_args(b_in, a)
     lib = _lib()
     B, L, D = a.shape
-    nc = -(-L // CHUNK)
     h = torch.empty_like(b_in)
     h_last = torch.empty((B, D), dtype=b_in.dtype, device=b_in.device)
-    scratch = torch.empty((3, B, nc, D), dtype=torch.float32,
-                          device=b_in.device)
+    form = _form(D, b_in.data_ptr(), a.data_ptr(), h.data_ptr(),
+                 h_last.data_ptr())
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.rglru_scan_fwd(b_in.data_ptr(), a.data_ptr(), h.data_ptr(),
-                                h_last.data_ptr(), scratch.data_ptr(), B, L,
-                                D, CHUNK, stream)
+                                h_last.data_ptr(), B, L, D,
+                                4 if form == "vec4" else 1, stream)
     if rc != 0:
         raise RuntimeError("rglru_scan launch failed: "
                            + lib.rglru_scan_error_string(rc).decode())
     LAUNCHES += 1
+    LAUNCHES_BY_FORM[form] += 1
     return h, h_last
 
 

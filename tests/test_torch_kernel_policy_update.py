@@ -20,8 +20,17 @@ exactly equal.
     float32 bounds; the tick's is their float32 difference, the same value
     rounded once);
   * the counts are updated in place;
-  * on a CUDA card (test marked ``gpu``, skipped elsewhere) the CUDA kernel
-    against the plain version, every output ``torch.equal``.
+  * past one 256-bin tile of the kernel (257 and 1,000 bins) and on rows
+    whose counts pass ``policy_math.MAX_SCALED_COUNT``, where ``cum *
+    PCT_SCALE`` wraps around and is no longer monotone, the plain version
+    still equals the Pallas kernel and ``policy_update_ref``;
+  * the kernel's form (``_policy_form``: ``vec4`` where every row starts
+    16-byte aligned) at its edges;
+  * on a CUDA card (tests marked ``gpu``, skipped elsewhere) the CUDA kernel
+    against the plain version, every output ``torch.equal``: at 16 to 1,000
+    bins, with ``n`` not a multiple of the 32 rows a warp owns, on random
+    states whose totals and sums disagree with the counts, and on rows past
+    ``MAX_SCALED_COUNT``.
 """
 from types import SimpleNamespace
 
@@ -66,17 +75,51 @@ def _state(seed, napps, nbins):
             rng.integers(0, 2, napps).astype(np.int32))
 
 
+def _inconsistent(arrays, seed):
+    """The state with totals, OOB counts and Welford sums drawn apart from
+    the counts (the kernel must not assume they agree)."""
+    rng = np.random.default_rng(seed)
+    counts, oob, total, cvs, cvss, bins, active = arrays
+    n = counts.shape[0]
+    return (counts, rng.integers(0, 50, n).astype(np.int32),
+            rng.integers(0, 3 * int(counts.sum(1).max()) + 2, n)
+            .astype(np.int32),
+            rng.uniform(0, 100, n).astype(np.float32),
+            rng.uniform(0, 1e4, n).astype(np.float32), bins, active)
+
+
+def _past_max_scaled_count(arrays):
+    """The state with its first three rows past the int32 edge of the
+    scaled compares, totals and sums consistent, each row active on a bin
+    in range: row 0 holds 300,000 samples in its last bin (``cum *
+    PCT_SCALE`` wraps to a negative value there, so neither percentile is
+    found); row 1 holds MAX_SCALED_COUNT samples and gets one more this
+    tick; row 2 holds 2 x MAX_SCALED_COUNT spread over every bin, so the
+    scaled cumulative counts wrap part way along the row."""
+    counts, oob, total, cvs, cvss, bins, active = (a.copy() for a in arrays)
+    nbins = counts.shape[1]
+    edge = policy_math.MAX_SCALED_COUNT
+    counts[:3] = 0
+    counts[0, -1] = 300_000
+    counts[1, 0], counts[1, -1] = edge // 2, edge - edge // 2
+    counts[2] = 2 * edge // nbins
+    counts[2, -1] += 2 * edge - int(counts[2].sum())
+    total[:3] = counts[:3].sum(1)
+    cvs[:3] = total[:3]
+    cvss[:3] = (counts[:3].astype(np.int64) ** 2).sum(1)
+    bins[:3], active[:3] = (nbins - 1, 0, nbins // 2), 1
+    return counts, oob, total, cvs, cvss, bins, active
+
+
 def _port(arrays, **kw):
     return [o.numpy() for o in ops.policy_update(
         *(torch.from_numpy(a.copy()) for a in arrays), **kw)]
 
 
-@pytest.mark.parametrize("napps,nbins,tile", [(64, 48, 32), (128, 240, 64),
-                                              (32, 16, 32)])
-@pytest.mark.parametrize("cv_threshold", [2.0, 0.5])
-def test_plain_tick_equals_reference(ref, napps, nbins, tile, cv_threshold):
-    arrays = _state(napps + nbins, napps, nbins)
-    kw = dict(range_minutes=float(nbins), cv_threshold=cv_threshold)
+def _assert_equals_reference(ref, arrays, tile, **kw):
+    """The port's tick (the plain version on the CPU) against the Pallas
+    kernel in interpret mode and ``policy_update_ref``: every output
+    exactly equal. Returns the port's outputs."""
     got = _port(arrays, **kw)
     j = [ref.jnp.asarray(a) for a in arrays]
     pallas = ref.ops.policy_update(*j, tile_apps=tile, **kw)
@@ -86,7 +129,42 @@ def test_plain_tick_equals_reference(ref, napps, nbins, tile, cv_threshold):
         assert g.dtype == p.dtype == o.dtype, name
         np.testing.assert_array_equal(g, p, err_msg=f"{name} vs Pallas")
         np.testing.assert_array_equal(g, o, err_msg=f"{name} vs ref")
+    return got
+
+
+@pytest.mark.parametrize("napps,nbins,tile", [(64, 48, 32), (128, 240, 64),
+                                              (32, 16, 32), (40, 257, 16),
+                                              (24, 1000, 8)])
+@pytest.mark.parametrize("cv_threshold", [2.0, 0.5])
+def test_plain_tick_equals_reference(ref, napps, nbins, tile, cv_threshold):
+    arrays = _state(napps + nbins, napps, nbins)
+    kw = dict(range_minutes=float(nbins), cv_threshold=cv_threshold)
+    got = _assert_equals_reference(ref, arrays, tile, **kw)
     assert got[7].any() == (cv_threshold == 0.5)   # both gate branches seen
+
+
+@pytest.mark.parametrize("nbins", [16, 240, 257])
+def test_plain_tick_equals_reference_past_max_scaled_count(ref, nbins):
+    arrays = _past_max_scaled_count(_state(nbins, 24, nbins))
+    got = _assert_equals_reference(ref, arrays, 8,
+                                   range_minutes=float(nbins))
+    assert got[2][1] == policy_math.MAX_SCALED_COUNT + 1
+    # row 0's one bin wraps negative: the head percentile is not found
+    # (bin n_bins, prewarm n_bins x 0.9), where the unwrapped compare would
+    # find it at the last bin (prewarm (n_bins - 1) x 0.9)
+    assert got[7][0] == 1 and got[5][0] > 0.89 * nbins
+    cum = np.cumsum(got[0][:3].astype(np.int64), axis=1)
+    wrapped = (cum * 10000 + 2 ** 31) % 2 ** 32 - 2 ** 31
+    assert (np.diff(wrapped, axis=1) < 0).any(axis=1).all()  # not monotone
+
+
+def test_policy_form_at_its_edges():
+    assert H._policy_form(240, 0) == "vec4"
+    assert H._policy_form(4, 256) == "vec4"
+    assert H._policy_form(1000, 16) == "vec4"
+    for n_bins, ptr in ((241, 0), (242, 0), (1, 0), (240, 4), (240, 8),
+                        (257, 16)):
+        assert H._policy_form(n_bins, ptr) == "scalar", (n_bins, ptr)
 
 
 def test_tick_updates_counts_in_place():
@@ -142,21 +220,39 @@ def test_check_args_rejects_what_the_kernel_does_not_take():
             H._check_policy_args(args)
 
 
+def _cuda_matches_plain(arrays, **kw):
+    dev = torch.device("cuda")
+    mk = lambda: [torch.from_numpy(a.copy()).to(dev) for a in arrays]
+    before = H.POLICY_UPDATE_LAUNCHES
+    got = H.policy_update(*mk(), **kw)
+    want = H.policy_update_plain(*mk(), **kw)
+    torch.cuda.synchronize()
+    assert H.POLICY_UPDATE_LAUNCHES == before + 1
+    for name, g, w in zip(NAMES, got, want):
+        assert torch.equal(g, w), (name, arrays[0].shape, kw)
+
+
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain_version():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
-    dev = torch.device("cuda")
-    for seed, (napps, nbins) in enumerate(((64, 48), (1000, 240), (37, 16),
-                                           (5000, 33))):
-        for cv in (2.0, 0.5):
-            arrays = _state(seed, napps, nbins)
-            kw = dict(range_minutes=float(nbins), cv_threshold=cv)
-            mk = lambda: [torch.from_numpy(a.copy()).to(dev) for a in arrays]
-            before = H.POLICY_UPDATE_LAUNCHES
-            got = H.policy_update(*mk(), **kw)
-            want = H.policy_update_plain(*mk(), **kw)
-            torch.cuda.synchronize()
-            assert H.POLICY_UPDATE_LAUNCHES == before + 1
-            for name, g, w in zip(NAMES, got, want):
-                assert torch.equal(g, w), (name, napps, nbins, cv)
+    seed = 0
+    for nbins in (16, 33, 48, 240, 257, 1000):
+        for napps in (37, 64, 1000, 5000):
+            for consistent in (True, False):
+                seed += 1
+                arrays = _state(seed, napps, nbins)
+                if not consistent:
+                    arrays = _inconsistent(arrays, seed)
+                for cv in (2.0, 0.5):
+                    _cuda_matches_plain(arrays, range_minutes=float(nbins),
+                                        cv_threshold=cv)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_matches_plain_past_max_scaled_count():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    for nbins in (16, 240, 257, 1000):
+        arrays = _past_max_scaled_count(_state(nbins, 45, nbins))
+        _cuda_matches_plain(arrays, range_minutes=float(nbins))

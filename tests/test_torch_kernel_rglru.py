@@ -13,10 +13,16 @@ kernel it replaces and the reference's plain scan.
     ROADMAP);
   * the plain version against the sequential recurrence in float64 numpy
     (an oracle that shares no code with either), with an initial state;
-  * the wrapper's argument checks raise before any launch;
-  * on a CUDA card (test marked ``gpu``, skipped elsewhere) the CUDA kernel
-    against the plain version, at small shapes and at lengths that are not
-    a multiple of its 64-step chunk.
+  * the wrapper's argument checks raise before any launch, and its form
+    (``_form``: ``vec4`` where D is a multiple of 4 and every tensor
+    16-byte aligned, else ``scalar``) at its edges;
+  * on a CUDA card (tests marked ``gpu``, skipped elsewhere) the CUDA
+    kernel against the plain version within the same tolerance, at L from
+    1 to 4,096 (ragged against its 128-step chunk), D 130, 200 and 2,560
+    (both forms), B 1 and 3, with the model's decays and with decays near
+    1; ``h_last`` equal to ``h[:, -1]``; and the bound fails a carry one
+    chunk short (on the CPU at small shapes too: the plain version
+    restarted from the state two chunks back).
 """
 from types import SimpleNamespace
 
@@ -43,12 +49,16 @@ def ref():
         yield SimpleNamespace(ops=jops, ref=jref, jnp=jax.numpy)
 
 
-def _inputs(seed, B, L, D, scale=0.98):
-    """Decays in (0, scale) as the model's sigmoid gates give, and a
-    standard normal gated input."""
+def _inputs(seed, B, L, D, scale=0.98, slow=False):
+    """Decays in (0, scale) as the model's sigmoid gates give (``slow``: in
+    (0.99, 0.999), a memory of hundreds of steps), and a standard normal
+    gated input."""
     rng = np.random.default_rng(seed)
-    a = (scale / (1.0 + np.exp(-rng.normal(size=(B, L, D))))).astype(
-        np.float32)
+    if slow:
+        a = rng.uniform(0.99, 0.999, (B, L, D)).astype(np.float32)
+    else:
+        a = (scale / (1.0 + np.exp(-rng.normal(size=(B, L, D))))).astype(
+            np.float32)
     return rng.normal(size=(B, L, D)).astype(np.float32), a
 
 
@@ -106,19 +116,66 @@ def test_check_cuda_args_rejects_what_the_kernel_does_not_take():
             R._check_cuda_args(*args)
 
 
+def test_form_at_its_edges():
+    assert R._form(2560, 0, 16, 4096) == "vec4"
+    assert R._form(4, 256) == "vec4"
+    assert R._form(2560) == "vec4"
+    for D, ptrs in ((130, (0,)), (1, (0,)), (2559, (0,)), (2560, (0, 4)),
+                    (2560, (8, 0)), (200, (16, 20))):
+        assert R._form(D, *ptrs) == "scalar", (D, ptrs)
+
+
+def restarted(b_in, a, want_h, chunks_back):
+    """The plain version restarted at the last chunk of R.CHUNK steps from
+    the state ``chunks_back`` chunks before it (1: the right carry; 2: a
+    carry one chunk short, what a kernel that left the chunk before out of
+    its carry would give). None where L has one chunk."""
+    L, Q = a.shape[1], R.CHUNK
+    k = (L - 1) // Q
+    if k == 0:
+        return None
+    at = k * Q - (chunks_back - 1) * Q - 1
+    start = want_h[:, at] if at >= 0 else torch.zeros_like(want_h[:, 0])
+    tail, _ = R.rglru_scan_plain(b_in[:, k * Q:], a[:, k * Q:], start)
+    return torch.cat([want_h[:, :k * Q], tail], dim=1)
+
+
+@pytest.mark.parametrize("B,L,D", [(1, 384, 130), (3, 1000, 200),
+                                   (2, 129, 8)])
+@pytest.mark.parametrize("slow", [False, True])
+def test_bound_fails_a_carry_one_chunk_short(B, L, D, slow):
+    b_in, a = (torch.from_numpy(x) for x in _inputs(L, B, L, D, slow=slow))
+    want_h, _ = R.rglru_scan_plain(b_in, a)
+    right = restarted(b_in, a, want_h, 1)
+    torch.testing.assert_close(right, want_h, atol=ATOL, rtol=RTOL)
+    short = restarted(b_in, a, want_h, 2)
+    assert not torch.allclose(short, want_h, atol=ATOL, rtol=RTOL)
+
+
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain_version():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
     dev = torch.device("cuda")
-    for B, L, D in ((2, 256, 128), (2, 384, 64), (1, 1, 8), (3, 1000, 200),
-                    (2, 4096, 2560)):
-        b_in, a = (torch.from_numpy(x).to(dev) for x in _inputs(L, B, L, D))
-        before = R.LAUNCHES
-        h, h_last = R.rglru_scan(b_in, a)
-        want_h, want_last = R.rglru_scan_plain(b_in, a)
-        torch.cuda.synchronize()
-        assert R.LAUNCHES == before + 1
-        torch.testing.assert_close(h, want_h, atol=ATOL, rtol=RTOL)
-        torch.testing.assert_close(h_last, want_last, atol=ATOL, rtol=RTOL)
-        assert torch.equal(h_last, h[:, -1])
+    shapes = [(2, 256, 128), (2, 384, 64), (1, 1, 8), (3, 1000, 200),
+              (2, 4096, 2560)]
+    shapes += [(B, L, D) for B in (1, 3)
+               for L in (1, 2, 63, 64, 65, 384, 1000, 4096)
+               for D in (130, 200, 2560)]
+    for B, L, D in shapes:
+        for slow in (False, True):
+            b_in, a = (torch.from_numpy(x).to(dev) for x in
+                       _inputs(L + D, B, L, D, slow=slow))
+            before = R.LAUNCHES
+            h, h_last = R.rglru_scan(b_in, a)
+            want_h, want_last = R.rglru_scan_plain(b_in, a)
+            torch.cuda.synchronize()
+            assert R.LAUNCHES == before + 1
+            torch.testing.assert_close(h, want_h, atol=ATOL, rtol=RTOL)
+            torch.testing.assert_close(h_last, want_last, atol=ATOL,
+                                       rtol=RTOL)
+            assert torch.equal(h_last, h[:, -1])
+            if L > R.CHUNK:                # the bound sees a carry fault
+                short = restarted(b_in, a, want_h, 2)
+                assert not torch.allclose(short, want_h, atol=ATOL,
+                                          rtol=RTOL)
