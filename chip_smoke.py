@@ -29,6 +29,16 @@ port's main paths:
     prefill) and the decode kernel 420 times (15 decode steps of 28
     layers), and the logits of four decode steps are held to the plain
     branches too;
+  * the paper's default hybrid, ARIMA on, over ``azure_like(100_000,
+    days=7, seed=0)`` (phase ``arima_point``): the histogram pass, then
+    the forecast post-pass of the OOB-heavy apps (one step-kernel launch
+    per event column in the rescan, one batched fit of every forecaster
+    window), held to the use_arima=False run on the other apps, to the
+    scalar oracle with its forecasters on the card on sampled apps, the
+    fit bit-identical whole, in chunks of 7 and row by row, and within
+    the fit's bounds of the CPU fit; and the SPES predictor over the
+    scale trace (phase ``spes_point``), equal to ``SpesPolicy`` on 1,000
+    sampled apps;
   * the fleet's policy-update tick over the scale trace (phase
     ``policy_update_parity``): one tick per event column through the CUDA
     kernel, every output equal to the plain version's at every tick and,
@@ -70,6 +80,24 @@ F32_CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 SCALAR_OPS_PER_S = 33.5e12
 SCALE_APPS = 1_000_000
 SWEEP_APPS = 100_000
+# The paper's default hybrid (240 one-minute bins, ARIMA on) over its §3
+# fleet mix at the scenario library's default size: azure_like(100_000,
+# days=7, seed=0). Gate 2 replays sampled OOB-heavy apps through the scalar
+# oracle with at most ARIMA_SCALAR_FITS forecaster fits; gates 3 and 4
+# refit ARIMA_FIT_SAMPLE of the forecaster windows (whole, in chunks of
+# ARIMA_FIT_CHUNK, and ARIMA_ROW_BY_ROW of them one at a time; on the CPU).
+ARIMA_APPS, ARIMA_DAYS = 100_000, 7.0
+ARIMA_SCALAR_FITS = 40
+ARIMA_FIT_SAMPLE, ARIMA_FIT_CHUNK, ARIMA_ROW_BY_ROW = 4096, 7, 8
+# The fit's bounds against the reference, as tests/test_torch_forecast_
+# conformance.py states them: at most 1% of the (window, order) pairs
+# beyond |dAIC| 3e-4 or relative |dpred| 1e-3; the selected order equal
+# where the two best valid AICs are >= 0.01 apart, at most 4% of the
+# selected forecasts beyond 1e-4. Gate 4 holds the card's fit to the
+# port's CPU fit with them.
+FIT_BOUNDS = dict(share=0.01, aic=3e-4, pred=1e-3, selected_share=0.04,
+                  selected_pred=1e-4, selection_delta=0.01)
+SPES_SAMPLE = 1000
 
 # The serving path: RecurrentGemma-2B's attention (B=2 prompts of 4,096
 # tokens, 10 q heads, 1 KV head, head dim 256, window 2,048) and RG-LRU
@@ -1067,6 +1095,32 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
+def device_ms(run, counts=None):
+    """Device ms by kernel class of ``run()`` (torch.profiler), or None
+    where the profiler records no device events; with a dict ``counts``,
+    the kernel launches by class go there too."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    by_class = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        k = _kernel_class(e.key)
+        by_class[k] = by_class.get(k, 0.0) + us / 1e3
+        if counts is not None:
+            counts[k] = counts.get(k, 0) + e.count
+    return by_class or None
+
+
 def serve_profile(model, params, tokens, max_len, *, prefill_s,
                   decode_step_s):
     """Device time by kernel class (torch.profiler) of one prefill and of
@@ -1075,24 +1129,6 @@ def serve_profile(model, params, tokens, max_len, *, prefill_s,
     the host, so its own wall clock is not used). Device times are null
     where the profiler records no device events."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def device_ms(run):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
-        by_class = {}
-        for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA:
-                continue
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = e.self_cuda_time_total
-            k = _kernel_class(e.key)
-            by_class[k] = by_class.get(k, 0.0) + us / 1e3
-        return by_class or None
 
     steps = 4
     with torch.inference_mode():
@@ -1241,6 +1277,306 @@ def policy_sweep(device):
         assert_rows_equal(res.row(s), one, f"sweep row {s} vs run()")
     emit("sweep", n_apps=SWEEP_APPS, configs=len(specs), seconds=seconds,
          rows_equal_to_fused=len(specs), rows_equal_to_single_run=len(singles))
+
+
+# ---------------------------------------------------------------------------
+# The paper's default policy (ARIMA on) and the SPES predictor
+# ---------------------------------------------------------------------------
+
+
+def reset_counts(*mods) -> None:
+    """Every launch count of the kernel modules to 0."""
+    for mod in mods:
+        for k, v in vars(mod).items():
+            if "LAUNCHES" in k and isinstance(v, int):
+                setattr(mod, k, 0)
+            elif "LAUNCHES" in k and isinstance(v, dict):
+                for key in v:
+                    v[key] = 0
+
+
+def oob_heavy_apps(times, counts, hybrid):
+    """The apps the engines hand to the forecast post-pass — those whose
+    out-of-bounds share ends over the threshold — computed on the host
+    from the trace alone, as a check of the engine's own flags."""
+    from repro_torch.core import policy_math
+    h = hybrid.histogram
+    col = np.arange(times.shape[1] - 1)[None, :]
+    gap = col < (counts[:, None] - 1)
+    with np.errstate(invalid="ignore"):
+        it = np.where(gap, times[:, 1:].astype(np.float64)
+                      - times[:, :-1].astype(np.float64), 0.0)
+    _, in_b, oob = policy_math.classify_idle_time(it, gap, h.bin_minutes,
+                                                  h.n_bins)
+    return policy_math.oob_heavy(in_b.sum(1).astype(np.int32),
+                                 oob.sum(1).astype(np.int32),
+                                 hybrid.oob_fraction_threshold)
+
+
+def fit_bounds(want, got):
+    """``got``'s fit against ``want``'s under FIT_BOUNDS: the counts and
+    shares, and whether every bound holds."""
+    b = FIT_BOUNDS
+    both = want.valid & got.valid
+    with np.errstate(invalid="ignore"):
+        d_aic = np.abs(want.aic - got.aic)[both]
+    rel = lambda x, y: np.abs(x - y) / np.maximum(np.abs(x), 1e-6)
+    d_pred = rel(want.pred, got.pred)[both]
+    has = want.valid.any(1)
+    aic_w = np.where(want.valid, want.aic, np.inf)[has]
+    sel_w = aic_w.argmin(1)
+    sel_g = np.where(got.valid, got.aic, np.inf)[has].argmin(1)
+    two = np.sort(aic_w, 1)[:, :2]
+    rows = np.arange(len(sel_w))
+    d_sel = rel(want.pred[has][rows, sel_w], got.pred[has][rows, sel_w])
+    out = dict(
+        pairs=int(both.sum()),
+        valid_equal=bool(np.array_equal(want.valid, got.valid)),
+        aic_equal=int((d_aic == 0).sum()), pred_equal=int(
+            (want.pred[both] == got.pred[both]).sum()),
+        aic_beyond=int((d_aic > b["aic"]).sum()),
+        pred_beyond=int((d_pred > b["pred"]).sum()),
+        selected_beyond=int((d_sel > b["selected_pred"]).sum()),
+        orders_changed=int(((sel_w != sel_g)
+                            & (two[:, 1] - two[:, 0]
+                               >= b["selection_delta"])).sum()),
+        max_abs_aic=float(d_aic.max()) if d_aic.size else 0.0,
+        max_rel_pred=float(d_pred.max()) if d_pred.size else 0.0)
+    n = max(out["pairs"], 1)
+    out["ok"] = (out["valid_equal"]
+                 and out["aic_beyond"] <= b["share"] * n
+                 and out["pred_beyond"] <= b["share"] * n
+                 and out["orders_changed"] == 0
+                 and out["selected_beyond"]
+                 <= b["selected_share"] * max(len(sel_w), 1))
+    return out
+
+
+def fits_equal(a, b) -> bool:
+    return all(np.array_equal(getattr(a, f), getattr(b, f), equal_nan=True)
+               for f in ("aic", "pred", "valid"))
+
+
+def arima_point(device):
+    """run(azure_like(100k, 7 days), HybridSpec()) on the card, engine
+    "kernel": the histogram pass (one scan launch a chunk), then the
+    forecast post-pass of the OOB-heavy apps (the step kernel once per
+    event column in the rescan, one batched fit of every forecaster
+    window). Gates: (1) apps not flagged equal the use_arima=False run;
+    (2) simulate_scalar with the forecasters on the card equals the
+    replay on sampled flagged apps; (3) the card's fit of sampled windows
+    is bit-identical whole, in chunks of 7 and row by row; (4) it is
+    within the fit's bounds of the port's CPU fit. Then the post-pass
+    again stage by stage, for its times. Returns the step launches of the
+    main run."""
+    import torch
+    from repro_torch.core.experiment import EngineOptions, HybridSpec, run
+    from repro_torch.core.simulator import (DEFAULT_APP_CHUNK,
+                                            _chunked_buckets,
+                                            simulate_scalar)
+    from repro_torch.core.workload_spec import azure_like
+    from repro_torch.forecast import arima_batched as A
+    from repro_torch.forecast import replay as R
+    from repro_torch.kernels import histogram as H
+
+    t0 = time.perf_counter()
+    trace = azure_like(ARIMA_APPS, days=ARIMA_DAYS, seed=0).materialize()
+    gen_s = time.perf_counter() - t0
+    times, counts = trace.to_padded()
+    spec = HybridSpec()
+    hyb = spec.to_config()
+    opts = EngineOptions(device=device)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    base = run(trace, HybridSpec(use_arima=False), engine="kernel",
+               options=opts)
+    torch.cuda.synchronize()
+    hist_s = time.perf_counter() - t0
+
+    reset_counts(H)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = run(trace, spec, engine="kernel", options=opts)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    step_launches, scan_launches = H.LAUNCHES, H.SCAN_LAUNCHES
+
+    flagged = oob_heavy_apps(times, counts, hyb)
+    aidx = np.nonzero(flagged)[0]
+    sub_t, sub_c = times[aidx], counts[aidx].astype(np.int64)
+    columns = sum(sub.shape[1] for _, sub in
+                  _chunked_buckets(sub_t, sub_c, DEFAULT_APP_CHUNK))
+    if step_launches != columns or step_launches == 0:
+        raise AssertionError(f"the rescan made {step_launches} step "
+                             f"launches; expected one per column of the "
+                             f"flagged apps' chunks, {columns}")
+    # gate 1: the post-pass touches the flagged apps only
+    rest = ~flagged
+    for field in ("cold", "invocations", "final_prewarm",
+                  "final_keep_alive", "wasted_minutes"):
+        if not np.array_equal(getattr(got, field)[rest],
+                              getattr(base, field)[rest]):
+            raise AssertionError(f"arima_point: an app not flagged differs "
+                                 f"from the use_arima=False run in {field}")
+
+    # the post-pass again, stage by stage (uncounted), for its times; the
+    # stages must give the main run's rows
+    dev = torch.device(device)
+    with uncounted(H):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        la, ua, branch = R._scan_window_sequences(sub_t, sub_c, hyb, None,
+                                                  dev, True)
+        rescan_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rows, events, stacked, lens = R._call_windows(sub_t, sub_c, hyb,
+                                                      branch)
+        stack_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fit = A.fit_arima_grid(stacked, lens, device=dev)
+        fit_s = time.perf_counter() - t0
+        chunks = A.fit_chunks(lens, None, "cuda")
+        t0 = time.perf_counter()
+        last_keep = R._replay_cadence(rows, events, fit, sub_c, hyb, la, ua)
+        cadence_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = R._verdict(sub_t, sub_c, float(trace.duration_minutes), hyb,
+                         la, ua, last_keep, True)
+        verdict_s = time.perf_counter() - t0
+    for field, v in out.items():
+        if not np.array_equal(v, getattr(got, field)[aidx]):
+            raise AssertionError(f"arima_point: the stages' {field} differs "
+                                 f"from the main run's")
+    forecast_apps = int((~np.isnan(last_keep)).sum())
+
+    # gate 2: the scalar oracle with its forecasters on the card, on
+    # sampled flagged apps whose replay needs a few dozen fits in all
+    rng = np.random.default_rng(7)
+    n_fits = np.zeros(len(aidx), np.int64)
+    for r, ks in zip(rows, events):
+        n_fits[r] = len(ks)
+    sample, fits_needed = [], 0
+    for i in rng.permutation(len(aidx)):
+        if 1 <= n_fits[i] <= 3 and fits_needed + n_fits[i] \
+                <= ARIMA_SCALAR_FITS:
+            sample.append(i)
+            fits_needed += int(n_fits[i])
+    sample += [int(i) for i in rng.permutation(np.nonzero(n_fits == 0)[0])
+               [:10]]
+    apps = np.sort(aidx[sample])
+    t0 = time.perf_counter()
+    oracle = simulate_scalar(trace, spec.build(device=dev),
+                             app_indices=apps)
+    scalar_s = time.perf_counter() - t0
+    for field in ("cold", "invocations", "final_prewarm",
+                  "final_keep_alive", "wasted_minutes"):
+        if not np.array_equal(getattr(got, field)[apps],
+                              getattr(oracle, field)[apps]):
+            raise AssertionError(f"arima_point: scalar oracle on the card "
+                                 f"!= replay in {field}")
+
+    # gates 3 and 4: the card's fit of sampled windows, however chunked,
+    # and against the port's CPU fit
+    pick = np.sort(rng.choice(len(lens), min(ARIMA_FIT_SAMPLE, len(lens)),
+                              replace=False))
+    s_rows, s_lens = stacked[pick], lens[pick]
+    t0 = time.perf_counter()
+    whole = A.fit_arima_grid(s_rows, s_lens, device=dev)
+    whole_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    small = A.fit_arima_grid(s_rows, s_lens, device=dev,
+                             chunk_rows=ARIMA_FIT_CHUNK)
+    small_s = time.perf_counter() - t0
+    if not fits_equal(whole, small):
+        raise AssertionError("arima_point: the card's fit in chunks of "
+                             f"{ARIMA_FIT_CHUNK} != whole")
+    # the fit's device time and launches (torch.profiler), and the card's
+    # idle share against the unprofiled wall seconds of the same fit
+    fit_launches = {}
+    fit_dev = device_ms(lambda: A.fit_arima_grid(s_rows, s_lens, device=dev),
+                        fit_launches)
+    fit_dev_ms = sum(fit_dev.values()) if fit_dev else None
+    for i in rng.choice(len(pick), ARIMA_ROW_BY_ROW, replace=False):
+        one = A.fit_arima_grid(s_rows[i:i + 1], s_lens[i:i + 1], device=dev)
+        if not all(np.array_equal(getattr(one, f)[0], getattr(whole, f)[i],
+                                  equal_nan=True)
+                   for f in ("aic", "pred", "valid")):
+            raise AssertionError(f"arima_point: window {i} fitted alone != "
+                                 f"in the batch")
+    t0 = time.perf_counter()
+    cpu = A.fit_arima_grid(s_rows, s_lens, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    vs_cpu = fit_bounds(cpu, whole)
+    if not vs_cpu["ok"]:
+        raise AssertionError(f"arima_point: the card's fit is not within "
+                             f"the bounds of the CPU fit: {vs_cpu}")
+
+    spans = np.asarray([A._pow2(x) for x in lens])
+    emit("arima_point", n_apps=ARIMA_APPS, days=ARIMA_DAYS, seed=0,
+         n_bins=hyb.histogram.n_bins, invocations=int(counts.sum()),
+         trace_gen_seconds=gen_s, oob_heavy_apps=int(len(aidx)),
+         forecast_apps=int(len(rows)), final_forecast_apps=forecast_apps,
+         forecaster_windows=int(len(lens)),
+         windows_by_span={int(k): int((spans == k).sum())
+                          for k in np.unique(spans)},
+         rescan_step_launches=step_launches, scan_launches=scan_launches,
+         seconds=total_s, seconds_without_arima=hist_s,
+         post_pass_seconds=total_s - hist_s,
+         stage_seconds=dict(rescan=rescan_s, window_stacking=stack_s,
+                            fit=fit_s, cadence=cadence_s, verdict=verdict_s),
+         fit_chunks=len(chunks),
+         windows_per_chunk=[int(len(c)) for c in chunks],
+         fit_windows_per_s=len(lens) / fit_s,
+         cold_p75_pct=got.cold_pct_percentile(75),
+         cold_p75_pct_without_arima=base.cold_pct_percentile(75),
+         wasted_minutes=got.total_wasted,
+         wasted_minutes_without_arima=base.total_wasted,
+         gate1_apps_not_flagged_equal=int(rest.sum()),
+         gate2_scalar_apps=int(len(apps)), gate2_scalar_fits=fits_needed,
+         gate2_scalar_seconds=scalar_s,
+         gate3_windows=int(len(pick)), gate3_whole_seconds=whole_s,
+         gate3_fit_device_ms=fit_dev_ms,
+         gate3_fit_kernel_launches=sum(fit_launches.values()),
+         gate3_fit_idle_share=(None if fit_dev_ms is None
+                               else 1.0 - fit_dev_ms / 1e3 / whole_s),
+         gate3_chunked_seconds=small_s, gate3_row_by_row=ARIMA_ROW_BY_ROW,
+         gate4_cpu_seconds=cpu_s, gate4_card_vs_cpu=vs_cpu)
+    return step_launches
+
+
+def spes_point(trace, device):
+    """run(scale trace, SpesSpec()) on the card: 1M apps x 14 days in one
+    float64 pass of plain PyTorch steps; equal bit for bit, waste
+    included, to simulate_scalar(SpesPolicy) on 1,000 sampled apps."""
+    import torch
+    from repro_torch.core.experiment import EngineOptions, SpesSpec, run
+    from repro_torch.core.policy import SpesPolicy
+    from repro_torch.core.simulator import simulate_scalar
+
+    spec = SpesSpec()
+    opts = EngineOptions(app_chunk=SCALE_APPS, device=device)
+    run(trace, spec, engine="kernel", options=opts)           # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = run(trace, spec, engine="kernel", options=opts)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    sample = np.sort(np.random.default_rng(9).choice(
+        trace.n_apps, SPES_SAMPLE, replace=False))
+    oracle = simulate_scalar(trace, SpesPolicy(spec.to_config()),
+                             app_indices=sample)
+    for field in ("cold", "invocations", "final_prewarm",
+                  "final_keep_alive", "wasted_minutes"):
+        if not np.array_equal(getattr(got, field)[sample],
+                              getattr(oracle, field)[sample]):
+            raise AssertionError(f"spes_point: {field} != SpesPolicy")
+    emit("spes_point", n_apps=trace.n_apps, days=14.0, seconds=seconds,
+         app_steps=app_steps(trace.to_padded()[1]),
+         cold_p75_pct=got.cold_pct_percentile(75),
+         wasted_minutes=got.total_wasted,
+         equal_to_scalar_on_sample=SPES_SAMPLE)
+    return seconds
 
 
 # ---------------------------------------------------------------------------
@@ -1951,6 +2287,10 @@ def main() -> int:
         trace, device)
     policy_s = time.perf_counter() - t_policy
     policy_sweep(device)
+    spes_s = spes_point(trace, device)
+    t_arima = time.perf_counter()
+    arima_step_launches = arima_point(device)
+    arima_s = time.perf_counter() - t_arima
     t_serve = time.perf_counter()
     serve_launches, serve_forms, n_requests = serve(
         device, "serve", "recurrentgemma-2b", "rg2b",
@@ -1995,7 +2335,9 @@ def main() -> int:
         "max_abs_err": max_err, "ms": scan["kernel_ms"],
         "plain_ms": scan["plain_ms"], "bound_ms": scan["bound_ms"],
         "bound_by": scan["bound_by"], "library_ms": None,
-        "step": {"name": "fused_hybrid_sweep_step", "launches": 0,
+        # the step runs on the ARIMA post-pass's rescan, once per column
+        "step": {"name": "fused_hybrid_sweep_step",
+                 "launches": arima_step_launches,
                  "ms": step["kernel_ms"], "plain_ms": step["plain_ms"],
                  "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
                  "launches_per_replay": step["launches"]}}, {
@@ -2054,7 +2396,8 @@ def main() -> int:
          scale_point_seconds=e2e["seconds"], serve_seconds=serve_s,
          serve_requests=n_requests, serve_mamba2_seconds=serve_mamba_s,
          serve_mamba2_requests=n_mamba, serve_qwen2_seconds=serve_qwen2_s,
-         serve_qwen2_requests=n_qwen2, policy_update_seconds=policy_s)
+         serve_qwen2_requests=n_qwen2, policy_update_seconds=policy_s,
+         arima_point_phase_seconds=arima_s, spes_point_seconds=spes_s)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

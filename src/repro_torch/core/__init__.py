@@ -5,7 +5,9 @@ The package re-exports the names of the reference's ``repro.core`` that
 the port has, so ``from repro_torch.core import run, HybridSpec,
 WorkloadSpec`` works as it does there. Not here yet: ``HistogramState``
 and ``init_state``, the vectorised histogram helpers of ROADMAP Queue A
-item 7.
+item 5. The SPES family (``SpesSpec``, ``SpesConfig``, ``SpesPolicy``) is
+in ``experiment`` and ``policy``, as in the reference, which does not
+re-export it here either.
 """
 from . import policy_math
 from .histogram import AppHistogram, HistogramConfig

@@ -2,7 +2,7 @@
 vectorized ``sweep()`` that evaluates a whole policy grid in one pass.
 
     from repro_torch.core.experiment import FixedSpec, HybridSpec, sweep
-    grid = [FixedSpec(ka) for ka in (10, 20, 60)] + [HybridSpec(use_arima=False)]
+    grid = [FixedSpec(ka) for ka in (10, 20, 60)] + [HybridSpec(), SpesSpec()]
     result = sweep(trace, grid)                  # on the card by default
     for spec, row in zip(result.specs, result):
         print(spec.name, row.cold_pct_percentile(75), row.total_wasted)
@@ -17,11 +17,15 @@ Engines (``engine=`` on both ``run`` and ``sweep``):
     ``"pallas"``), in float64 time like ``"fused"``; on the CPU the
     kernel's plain version runs.
 
-The fixed/no-unload family has no histogram state and runs its float64
-loop under every engine. Rows are bit-identical on cold counts,
-invocations and final windows to single-config ``run()`` and to the
-scalar oracle. Everything runs on ``EngineOptions.device`` (``"cuda"`` by
-default); pass ``device="cpu"`` to run on the CPU.
+The fixed/no-unload and SPES families have no histogram state and run
+their float64 loops under every engine. A ``HybridSpec`` with
+``use_arima=True`` (the paper's default) replays its OOB-heavy apps
+through the forecasting post-pass (:mod:`repro_torch.forecast.replay`);
+the scalar engine fits its forecasters one window at a time. Rows are
+bit-identical on cold counts, invocations and final windows to
+single-config ``run()`` and to the scalar oracle. Everything runs on
+``EngineOptions.device`` (``"cuda"`` by default), the scalar engine's
+ARIMA fits included; pass ``device="cpu"`` to run on the CPU.
 """
 from __future__ import annotations
 
@@ -33,17 +37,18 @@ import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
 from .histogram import HistogramConfig
-from .policy import (ARIMA_NOT_PORTED, FixedKeepAlivePolicy, HybridConfig,
-                     HybridHistogramPolicy, NoUnloadingPolicy)
+from .policy import (FixedKeepAlivePolicy, HybridConfig,
+                     HybridHistogramPolicy, NoUnloadingPolicy, SpesConfig,
+                     SpesPolicy)
 from .simulator import (SimResult, _run_fixed_sweep, _run_hybrid_sweep,
-                        simulate_scalar)
+                        _run_spes_sweep, simulate_scalar)
 from .workload import Trace
 from .workload_spec import WorkloadSpec
 
 __all__ = [
     "ENGINES", "PolicySpec", "FixedSpec", "NoUnloadSpec", "HybridSpec",
-    "EngineOptions", "SweepResult", "SweepGrid", "as_spec", "as_trace",
-    "run", "sweep",
+    "SpesSpec", "EngineOptions", "SweepResult", "SweepGrid", "as_spec",
+    "as_trace", "run", "sweep",
 ]
 
 ENGINES = ("auto", "scalar", "fused", "kernel")
@@ -84,8 +89,7 @@ class NoUnloadSpec:
 @dataclasses.dataclass(frozen=True)
 class HybridSpec:
     """The paper's hybrid histogram policy, flattened to its knobs (same
-    fields and defaults as the reference, including ``use_arima=True``,
-    which this package does not run yet: pass ``use_arima=False``)."""
+    fields and defaults as the reference, including ``use_arima=True``)."""
     bin_minutes: float = 1.0          # paper: 1-minute bins
     range_minutes: float = 240.0      # paper: 4-hour default range
     head_percentile: float = 5.0      # paper: 5th percentile -> pre-warm
@@ -132,12 +136,51 @@ class HybridSpec:
                    arima_margin=cfg.arima_margin, use_arima=cfg.use_arima,
                    label=label)
 
-    def build(self) -> HybridHistogramPolicy:
-        return HybridHistogramPolicy(self.to_config())
+    def build(self, *, device: Union[None, str, torch.device] = None
+              ) -> HybridHistogramPolicy:
+        """The stateful policy; its ARIMA forecasters fit on ``device``
+        (the card unless told otherwise)."""
+        return HybridHistogramPolicy(self.to_config(), device=device)
 
 
-PolicySpec = Union[FixedSpec, NoUnloadSpec, HybridSpec]
-_SPEC_TYPES = (FixedSpec, NoUnloadSpec, HybridSpec)
+@dataclasses.dataclass(frozen=True)
+class SpesSpec:
+    """SPES-style next-idle predictor policy, flattened to its knobs: a
+    streaming EW point forecast of each app's next idle interval with a
+    band that widens with the residual variance, mapped to (prewarm,
+    keep-alive) windows (the same fields and defaults as the reference's
+    ``SpesSpec``)."""
+    alpha: float = 0.3               # EW smoothing weight per observation
+    band_margin: float = 0.10        # relative half-band around the forecast
+    band_sigma: float = 1.0          # residual-std multiplier for the band
+    min_samples: int = 4             # ITs before the forecast governs
+    standard_keep_alive: float = 240.0   # fallback until warmed up
+    label: Optional[str] = None
+
+    @property
+    def name(self) -> str:
+        return self.label or f"spes-{self.alpha:g}"
+
+    def to_config(self) -> SpesConfig:
+        return SpesConfig(
+            alpha=float(self.alpha), band_margin=float(self.band_margin),
+            band_sigma=float(self.band_sigma),
+            min_samples=int(self.min_samples),
+            standard_keep_alive=float(self.standard_keep_alive))
+
+    @classmethod
+    def from_config(cls, cfg: SpesConfig,
+                    label: Optional[str] = None) -> "SpesSpec":
+        return cls(alpha=cfg.alpha, band_margin=cfg.band_margin,
+                   band_sigma=cfg.band_sigma, min_samples=cfg.min_samples,
+                   standard_keep_alive=cfg.standard_keep_alive, label=label)
+
+    def build(self) -> SpesPolicy:
+        return SpesPolicy(self.to_config())
+
+
+PolicySpec = Union[FixedSpec, NoUnloadSpec, HybridSpec, SpesSpec]
+_SPEC_TYPES = (FixedSpec, NoUnloadSpec, HybridSpec, SpesSpec)
 
 
 def as_spec(obj) -> PolicySpec:
@@ -150,14 +193,18 @@ def as_spec(obj) -> PolicySpec:
         return HybridSpec.from_config(obj)
     if isinstance(obj, HybridHistogramPolicy):
         return HybridSpec.from_config(obj.cfg)
+    if isinstance(obj, SpesConfig):
+        return SpesSpec.from_config(obj)
+    if isinstance(obj, SpesPolicy):
+        return SpesSpec.from_config(obj.cfg)
     if isinstance(obj, FixedKeepAlivePolicy):
         return FixedSpec(obj.keep_alive)
     if isinstance(obj, NoUnloadingPolicy):
         return NoUnloadSpec()
     raise TypeError(
         f"cannot express {type(obj).__name__} as a PolicySpec; build a "
-        f"FixedSpec/NoUnloadSpec/HybridSpec, or use simulate_scalar for "
-        f"arbitrary Policy objects")
+        f"FixedSpec/NoUnloadSpec/HybridSpec/SpesSpec, or use simulate_scalar "
+        f"for arbitrary Policy objects")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -266,14 +313,16 @@ def _sweep_one(trace: Trace, specs: Sequence, eng: str,
 
     if eng == "scalar":
         for s, spec in enumerate(specs):
-            fill([s], simulate_scalar(trace, spec.build(),
-                                      opts.include_trailing))
+            policy = spec.build(device=device) \
+                if isinstance(spec, HybridSpec) else spec.build()
+            fill([s], simulate_scalar(trace, policy, opts.include_trailing))
         return SweepResult(specs, eng, cold, inv, waste, pre, keep)
 
     window_idx = [s for s, sp in enumerate(specs)
                   if isinstance(sp, (FixedSpec, NoUnloadSpec))]
     hybrid_idx = [s for s, sp in enumerate(specs)
                   if isinstance(sp, HybridSpec)]
+    spes_idx = [s for s, sp in enumerate(specs) if isinstance(sp, SpesSpec)]
     padded = trace.to_padded()     # once for every family and config
     if window_idx:
         fill(window_idx, _run_fixed_sweep(
@@ -284,6 +333,11 @@ def _sweep_one(trace: Trace, specs: Sequence, eng: str,
             trace, [specs[s].to_config() for s in hybrid_idx],
             opts.include_trailing, app_chunk=opts.app_chunk,
             use_kernel=(eng == "kernel"), padded=padded, device=device))
+    if spes_idx:
+        fill(spes_idx, _run_spes_sweep(
+            trace, [specs[s].to_config() for s in spes_idx],
+            opts.include_trailing, app_chunk=opts.app_chunk, padded=padded,
+            device=device))
     return SweepResult(specs, eng, cold, inv, waste, pre, keep)
 
 
@@ -294,9 +348,10 @@ def sweep(trace=None, specs: Sequence = None, *, traces=None,
     ``sweep(trace, specs)`` evaluates S configurations (families may mix)
     over one workload (``Trace`` or ``WorkloadSpec``) in one pass and
     returns a :class:`SweepResult`; ``sweep(traces=[...], specs=[...])``
-    returns a :class:`SweepGrid`. Raises ``NotImplementedError`` for a
-    ``HybridSpec`` with ``use_arima=True`` (not ported yet) and
-    ``RuntimeError`` when the device is CUDA and there is none."""
+    returns a :class:`SweepGrid`. Every engine runs on
+    ``options.device`` (the card by default; the scalar engine's ARIMA
+    fits too); raises ``RuntimeError`` when that is CUDA and there is
+    none."""
     if specs is None:
         raise TypeError("sweep() requires specs (a list of PolicySpec)")
     specs = [as_spec(s) for s in specs]
@@ -307,10 +362,8 @@ def sweep(trace=None, specs: Sequence = None, *, traces=None,
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; expected one of "
                          f"{ENGINES}")
-    if any(isinstance(s, HybridSpec) and s.use_arima for s in specs):
-        raise NotImplementedError(ARIMA_NOT_PORTED)
     opts = options or EngineOptions()
-    device = None if engine == "scalar" else resolve_device(opts.device)
+    device = resolve_device(opts.device)
     if engine == "auto":
         engine = "kernel" if device.type == "cuda" else "fused"
     if traces is None:

@@ -53,6 +53,11 @@ __all__ = [
     "use_histogram_gate",
     "use_histogram_gate_from_cv",
     "oob_heavy",
+    "arima_window",
+    "SpesStepConfig",
+    "spes_update",
+    "spes_window_from_counts",
+    "fused_spes_step_math",
     "HybridStepConfig",
     "fused_hybrid_step_math",
 ]
@@ -81,6 +86,31 @@ def _f32(x):
     if isinstance(x, torch.Tensor):
         return x.to(torch.float32)
     return np.float32(x)
+
+
+def _f64(x):
+    """float64 view of a value, host or tensor."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float64)
+    return np.float64(x)
+
+
+def _i32(x):
+    """int32 view of a config knob, host or tensor."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.int32)
+    return np.int32(x)
+
+
+def _where(cond, a, b):
+    """``np.where`` on host values, ``torch.where`` once a tensor is
+    involved (host operands become tensors on its device)."""
+    if not _is_t(cond, a, b):
+        return np.where(cond, a, b)
+    ref = next(x for x in (cond, a, b) if isinstance(x, torch.Tensor))
+    as_t = lambda x: x if isinstance(x, torch.Tensor) else torch.as_tensor(
+        x, device=ref.device)
+    return torch.where(as_t(cond), as_t(a), as_t(b))
 
 
 def _like(x, ref: torch.Tensor, dtype=None) -> torch.Tensor:
@@ -440,6 +470,126 @@ def use_histogram_gate_from_cv(total, oob, cv, min_samples, cv_threshold,
     seen = total + oob
     return (seen >= min_samples) & (cv >= _f32(cv_threshold)) \
         & (total > 0) & ~oob_heavy(total, oob, oob_fraction_threshold)
+
+
+def arima_window(predicted_it: float, margin: float) -> Tuple[float, float]:
+    """§4.3: (prewarm, keep_alive) around a forecast idle time — pre-warm
+    just before the prediction, keep alive across a 2-margin band."""
+    # repro-lint: ignore[single-source-decision-math] -- the port's single
+    # source of this math, held equal to repro/core/policy_math.py by
+    # tests/test_torch_forecast.py
+    return predicted_it * (1.0 - margin), 2.0 * margin * predicted_it
+
+
+# --------------------------------------------------------------------------
+# SPES-style next-idle predictor (the PolicySpec predictor family)
+# --------------------------------------------------------------------------
+
+
+class SpesStepConfig(NamedTuple):
+    """One SPES-predictor configuration in the dtypes the decision layer
+    consumes. Leaves are host scalars (the scalar policy) or ``[S, 1]``
+    tensors broadcast against the app axis (the sweep's config axis)."""
+    alpha: object          # f32 — exponential smoothing weight
+    om_alpha: object       # f32 — (1 - alpha), rounded once on the host
+    band_margin: object    # f32 — relative half-band around the forecast
+    band_sigma: object     # f32 — residual-std multiplier widening the band
+    min_samples: object    # i32 — observed ITs before the forecast governs
+    standard_keep: object  # f32 — fallback keep-alive until warmed up
+
+    @classmethod
+    def from_host(cls, *, alpha: float, band_margin: float,
+                  band_sigma: float, min_samples: int,
+                  standard_keep: float) -> "SpesStepConfig":
+        return cls(alpha=np.float32(alpha), om_alpha=np.float32(1.0 - alpha),
+                   band_margin=np.float32(band_margin),
+                   band_sigma=np.float32(band_sigma),
+                   min_samples=np.int32(min_samples),
+                   standard_keep=np.float32(standard_keep))
+
+
+def spes_update(mean, var, n_obs, it32, active, alpha, om_alpha):
+    """One exponentially-weighted update of the next-idle forecast state.
+
+    State is ``(mean, var, n_obs)``: the EW mean of the observed idle
+    times, the EW variance of the one-step forecast residuals (West's
+    update ``var' = (1 - a) * (var + a * err^2)``) and the observation
+    count. The carried state is float32, a decision input every engine
+    holds identically; the update is computed in float64, one operation
+    at a time, and rounded ONCE to float32, so no engine's choice to fuse
+    a multiply and an add can move it. The first observation seeds
+    ``mean`` with zero variance; ``active`` masks padding and first
+    events."""
+    first = n_obs == 0
+    m, v = _f64(mean), _f64(var)
+    err = _f64(it32) - m
+    incr = _f64(alpha) * err
+    upd_mean = _where(first, _f64(it32), m + incr)
+    upd_var = _where(first, np.float64(0.0), _f64(om_alpha) * (v + err * incr))
+    new_mean = _f32(_where(active, upd_mean, m))
+    new_var = _f32(_where(active, upd_var, v))
+    return new_mean, new_var, n_obs + active
+
+
+def spes_window_from_counts(mean, var, n_obs, min_samples, band_margin,
+                            band_sigma, standard_keep):
+    """(load_at, unload_at) residency bounds from the forecast state.
+
+    The point forecast of the next idle time is the EW ``mean``; the band
+    around it is a relative margin plus ``band_sigma`` residual standard
+    deviations. Below ``min_samples`` observations the standard keep-alive
+    governs. Computed in float64 from the float32 state and rounded once
+    to float32 (as :func:`spes_update`)."""
+    m = _f64(mean)
+    sd = torch.sqrt(_f64(var)) if _is_t(var) else np.sqrt(_f64(var))
+    half = _f64(band_margin) * m + _f64(band_sigma) * sd
+    if _is_t(m, half):
+        load = torch.clamp(m - half, min=0.0)
+        unload = torch.maximum(m + half, load)
+    else:
+        load = np.maximum(m - half, np.float64(0.0))
+        unload = np.maximum(m + half, load)
+    ready = n_obs >= _i32(min_samples)
+    std_load, std_unload = standard_window_bounds(standard_keep)
+    return (_where(ready, _f32(load), std_load),
+            _where(ready, _f32(unload), std_unload))
+
+
+def fused_spes_step_math(t_now, prev_t, mean, var, n_obs, load_at,
+                         unload_at, cold, waste, *, cfg: SpesStepConfig):
+    """One fused SPES-predictor step over a column of events: the warm/cold
+    and waste verdict under the previously decided bounds, the EW
+    forecast-state update, and the banded window decision for the next
+    gap.
+
+    The clock ``prev_t`` [n] and the observation count ``n_obs`` [n] are
+    config-independent; ``mean``/``var`` (float32) and the bounds, cold
+    and waste are ``[S, n]`` against ``[S, 1]`` knob leaves. Bounds and
+    waste stay in the time dtype (``t_now``'s)."""
+    wdtype = t_now.dtype
+    valid = torch.isfinite(t_now)
+    first = ~torch.isfinite(prev_t)
+    it = t_now - prev_t
+
+    # Verdict for the gap that just closed.
+    is_cold = valid & (first | ~warm_from_bounds(it, load_at, unload_at))
+    gap_waste = torch.where(valid & ~first,
+                            idle_from_bounds(it, load_at, unload_at), 0.0)
+
+    # Forecast-state update (float32 decision layer).
+    rec = valid & ~first
+    mean, var, n_obs = spes_update(mean, var, n_obs, it.to(torch.float32),
+                                   rec, cfg.alpha, cfg.om_alpha)
+    new_load, new_unload = spes_window_from_counts(
+        mean, var, n_obs, cfg.min_samples, cfg.band_margin, cfg.band_sigma,
+        cfg.standard_keep)
+
+    # Windows decided now govern the next gap of apps that saw an event.
+    load_at = torch.where(valid, new_load.to(wdtype), load_at)
+    unload_at = torch.where(valid, new_unload.to(wdtype), unload_at)
+    prev_t = torch.where(valid, t_now, prev_t)
+    return (prev_t, mean, var, n_obs, load_at, unload_at,
+            cold + is_cold.to(cold.dtype), waste + gap_waste)
 
 
 # --------------------------------------------------------------------------

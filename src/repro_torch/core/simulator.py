@@ -15,7 +15,14 @@ this module holds the engines, all deciding through
     :func:`repro_torch.kernels.histogram.fused_hybrid_sweep_scan` (one
     launch of the CUDA scan kernel on the card); otherwise through its
     plain version, the plain step per column. Per-config state is carried
-    unfactored, ``[S, n, n_bins]`` int32.
+    unfactored, ``[S, n, n_bins]`` int32. A forecaster cannot run inside
+    the scan: for each config with ``use_arima`` the apps that end
+    OOB-heavy are replayed afterwards through
+    :func:`repro_torch.forecast.replay.replay_oob_apps` on the same device
+    (the step kernel once per event column with ``use_kernel``).
+  * :func:`_run_spes_sweep` — S SPES predictor configs in one float64
+    pass of plain PyTorch steps (no per-bin state; the reference has no
+    kernel here either).
 
 Every engine keeps time in float64, so none needs per-chunk rebasing: the
 TPU kernel's float32 rebased time is not exact on float32 minute stamps
@@ -266,6 +273,87 @@ def _run_fixed_sweep(trace: Trace, keeps: Sequence[float],
 
 
 # --------------------------------------------------------------------------
+# SPES predictor family
+# --------------------------------------------------------------------------
+
+
+def _spes_knobs(cfgs, device: torch.device) -> policy_math.SpesStepConfig:
+    """Stack S predictor configs into [S, 1] knob columns on ``device``.
+    Each goes through ``SpesStepConfig.from_host`` first, so host rounding
+    (``1 - alpha``) happens once and the knobs equal the scalar policy's."""
+    ks = [policy_math.SpesStepConfig.from_host(
+        alpha=c.alpha, band_margin=c.band_margin, band_sigma=c.band_sigma,
+        min_samples=c.min_samples, standard_keep=c.standard_keep_alive)
+        for c in cfgs]
+    col = lambda xs, dt: torch.from_numpy(
+        np.asarray(xs, dt)[:, None]).to(device)
+    return policy_math.SpesStepConfig(
+        alpha=col([k.alpha for k in ks], np.float32),
+        om_alpha=col([k.om_alpha for k in ks], np.float32),
+        band_margin=col([k.band_margin for k in ks], np.float32),
+        band_sigma=col([k.band_sigma for k in ks], np.float32),
+        min_samples=col([k.min_samples for k in ks], np.int32),
+        standard_keep=col([k.standard_keep for k in ks], np.float32))
+
+
+def _spes_scan(cols: torch.Tensor, knobs: policy_math.SpesStepConfig):
+    """Scan one chunk (``cols`` [width, n] float64) for S stacked predictor
+    configs (knob leaves [S, 1]). The forecast state is float32, the clock
+    and observation count config-independent. Returns (cold [S, n], waste
+    [S, n], last_t [n], load [S, n], unload [S, n])."""
+    n = cols.shape[1]
+    S = knobs.alpha.shape[0]
+    tdt, dev = cols.dtype, cols.device
+    state = (
+        torch.full((n,), -np.inf, dtype=tdt, device=dev),    # shared clock
+        torch.zeros((S, n), dtype=torch.float32, device=dev),  # EW mean
+        torch.zeros((S, n), dtype=torch.float32, device=dev),  # EW var
+        torch.zeros((n,), dtype=torch.int32, device=dev),    # observations
+        torch.zeros((S, n), dtype=tdt, device=dev),          # load bound
+        knobs.standard_keep.to(tdt).expand(S, n),            # unload bound
+        torch.zeros((S, n), dtype=torch.int32, device=dev),  # cold
+        torch.zeros((S, n), dtype=tdt, device=dev),          # waste
+    )
+    for t_now in cols:
+        state = policy_math.fused_spes_step_math(t_now, *state, cfg=knobs)
+    last_t, _, _, _, load, unload, cold, waste = state
+    return cold, waste, last_t, load, unload
+
+
+def _run_spes_sweep(trace: Trace, cfgs, include_trailing: bool = True, *,
+                    app_chunk: Optional[int] = None, padded=None,
+                    device: torch.device) -> dict:
+    """S SPES predictor configs over one bucketed/chunked float64 pass on
+    ``device``. The float32 decision state (``policy_math.spes_update``
+    rounds once from float64) makes it oracle-exact, waste included, so
+    every engine runs this one."""
+    times, counts = padded if padded is not None else trace.to_padded()
+    S, n = len(cfgs), trace.n_apps
+    knobs = _spes_knobs(cfgs, device)
+    cold = np.zeros((S, n), np.int64)
+    waste = np.zeros((S, n), np.float64)
+    pre = np.zeros((S, n), np.float64)
+    keep = np.empty((S, n), np.float64)
+    for s, c in enumerate(cfgs):
+        keep[s, :] = c.standard_keep_alive   # zero-event rows: never scanned
+    duration = float(trace.duration_minutes)
+    if app_chunk is None:
+        chunk = max(DEFAULT_APP_CHUNK // max(S, 1), _MIN_AUTO_CHUNK)
+    else:
+        chunk = int(app_chunk)
+    work = _chunked_buckets(times, counts, chunk)
+    for sel, cols in _chunk_stream(work, device):
+        c, w, last_t, lo, ub = (x.cpu().numpy()
+                                for x in _spes_scan(cols, knobs))
+        cold[:, sel] = c
+        waste[:, sel], pre[:, sel], keep[:, sel] = _absolute_results(
+            w, last_t, lo, ub, duration, include_trailing)
+    return dict(cold=cold, invocations=counts.astype(np.int64),
+                wasted_minutes=waste, final_prewarm=pre,
+                final_keep_alive=keep)
+
+
+# --------------------------------------------------------------------------
 # Hybrid histogram family
 # --------------------------------------------------------------------------
 
@@ -293,21 +381,15 @@ def _build_cfg_blocks(cfgs: Sequence[HybridConfig]):
     return np.asarray(rows_i, np.int32), np.asarray(rows_f, np.float32)
 
 
-def _hybrid_sweep_scan(cols: torch.Tensor, cfg_i32: torch.Tensor,
-                       cfg_f32: torch.Tensor, bin_minutes: torch.Tensor,
-                       n_bins: int, scan):
-    """One sweep over a chunk: ``cols`` [width, n] float64 through ``scan``
-    for all S configs — ``kernels.histogram.fused_hybrid_sweep_scan`` (one
-    launch of the CUDA kernel on the card) or its plain version (the plain
-    step once per column). Idle times are binned by the exact float64
-    ``bin_minutes`` [S]. The initial carry is ``prev=-inf``, zero state,
-    bounds ``(0, standard_keep)`` — the decision of an empty histogram.
-    Returns (cold, waste, oob_heavy, last_t, prewarm, unload_at)."""
-    _check_scan_width(cols.shape[0])
-    S, n = cfg_i32.shape[0], cols.shape[1]
-    tdt, dev = cols.dtype, cols.device
+def _initial_carry(cfg_f32: torch.Tensor, n: int, n_bins: int,
+                   tdt: torch.dtype) -> tuple:
+    """The hybrid step's state before a chunk's first column, for the S
+    configs of ``cfg_f32`` x n apps: ``prev=-inf``, zero histogram and
+    counters, bounds ``(0, standard_keep)`` — the decision of an empty
+    histogram."""
+    S, dev = cfg_f32.shape[0], cfg_f32.device
     zeros = lambda dt: torch.zeros((S, n), dtype=dt, device=dev)
-    state = (
+    return (
         torch.full((S, n), -np.inf, dtype=tdt, device=dev),
         torch.zeros((S, n, n_bins), dtype=torch.int32, device=dev),
         zeros(torch.int32), zeros(tdt), zeros(tdt),
@@ -315,6 +397,18 @@ def _hybrid_sweep_scan(cols: torch.Tensor, cfg_i32: torch.Tensor,
         cfg_f32[:, 6:7].to(tdt).repeat(1, n),              # unload_at
         zeros(torch.int32), zeros(tdt),
     )
+
+
+def _hybrid_sweep_scan(cols: torch.Tensor, cfg_i32: torch.Tensor,
+                       cfg_f32: torch.Tensor, bin_minutes: torch.Tensor,
+                       n_bins: int, scan):
+    """One sweep over a chunk: ``cols`` [width, n] float64 through ``scan``
+    for all S configs — ``kernels.histogram.fused_hybrid_sweep_scan`` (one
+    launch of the CUDA kernel on the card) or its plain version (the plain
+    step once per column). Idle times are binned by the exact float64
+    ``bin_minutes`` [S], from :func:`_initial_carry`. Returns (cold, waste, oob_heavy, last_t, prewarm, unload_at)."""
+    _check_scan_width(cols.shape[0])
+    state = _initial_carry(cfg_f32, cols.shape[1], n_bins, cols.dtype)
     prev_t, cum, oob, _, _, prewarm, unload_at, cold, waste = scan(
         cols, *state, cfg_i32, cfg_f32, bin_minutes=bin_minutes)
     oobh = policy_math.oob_heavy(cum[..., -1], oob, cfg_f32[:, 5:6])
@@ -333,10 +427,8 @@ def _run_hybrid_sweep(trace: Trace, hybrids: Sequence[HybridConfig],
     histogram); the trace preparation and each chunk's transfer are shared
     by every band. ``use_kernel`` scans each chunk through the scan kernel
     (one launch a chunk and band on the card), otherwise through its plain
-    version; both in float64 time."""
-    if any(h.use_arima for h in hybrids):
-        from .policy import ARIMA_NOT_PORTED
-        raise NotImplementedError(ARIMA_NOT_PORTED)
+    version; both in float64 time. Then the forecast post-pass of each
+    ``use_arima`` config."""
     S = len(hybrids)
     times, counts = padded if padded is not None else trace.to_padded()
     n = trace.n_apps
@@ -344,6 +436,7 @@ def _run_hybrid_sweep(trace: Trace, hybrids: Sequence[HybridConfig],
     waste = np.zeros((S, n), np.float64)
     pre = np.zeros((S, n), np.float64)
     keep = np.empty((S, n), np.float64)
+    oob_flags = np.zeros((S, n), bool)
     for s, h in enumerate(hybrids):
         keep[s, :] = h.standard_keep_alive     # zero-event apps: never scanned
     duration = float(trace.duration_minutes)
@@ -373,14 +466,30 @@ def _run_hybrid_sweep(trace: Trace, hybrids: Sequence[HybridConfig],
     work = _chunked_buckets(times, counts, chunk)
     for sel, cols in _chunk_stream(work, device):
         for idx, ci, cf, bm, n_bins in bands:
-            # oob_heavy feeds only the ARIMA post-pass, which is not ported
-            c, w, _, last_t, pw, ub = (
+            c, w, oobh, last_t, pw, ub = (
                 x.cpu().numpy()
                 for x in _hybrid_sweep_scan(cols, ci, cf, bm, n_bins, scan))
             at = np.ix_(idx, sel)
             cold[at] = c
+            oob_flags[at] = oobh
             waste[at], pre[at], keep[at] = _absolute_results(
                 w, last_t, pw, ub, duration, include_trailing)
+
+    # Forecast post-pass: each use_arima config's OOB-heavy apps replay
+    # through the batched forecasting subsystem (a rescan, one grid fit of
+    # every forecaster window, the cadence on the host), bit-identical to
+    # the scalar policy (see repro_torch.forecast.replay).
+    for s, h in enumerate(hybrids):
+        if h.use_arima and oob_flags[s].any():
+            from ..forecast.replay import replay_oob_apps
+            aidx = np.where(oob_flags[s])[0]
+            out = replay_oob_apps(times, counts, duration, h, aidx,
+                                  include_trailing, device=device,
+                                  use_kernel=use_kernel)
+            cold[s, aidx] = out["cold"]
+            waste[s, aidx] = out["wasted_minutes"]
+            pre[s, aidx] = out["final_prewarm"]
+            keep[s, aidx] = out["final_keep_alive"]
     return dict(cold=cold, invocations=counts.astype(np.int64),
                 wasted_minutes=waste, final_prewarm=pre,
                 final_keep_alive=keep)

@@ -24,11 +24,11 @@ __all__ = ["Model", "build", "n_params", "FAMILY_NOT_PORTED",
 
 FAMILY_NOT_PORTED = (
     "model family {family!r} is not ported to repro_torch yet (ROADMAP "
-    "Queue A items 9-10: the MoE and encoder-decoder families are left); "
+    "Queue A item 2: the MoE and encoder-decoder families are left); "
     "the dense, hybrid and SSM families are")
 EMBEDS_NOT_PORTED = (
     "frontend embeddings (the VLM path of the dense family) are not ported "
-    "to repro_torch yet (ROADMAP Queue A item 9: frontend.py)")
+    "to repro_torch yet (ROADMAP Queue A item 2: frontend.py)")
 
 _FAMILIES = {"dense": transformer, "hybrid": rglru, "ssm": mamba2}
 

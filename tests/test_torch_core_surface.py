@@ -12,8 +12,14 @@ import pytest
 import repro_torch.core as port_core
 
 REPO = Path(__file__).resolve().parents[1]
-# ROADMAP Queue A item 7: the vectorised histogram helpers of core/histogram.py
+# ROADMAP Queue A item 5: the vectorised histogram helpers of core/histogram.py
 NOT_PORTED = {"HistogramState", "init_state"}
+# the factored sweep (ROADMAP performance list) and Queue A item 5's
+# grouped percentile helpers
+POLICY_MATH_NOT_PORTED = {"scale_raw_threshold", "first_bin_ge_scaled_grouped",
+                          "HybridSweepBlock", "SweepIdentities",
+                          "hybrid_sweep_decide",
+                          "fused_hybrid_sweep_step_math"}
 
 
 @pytest.fixture(scope="module")
@@ -47,6 +53,37 @@ def test_each_exported_name_resolves_to_the_port(ref_core, name):
         assert obj.__module__.startswith("repro_torch.core.")
     else:
         assert type(obj) is type(ref_obj)
+
+
+@pytest.mark.parametrize("module", [
+    "core.experiment", "core.policy", "core.policy_math", "forecast",
+    "forecast.forecaster", "forecast.replay"])
+def test_module_surface_is_the_reference_surface(ref_core, module):
+    """The modules this package shares with the reference export the
+    reference's names (SpesSpec, SpesConfig, SpesPolicy and the
+    forecasting subsystem among them), the port's own additions after
+    them."""
+    import importlib
+    mine = importlib.import_module(f"repro_torch.{module}")
+    theirs = importlib.import_module(f"repro.{module}")
+    want = list(theirs.__all__)
+    if module == "core.policy_math":
+        # the factored-sweep helpers are not ported (ROADMAP performance
+        # list); every other name is, SPES and arima_window among them
+        want = [n for n in want if n not in POLICY_MATH_NOT_PORTED]
+        assert set(want) <= set(mine.__all__)
+    else:
+        assert list(mine.__all__)[:len(want)] == want
+    for name in want:
+        obj = getattr(mine, name)
+        if inspect.isclass(obj) or inspect.isfunction(obj):
+            assert obj.__module__.startswith("repro_torch."), name
+
+
+def test_fit_surface_is_the_reference_surface(ref_core):
+    import repro.forecast.arima_batched as theirs
+    import repro_torch.forecast.arima_batched as mine
+    assert list(mine.__all__)[:len(theirs.__all__)] == list(theirs.__all__)
 
 
 def test_front_door_imports_without_jax():

@@ -23,6 +23,7 @@ import torch
 from repro_torch.core import experiment as E
 from repro_torch.core.metrics import evaluate, pareto_frontier
 from repro_torch.core.policy import HybridConfig, HybridHistogramPolicy
+from repro_torch.core.simulator import simulate_scalar
 from repro_torch.interop import trace_from_numpy
 
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -219,13 +220,24 @@ def test_trace_axis_grid(ref):
                          True, f"cell {t},{s}")
 
 
-def test_arima_is_not_ported():
-    trace = trace_from_numpy([np.asarray([0.0, 5.0])], duration_minutes=10.0)
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        E.run(trace, E.HybridSpec(), engine="fused",
-              options=E.EngineOptions(**CPU))
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        HybridHistogramPolicy(HybridConfig())
+def test_arima_default_runs_and_matches_scalar_oracle(ref):
+    """The paper's default hybrid (``HybridSpec()``, ARIMA on) runs on
+    every engine, and the policy builds without a card (its forecasters
+    fit on the card only once an app takes the ARIMA branch); every engine
+    equals the scalar oracle with the forecasters on the CPU."""
+    policy = HybridHistogramPolicy(HybridConfig())
+    assert policy.cfg.use_arima and policy.device is None
+    base = ref.gt.coarse_twoweek(n_apps=8, seed=3)
+    # OOB-heavy apps for the default 240-minute range: every gap x 9
+    trace = trace_from_numpy([t[0] + (t - t[0]) * 9.0 for t in base.times],
+                             duration_minutes=base.duration_minutes * 9.0)
+    oracle = simulate_scalar(trace, HybridHistogramPolicy(HybridConfig(),
+                                                          device="cpu"))
+    assert (oracle.final_keep_alive != 240.0).any()
+    for eng in ("scalar", "fused", "kernel", "auto"):
+        _assert_rows(E.run(trace, E.HybridSpec(), engine=eng,
+                           options=E.EngineOptions(**CPU)),
+                     oracle, True, eng)
 
 
 def test_cuda_without_a_card_raises(monkeypatch):

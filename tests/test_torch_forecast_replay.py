@@ -1,0 +1,204 @@
+"""The port's engines against its own scalar oracle on the two policy
+families this slice brings: the hybrid policy with its ARIMA forecast
+(``HybridSpec(use_arima=True)``, the paper's default) and the SPES
+predictor (``SpesSpec``).
+
+Inside the port the contract is bit for bit (cold, invocations, final
+windows, waste), all on the CPU here:
+
+  * the hybrid+ARIMA replay of the ``fused`` and ``kernel`` engines (the
+    rescan through the sweep step's plain version here), whole and with
+    ``app_chunk=5``, equals ``simulate_scalar`` with
+    ``HybridHistogramPolicy`` on the reference's three replay seeds;
+  * every SPES engine equals ``SpesPolicy`` and the reference's
+    ``"fused"`` engine (float64 compute, one float32 rounding: waste is
+    exact); mixed sweep rows equal single runs and the reference's rows;
+  * the frontier scenario: long-period timers, where ``SpesSpec``
+    Pareto-dominates the hybrid.
+
+The fit itself against the reference: ``tests/test_torch_forecast_
+conformance.py``.
+"""
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import experiment as E
+from repro_torch.core.histogram import HistogramConfig
+from repro_torch.core.policy import (HybridConfig, HybridHistogramPolicy,
+                                     SpesPolicy)
+from repro_torch.core.simulator import simulate_scalar
+from repro_torch.core.workload import Trace
+from repro_torch.core.workload_spec import azure_like, timer_heavy
+from repro_torch.interop import trace_from_numpy
+
+CPU = dict(device="cpu")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The fit's many small elementwise operations gain nothing from
+    intra-op threads and lose badly when test workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def ref():
+    import jax
+    import jax.experimental
+    with pytest.MonkeyPatch.context() as mp:
+        if not hasattr(jax.experimental, "enable_x64"):
+            mp.setattr(jax.experimental, "enable_x64", jax.enable_x64,
+                       raising=False)
+        import golden_traces
+        from repro.core import experiment
+        from repro.core.workload_spec import (azure_like as ref_azure,
+                                              timer_heavy as ref_timers)
+        yield SimpleNamespace(gt=golden_traces, E=experiment,
+                              azure_like=ref_azure, timer_heavy=ref_timers)
+
+
+def _port_trace(t):
+    return trace_from_numpy(t.times, duration_minutes=t.duration_minutes)
+
+
+def _assert_run_equal(got, want, err):
+    for f in ("invocations", "cold", "final_prewarm", "final_keep_alive",
+              "wasted_minutes"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
+                                      err_msg=f"{err}: {f}")
+
+
+# --------------------------------------------------------------------------
+# Hybrid + ARIMA: the engines against the scalar oracle
+# --------------------------------------------------------------------------
+
+
+CFG48_ARIMA = HybridConfig(histogram=HistogramConfig(range_minutes=48.0),
+                           use_arima=True, cv_threshold=1.9)
+
+
+@pytest.fixture(scope="module", params=[3, 11, 29])
+def arima_case(request, ref):
+    """The reference's replay seeds: cv_threshold=1.9 sits just under the
+    bursty traces' CV, a mix of histogram- and ARIMA-governed apps."""
+    rtrace = ref.gt.coarse_twoweek(n_apps=12, seed=request.param)
+    trace = _port_trace(rtrace)
+    oracle = simulate_scalar(trace, HybridHistogramPolicy(CFG48_ARIMA,
+                                                          device="cpu"))
+    return request.param, trace, oracle
+
+
+@pytest.mark.parametrize("engine,opts", [
+    ("fused", {}), ("fused", {"app_chunk": 5}),
+    ("kernel", {}), ("kernel", {"app_chunk": 5})])
+def test_hybrid_arima_replay_matches_scalar_oracle(arima_case, engine, opts):
+    seed, trace, oracle = arima_case
+    got = E.run(trace, E.HybridSpec.from_config(CFG48_ARIMA), engine=engine,
+                options=E.EngineOptions(**opts, **CPU))
+    _assert_run_equal(got, oracle, f"hybrid+arima {engine} {opts} "
+                                   f"seed={seed}")
+    assert (oracle.final_keep_alive != CFG48_ARIMA.standard_keep_alive).any()
+
+
+# --------------------------------------------------------------------------
+# SPES predictor family
+# --------------------------------------------------------------------------
+
+SPES_SPECS = [E.SpesSpec(), E.SpesSpec(alpha=0.2, band_margin=0.05,
+                                       band_sigma=4.0)]
+
+
+def _ref_spes(ref, spec):
+    return ref.E.SpesSpec(**{k: v for k, v in vars(spec).items()})
+
+
+@pytest.fixture(scope="module", params=["azure", "timers"])
+def spes_case(request, ref):
+    if request.param == "azure":
+        args, make, rmake = (80,), azure_like, ref.azure_like
+        kw = dict(days=0.5, seed=3)
+    else:
+        args, make, rmake = (80,), timer_heavy, ref.timer_heavy
+        kw = dict(days=0.5, seed=11)
+    trace, rtrace = make(*args, **kw).materialize(), \
+        rmake(*args, **kw).materialize()
+    oracles = [simulate_scalar(trace, SpesPolicy(s.to_config()))
+               for s in SPES_SPECS]
+    refs = [ref.E.run(rtrace, _ref_spes(ref, s), engine="fused")
+            for s in SPES_SPECS]
+    return request.param, trace, oracles, refs
+
+
+@pytest.mark.parametrize("engine,opts", [
+    ("fused", {}), ("fused", {"app_chunk": 7}), ("kernel", {}),
+    ("scalar", {})])
+def test_spes_engines_match_scalar_oracle_and_reference(spes_case, engine,
+                                                        opts):
+    """Cold counts, final windows AND waste bit-identical: to the port's
+    SpesPolicy and to the reference's "fused" engine."""
+    name, trace, oracles, refs = spes_case
+    for spec, oracle, want in zip(SPES_SPECS, oracles, refs):
+        got = E.run(trace, spec, engine=engine,
+                    options=E.EngineOptions(**opts, **CPU))
+        err = f"{spec.name}/{engine}/{opts} on {name}"
+        _assert_run_equal(got, oracle, err + " vs SpesPolicy")
+        _assert_run_equal(got, want, err + " vs the reference")
+
+
+def test_spes_sweep_rows_match_single_runs(spes_case, ref):
+    """A mixed grid: every row equals its single run() and the reference's
+    sweep row (fixed and hybrid rows too)."""
+    name, trace, oracles, _ = spes_case
+    specs = list(SPES_SPECS) + [E.FixedSpec(10.0),
+                                E.HybridSpec(use_arima=False)]
+    grid = E.sweep(traces=[trace], specs=specs,
+                   options=E.EngineOptions(**CPU))
+    rspecs = [_ref_spes(ref, s) for s in SPES_SPECS] + [
+        ref.E.FixedSpec(10.0), ref.E.HybridSpec(use_arima=False)]
+    rtrace = (ref.azure_like(80, days=0.5, seed=3) if name == "azure"
+              else ref.timer_heavy(80, days=0.5, seed=11)).materialize()
+    want = ref.E.sweep(rtrace, rspecs, engine="fused")
+    for s, spec in enumerate(specs):
+        row = grid.row(0, s)
+        _assert_run_equal(row, E.run(trace, spec,
+                                     options=E.EngineOptions(**CPU)),
+                          f"sweep row {s} ({spec.name}) on {name}")
+        _assert_run_equal(row, want.row(s), f"row {s} vs the reference")
+    for s in range(len(SPES_SPECS)):
+        _assert_run_equal(grid.row(0, s), oracles[s], f"row {s} vs oracle")
+
+
+def _long_period_timers(n_apps=100, days=7, seed=42):
+    """Timers with periods past the histogram's 240-minute range: every IT
+    lands out of bounds, so the hybrid offers only its ARIMA or standard
+    windows while the SPES band tracks the period."""
+    rng = np.random.default_rng(seed)
+    duration = days * 24 * 60.0
+    periods = rng.uniform(280.0, 420.0, n_apps)
+    times = []
+    for i in range(n_apps):
+        phase = rng.uniform(0.0, periods[i])
+        t = np.arange(phase, duration, periods[i])
+        t = t + rng.normal(0.0, 0.5, t.shape)
+        times.append(np.sort(np.clip(t, 0.0, duration - 1e-6)))
+    return Trace(specs=None, times=times, duration_minutes=duration)
+
+
+def test_spes_pareto_dominates_hybrid_on_long_period_timers():
+    trace = _long_period_timers()
+    hybrid = E.run(trace, E.HybridSpec(use_arima=True), engine="fused",
+                   options=E.EngineOptions(**CPU))
+    h_cold = int(hybrid.cold.sum())
+    h_waste = float(hybrid.wasted_minutes.sum())
+    for spec in (E.SpesSpec(), E.SpesSpec(band_margin=0.05, band_sigma=4.0)):
+        r = E.run(trace, spec, engine="fused", options=E.EngineOptions(**CPU))
+        cold, waste = int(r.cold.sum()), float(r.wasted_minutes.sum())
+        assert cold < h_cold and waste < h_waste, \
+            f"{spec.name}: ({cold}, {waste:.0f}) does not dominate " \
+            f"hybrid ({h_cold}, {h_waste:.0f})"

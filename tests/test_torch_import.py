@@ -27,6 +27,8 @@ def test_imports_with_jax_blocked():
         "import repro_torch.models.transformer\n"
         "import repro_torch.kernels.decode_attention\n"
         "import repro_torch.kernels.histogram\n"
+        "import repro_torch.forecast, repro_torch.forecast.arima_batched\n"
+        "import repro_torch.forecast.forecaster, repro_torch.forecast.replay\n"
         "assert not [m for m in sys.modules if m.startswith('jax')"
         " and sys.modules[m] is not None]\n"
         "print('ok')\n")

@@ -245,8 +245,8 @@ def test_vlm_embeds_raise_naming_the_roadmap_item():
     p = m.init(seed=0, device="cpu")
     toks = torch.zeros((1, 4), dtype=torch.long)
     embeds = torch.zeros((1, cfg.frontend_tokens, cfg.d_model))
-    assert "Queue A item 9" in EMBEDS_NOT_PORTED
+    assert "Queue A item 2" in EMBEDS_NOT_PORTED
     for call in (lambda: m.forward(p, toks, embeds=embeds),
                  lambda: m.prefill(p, toks, 8, embeds=embeds)):
-        with pytest.raises(NotImplementedError, match="Queue A item 9"):
+        with pytest.raises(NotImplementedError, match="Queue A item 2"):
             call()
