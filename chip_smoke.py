@@ -39,6 +39,15 @@ port's main paths:
     the fit's bounds of the CPU fit; and the SPES predictor over the
     scale trace (phase ``spes_point``), equal to ``SpesPolicy`` on 1,000
     sampled apps;
+  * the fleet simulation (§5.3, phase ``fleet_point``) through
+    ``run(trace, spec, cluster=ClusterSpec(...))``: the 1M-app
+    ``azure_like`` fleet on 1,024 workers (phase B through the sweep-step
+    kernel once per event column of each chunk, no plain-step call), the
+    reference benchmark's eviction regime (100k apps, 64 workers, 8
+    images a worker) equal to its run with phase B on the CPU, the
+    paper's default ``HybridSpec()`` on the 1M-app fleet, and the
+    vectorized engine equal to the per-event oracle (policies on the
+    card) on small fleets, one of them consulting the forecaster;
   * the fleet's policy-update tick over the scale trace (phase
     ``policy_update_parity``): one tick per event column through the CUDA
     kernel, every output equal to the plain version's at every tick and,
@@ -98,6 +107,29 @@ ARIMA_FIT_SAMPLE, ARIMA_FIT_CHUNK, ARIMA_ROW_BY_ROW = 4096, 7, 8
 FIT_BOUNDS = dict(share=0.01, aic=3e-4, pred=1e-3, selected_share=0.04,
                   selected_pred=1e-4, selection_delta=0.01)
 SPES_SAMPLE = 1000
+# The fleet simulation (§5.3, phase fleet_point). (a) The README's fleet:
+# azure_like(1_000_000, days=0.5, seed=17, max_events=6) on 1,024 workers,
+# infinite HBM budget (the reference's CPU record, BENCH_cluster_sim.json
+# "fleet": 2,547,247 events). (b) The reference benchmark's eviction regime
+# (benchmarks/cluster_sim.py:29,132-135): 100k apps of the same scenario,
+# 64 workers, a budget of 8 x the largest image; the reference's record
+# counts 44,084 evictions there. (c) HybridSpec() (ARIMA on) on (a).
+FLEET = dict(n_apps=1_000_000, days=0.5, seed=17, max_events=6)
+FLEET_WORKERS = 1024
+EVICT_FLEET = dict(n_apps=100_000, days=0.5, seed=17, max_events=6)
+EVICT_WORKERS, EVICT_IMAGES = 64, 8
+REF_EVICTIONS = 44_084
+# Gate 1 against the port's per-event oracle: the reference benchmark's
+# smoke size (2,000 apps, 16 workers; an infinite budget and 2 images), and
+# a fleet where apps consult the forecaster (at 0.5 days none can: five
+# idle times past the 240-minute range do not fit in 720 minutes), the
+# oracle's forecasters fitting on the card.
+GATE_FLEET = dict(n_apps=2_000, days=0.5, seed=17, max_events=6)
+GATE_WORKERS, GATE_IMAGES = 16, 2
+FORECAST_FLEET = dict(n_apps=60, days=3.0, seed=5, max_events=16)
+FORECAST_WORKERS = 4
+CLUSTER_COUNTERS = ("cold_starts", "warm_starts", "prewarms", "unloads",
+                    "evictions", "budget_overflows", "bytes_moved")
 
 # The serving path: RecurrentGemma-2B's attention (B=2 prompts of 4,096
 # tokens, 10 q heads, 1 KV head, head dim 256, window 2,048) and RG-LRU
@@ -1580,6 +1612,232 @@ def spes_point(trace, device):
 
 
 # ---------------------------------------------------------------------------
+# The fleet simulation (§5.3)
+# ---------------------------------------------------------------------------
+
+
+def assert_cluster_equal(got, want, what: str) -> None:
+    """The cluster engines' contract: cold % per app, latencies and every
+    per-worker counter equal; wasted GB-minutes and resident byte-seconds
+    within rtol 1e-9 (float64 accumulation order)."""
+    bad = int((got.cold_pct_per_app != want.cold_pct_per_app).sum())
+    if bad:
+        raise AssertionError(f"{what}: cold % differs in {bad} apps")
+    if not np.array_equal(got.latencies_s, want.latencies_s):
+        raise AssertionError(f"{what}: latencies differ")
+    close = lambda a, b: abs(a - b) <= 1e-9 * abs(b)
+    if not close(got.wasted_gb_minutes, want.wasted_gb_minutes):
+        raise AssertionError(f"{what}: wasted GB-minutes "
+                             f"{got.wasted_gb_minutes} != "
+                             f"{want.wasted_gb_minutes}")
+    if len(got.stats_per_worker) != len(want.stats_per_worker):
+        raise AssertionError(f"{what}: worker counts differ")
+    for w, (a, b) in enumerate(zip(got.stats_per_worker,
+                                   want.stats_per_worker)):
+        for key in CLUSTER_COUNTERS:
+            if a[key] != b[key]:
+                raise AssertionError(f"{what}: worker {w} {key} {a[key]} != "
+                                     f"{b[key]}")
+        if not close(a["resident_byte_seconds"], b["resident_byte_seconds"]):
+            raise AssertionError(f"{what}: worker {w} resident byte-seconds")
+    if got.restored_mid_run != want.restored_mid_run:
+        raise AssertionError(f"{what}: restored_mid_run differs")
+
+
+class counting_plain_steps:
+    """Count the calls of the sweep step's plain version (the CPU path)
+    while inside: the fleet's phase B on the card must make none. Every
+    caller reaches it through the module attribute, which this wraps."""
+
+    def __init__(self, H):
+        self.H, self.calls = H, 0
+
+    def __enter__(self):
+        self.plain = self.H.fused_hybrid_sweep_step_plain
+
+        def counted(*args, **kwargs):
+            self.calls += 1
+            return self.plain(*args, **kwargs)
+        self.H.fused_hybrid_sweep_step_plain = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.H.fused_hybrid_sweep_step_plain = self.plain
+
+
+class capturing_forecast_windows:
+    """Keep what the forecast post-pass stacks (stage 1 of
+    ``forecast.replay``): the apps that reach it and their windows."""
+
+    def __init__(self, R):
+        self.R, self.apps, self.windows = R, 0, 0
+
+    def __enter__(self):
+        self.call_windows = self.R._call_windows
+
+        def captured(*args, **kwargs):
+            rows, events, stacked, lens = self.call_windows(*args, **kwargs)
+            self.apps += len(rows)
+            self.windows += len(lens)
+            return rows, events, stacked, lens
+        self.R._call_windows = captured
+        return self
+
+    def __exit__(self, *exc):
+        self.R._call_windows = self.call_windows
+
+
+def fleet_point(device):
+    """The §5.3 fleet simulation on the card through ``run(trace, spec,
+    cluster=ClusterSpec(...))``: (a) the 1M-app fleet, phase B through the
+    sweep-step kernel once per event column of each chunk; (b) the
+    eviction regime; (c) HybridSpec() on (a). Gates: (1) the vectorized
+    engine equals the port's per-event oracle (policies on the card) at
+    the smoke size and on a fleet that consults the forecaster; (2) (b) on
+    the card equals (b) with phase B on the CPU; (3) (a) makes one step
+    launch per event column of each chunk and no plain-step call. Returns
+    the step launches of (a)."""
+    import torch
+    from repro_torch.core.experiment import EngineOptions, HybridSpec, run
+    from repro_torch.core.simulator import DEFAULT_APP_CHUNK, _chunked_buckets
+    from repro_torch.core.workload_spec import azure_like
+    from repro_torch.forecast import replay as R
+    from repro_torch.kernels import histogram as H
+    from repro_torch.serving import AppTable, ClusterSpec
+    from repro_torch.serving import cluster_vector as CV
+
+    opts = EngineOptions(device=device)
+    no_arima = HybridSpec(use_arima=False)
+    inf = float("inf")
+
+    def timed_run(table, spec, cluster, options=opts):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run(table, spec, cluster=cluster, options=options)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, dict(CV.PHASE_SECONDS)
+
+    # (a) the README's fleet
+    t0 = time.perf_counter()
+    table = AppTable.from_spec(azure_like(**FLEET))
+    table_s = time.perf_counter() - t0
+    n_events = table.n_events
+    counts = table.counts.astype(np.int64)
+    columns = sum(sub.shape[1] for _, sub in
+                  _chunked_buckets(table.times, counts, DEFAULT_APP_CHUNK))
+    cluster = ClusterSpec(n_workers=FLEET_WORKERS, hbm_budget_bytes=inf)
+    run(AppTable.from_spec(azure_like(**GATE_FLEET)), no_arima,
+        cluster=cluster, options=opts)              # warm-up, uncounted
+    reset_counts(H)
+    with counting_plain_steps(H) as plain:
+        fleet, fleet_s, phases = timed_run(table, no_arima, cluster)
+    launches = H.LAUNCHES
+    # gate 3
+    if plain.calls or launches < columns:
+        raise AssertionError(f"fleet_point: {launches} step launches (one "
+                             f"per column of each chunk: {columns}) and "
+                             f"{plain.calls} plain-step calls (0)")
+    with uncounted(H):
+        prof = {}
+        dev = device_ms(lambda: run(table, no_arima, cluster=cluster,
+                                    options=opts), prof)
+    dev_ms = sum(dev.values()) if dev else None
+
+    # (c) the paper's default policy on (a)
+    with uncounted(H), capturing_forecast_windows(R) as fc:
+        arima, arima_s, arima_phases = timed_run(table, HybridSpec(),
+                                                 cluster)
+    del table
+
+    # (b) the eviction regime, and gate 2: phase B on the CPU
+    t0 = time.perf_counter()
+    etable = AppTable.from_spec(azure_like(**EVICT_FLEET))
+    etable_s = time.perf_counter() - t0
+    ecluster = ClusterSpec(n_workers=EVICT_WORKERS, hbm_budget_bytes=float(
+        etable.weight_bytes.max()) * EVICT_IMAGES)
+    with uncounted(H):
+        evict, evict_s, evict_phases = timed_run(etable, no_arima, ecluster)
+        evict_cpu, evict_cpu_s, _ = timed_run(
+            etable, no_arima, ecluster, EngineOptions(device="cpu"))
+    assert_cluster_equal(evict, evict_cpu, "fleet_point (b): card vs CPU")
+
+    # gate 1: the vectorized engine against the port's oracle on the card
+    gate = []
+    gtable = AppTable.from_spec(azure_like(**GATE_FLEET))
+    ftable = AppTable.from_spec(azure_like(**FORECAST_FLEET))
+    big = float(gtable.weight_bytes.max())
+    cases = [(gtable, spec, ClusterSpec(n_workers=GATE_WORKERS,
+                                        hbm_budget_bytes=budget))
+             for budget in (inf, big * GATE_IMAGES)
+             for spec in (no_arima, HybridSpec())]
+    cases.append((ftable, HybridSpec(),
+                  ClusterSpec(n_workers=FORECAST_WORKERS,
+                              hbm_budget_bytes=inf)))
+    with uncounted(H):
+        for tab, spec, cl in cases:
+            what = (f"fleet_point gate 1: {tab.n_apps} apps, "
+                    f"{spec.name}, use_arima={spec.use_arima}, "
+                    f"budget {cl.hbm_budget_bytes:g}")
+            with capturing_forecast_windows(R) as gfc:
+                vec, vec_s, _ = timed_run(tab, spec, cl)
+            t0 = time.perf_counter()
+            sca = run(tab, spec, cluster=cl, engine="scalar", options=opts)
+            sca_s = time.perf_counter() - t0
+            assert_cluster_equal(vec, sca, what)
+            gate.append(dict(apps=tab.n_apps, events=tab.n_events,
+                             use_arima=spec.use_arima,
+                             budget=cl.hbm_budget_bytes,
+                             evictions=vec.evictions,
+                             prewarms=sum(s["prewarms"]
+                                          for s in vec.stats_per_worker),
+                             forecast_apps=gfc.apps,
+                             forecast_windows=gfc.windows,
+                             vector_seconds=vec_s, oracle_seconds=sca_s))
+    if not gate[-1]["forecast_windows"]:
+        raise AssertionError("fleet_point gate 1: the forecast fleet "
+                             "reached no forecaster")
+
+    emit("fleet_point",
+         fleet=dict(FLEET, workers=FLEET_WORKERS, events=n_events,
+                    table_seconds=table_s, seconds=fleet_s,
+                    events_per_s=n_events / fleet_s, phase_seconds=phases,
+                    step_launches=launches, columns=columns,
+                    plain_step_calls=plain.calls,
+                    device_ms=dev, device_launches=prof,
+                    idle_share=(None if dev_ms is None
+                                else 1.0 - dev_ms / 1e3 / fleet_s),
+                    cold_p75_pct=fleet.cold_pct_p75,
+                    wasted_gb_minutes=fleet.wasted_gb_minutes,
+                    prewarms=sum(s["prewarms"]
+                                 for s in fleet.stats_per_worker)),
+         fleet_arima=dict(seconds=arima_s, events_per_s=n_events / arima_s,
+                          phase_seconds=arima_phases,
+                          forecast_apps=fc.apps,
+                          forecast_windows=fc.windows,
+                          cold_p75_pct=arima.cold_pct_p75,
+                          wasted_gb_minutes=arima.wasted_gb_minutes,
+                          equal_to_without_arima=bool(
+                              np.array_equal(arima.cold_pct_per_app,
+                                             fleet.cold_pct_per_app))),
+         eviction=dict(EVICT_FLEET, workers=EVICT_WORKERS,
+                       budget_images=EVICT_IMAGES,
+                       budget_bytes=ecluster.hbm_budget_bytes,
+                       events=etable.n_events, table_seconds=etable_s,
+                       seconds=evict_s,
+                       events_per_s=etable.n_events / evict_s,
+                       phase_seconds=evict_phases,
+                       evictions=evict.evictions,
+                       budget_overflows=evict.budget_overflows,
+                       reference_evictions=REF_EVICTIONS,
+                       reproduces_reference_evictions=(
+                           evict.evictions == REF_EVICTIONS),
+                       cpu_phase_b_seconds=evict_cpu_s),
+         gate1=gate, gate2_card_equals_cpu=True,
+         gate3_launches_at_least_columns=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Times
 # ---------------------------------------------------------------------------
 
@@ -2291,6 +2549,9 @@ def main() -> int:
     t_arima = time.perf_counter()
     arima_step_launches = arima_point(device)
     arima_s = time.perf_counter() - t_arima
+    t_fleet = time.perf_counter()
+    fleet_step_launches = fleet_point(device)
+    fleet_s = time.perf_counter() - t_fleet
     t_serve = time.perf_counter()
     serve_launches, serve_forms, n_requests = serve(
         device, "serve", "recurrentgemma-2b", "rg2b",
@@ -2335,9 +2596,12 @@ def main() -> int:
         "max_abs_err": max_err, "ms": scan["kernel_ms"],
         "plain_ms": scan["plain_ms"], "bound_ms": scan["bound_ms"],
         "bound_by": scan["bound_by"], "library_ms": None,
-        # the step runs on the ARIMA post-pass's rescan, once per column
+        # the step runs on the ARIMA post-pass's rescan and on the fleet
+        # simulation's phase B, once per column of each chunk
         "step": {"name": "fused_hybrid_sweep_step",
-                 "launches": arima_step_launches,
+                 "launches": arima_step_launches + fleet_step_launches,
+                 "launches_by_path": {"arima_point": arima_step_launches,
+                                      "fleet_point": fleet_step_launches},
                  "ms": step["kernel_ms"], "plain_ms": step["plain_ms"],
                  "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
                  "launches_per_replay": step["launches"]}}, {
@@ -2397,7 +2661,8 @@ def main() -> int:
          serve_requests=n_requests, serve_mamba2_seconds=serve_mamba_s,
          serve_mamba2_requests=n_mamba, serve_qwen2_seconds=serve_qwen2_s,
          serve_qwen2_requests=n_qwen2, policy_update_seconds=policy_s,
-         arima_point_phase_seconds=arima_s, spes_point_seconds=spes_s)
+         arima_point_phase_seconds=arima_s, spes_point_seconds=spes_s,
+         fleet_point_phase_seconds=fleet_s)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -214,6 +214,10 @@ class EngineOptions:
     app_chunk: Optional[int] = None   # apps per device chunk (None: auto,
     #                                   scaled down by the config count)
     device: Union[str, torch.device] = DEFAULT_DEVICE   # "cuda" or "cpu"
+    max_eviction_rounds: Optional[int] = None   # cluster cells only: cap
+    #                                   the HBM-eviction fixed point; past
+    #                                   it the cell falls back to the
+    #                                   scalar oracle with a warning
 
 
 @dataclasses.dataclass
@@ -341,7 +345,14 @@ def _sweep_one(trace: Trace, specs: Sequence, eng: str,
     return SweepResult(specs, eng, cold, inv, waste, pre, keep)
 
 
-def sweep(trace=None, specs: Sequence = None, *, traces=None,
+def _cluster_options(options: Optional[EngineOptions]) -> dict:
+    """The keyword arguments of the fleet engine taken from ``options``."""
+    opts = options or EngineOptions()
+    return dict(app_chunk=opts.app_chunk, device=opts.device,
+                max_eviction_rounds=opts.max_eviction_rounds)
+
+
+def sweep(trace=None, specs: Sequence = None, *, traces=None, clusters=None,
           engine: str = "auto", options: Optional[EngineOptions] = None):
     """Evaluate a policy grid over one workload — or a (T, S) grid.
 
@@ -351,7 +362,14 @@ def sweep(trace=None, specs: Sequence = None, *, traces=None,
     returns a :class:`SweepGrid`. Every engine runs on
     ``options.device`` (the card by default; the scalar engine's ARIMA
     fits too); raises ``RuntimeError`` when that is CUDA and there is
-    none."""
+    none.
+
+    ``sweep(..., clusters=[ClusterSpec(...), ...])`` adds the *cluster*
+    axis: every cell runs the fleet engine
+    (:mod:`repro_torch.serving.cluster_vector`, engines
+    ``"auto"``/``"vector"``/``"scalar"``) and the trace x policy x
+    cluster grid comes back as a
+    :class:`~repro_torch.serving.cluster_vector.ClusterSweep`."""
     if specs is None:
         raise TypeError("sweep() requires specs (a list of PolicySpec)")
     specs = [as_spec(s) for s in specs]
@@ -359,6 +377,11 @@ def sweep(trace=None, specs: Sequence = None, *, traces=None,
         raise ValueError("sweep() needs at least one PolicySpec")
     if (trace is None) == (traces is None):
         raise TypeError("pass exactly one of trace= or traces=")
+    if clusters is not None:
+        from ..serving.cluster_vector import sweep_cluster
+        return sweep_cluster(traces if traces is not None else trace,
+                             specs, clusters, engine=engine,
+                             **_cluster_options(options))
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; expected one of "
                          f"{ENGINES}")
@@ -376,8 +399,15 @@ def sweep(trace=None, specs: Sequence = None, *, traces=None,
                                          device) for t in traces])
 
 
-def run(trace, spec, *, engine: str = "auto",
-        options: Optional[EngineOptions] = None) -> SimResult:
+def run(trace, spec, *, engine: str = "auto", cluster=None,
+        options: Optional[EngineOptions] = None):
     """Evaluate one policy configuration (the S=1 sweep) over one
-    workload."""
+    workload. With ``cluster=`` (a
+    :class:`~repro_torch.serving.cluster_vector.ClusterSpec`) the cell runs
+    the fleet simulator instead and returns a
+    :class:`~repro_torch.serving.cluster_sim.ClusterResult`."""
+    if cluster is not None:
+        from ..serving.cluster_vector import run_cluster
+        return run_cluster(trace, spec, cluster, engine=engine,
+                           **_cluster_options(options))
     return sweep(trace, [spec], engine=engine, options=options).row(0)

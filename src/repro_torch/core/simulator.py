@@ -296,11 +296,12 @@ def _spes_knobs(cfgs, device: torch.device) -> policy_math.SpesStepConfig:
         standard_keep=col([k.standard_keep for k in ks], np.float32))
 
 
-def _spes_scan(cols: torch.Tensor, knobs: policy_math.SpesStepConfig):
-    """Scan one chunk (``cols`` [width, n] float64) for S stacked predictor
-    configs (knob leaves [S, 1]). The forecast state is float32, the clock
-    and observation count config-independent. Returns (cold [S, n], waste
-    [S, n], last_t [n], load [S, n], unload [S, n])."""
+def _spes_states(cols: torch.Tensor, knobs: policy_math.SpesStepConfig):
+    """Yield the SPES step's state after each event column of one chunk
+    (``cols`` [width, n] float64) for S stacked predictor configs (knob
+    leaves [S, 1]): (prev_t [n], mean, var, n_obs [n], load, unload, cold,
+    waste), the others [S, n]. The forecast state is float32, the clock
+    and observation count config-independent."""
     n = cols.shape[1]
     S = knobs.alpha.shape[0]
     tdt, dev = cols.dtype, cols.device
@@ -316,6 +317,15 @@ def _spes_scan(cols: torch.Tensor, knobs: policy_math.SpesStepConfig):
     )
     for t_now in cols:
         state = policy_math.fused_spes_step_math(t_now, *state, cfg=knobs)
+        yield state
+
+
+def _spes_scan(cols: torch.Tensor, knobs: policy_math.SpesStepConfig):
+    """Scan one chunk (``cols`` [width >= 1, n] float64) for S stacked
+    predictor configs. Returns (cold [S, n], waste [S, n], last_t [n],
+    load [S, n], unload [S, n])."""
+    for state in _spes_states(cols, knobs):
+        pass
     last_t, _, _, _, load, unload, cold, waste = state
     return cold, waste, last_t, load, unload
 

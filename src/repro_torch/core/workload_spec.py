@@ -28,6 +28,7 @@ from .workload import MINUTES_PER_DAY, PATTERNS, AppSpec, Trace
 __all__ = [
     "Cohort", "WorkloadSpec", "SCENARIOS", "scenario", "azure_like",
     "diurnal", "bursty", "timer_heavy", "flash_crowd", "weekend_dip",
+    "population_columns",
 ]
 
 GENERATORS = ("patterns", "uniform")
@@ -471,6 +472,31 @@ def _gen_blocks(spec: WorkloadSpec, duration: float):
             if hi <= lo:
                 continue
             yield ci, lo, hi, _block_rng(spec.seed, blo, ci)
+
+
+def population_columns(spec: WorkloadSpec) -> Dict[str, np.ndarray]:
+    """Per-app population columns of a ``'patterns'`` spec, without
+    generating any events: the :func:`_sample_population` columns
+    (``rates``, ``pattern``, ``period``, ``memory``, ``execs``, ``nfunc``,
+    ``trig``) over the whole fleet. Each block draws its population before
+    its events from the block's counter RNG, so replaying only that draw
+    gives the values an eager ``materialize(eager=True)`` writes into its
+    ``AppSpec`` objects (the cluster ``AppTable`` reads them from here)."""
+    spec.validate()
+    if spec.generator != "patterns":
+        raise ValueError(
+            "population_columns needs a 'patterns' spec (the 'uniform' "
+            "generator draws no population; pass exec/memory columns to "
+            "AppTable explicitly for uniform traces)")
+    n = spec.n_apps
+    out: Dict[str, np.ndarray] = {}
+    for ci, lo, hi, rng in _gen_blocks(spec, spec.duration_minutes):
+        pop = _sample_population(rng, hi - lo, spec.cohorts[ci])
+        if not out:
+            out = {k: np.empty(n, v.dtype) for k, v in pop.items()}
+        for k, v in pop.items():
+            out[k][lo:hi] = v
+    return out
 
 
 def _materialize(spec: WorkloadSpec, eager: bool) -> Trace:

@@ -134,11 +134,13 @@ def _call_windows(times2d: np.ndarray, counts: np.ndarray,
 
 def _replay_cadence(rows: List[int], events: List[List[int]], fit: GridFit,
                     counts: np.ndarray, hybrid: HybridConfig,
-                    la: np.ndarray, ua: np.ndarray) -> np.ndarray:
+                    la: np.ndarray, ua: np.ndarray,
+                    keep: Optional[np.ndarray] = None) -> np.ndarray:
     """Stage 2: each app's selection cadence over its call sequence; an
-    accepted forecast overrides the scanned bounds of its event in place.
-    Returns ``last_keep`` [n]: the keep-alive of an app's final window
-    where the forecaster decided it, else NaN."""
+    accepted forecast overrides the scanned bounds of its event in place
+    (and its keep-alive in ``keep``, where given: ``ua - la`` need not
+    round back to it). Returns ``last_keep`` [n]: the keep-alive of an
+    app's final window where the forecaster decided it, else NaN."""
     last_keep = np.full(la.shape[0], np.nan)
     task = 0
     for r, ks in zip(rows, events):
@@ -155,6 +157,8 @@ def _replay_cadence(rows: List[int], events: List[List[int]], fit: GridFit,
             lo, hi = policy_math.window_bounds(pw, ka)
             la[r, k] = lo
             ua[r, k] = hi
+            if keep is not None:
+                keep[r, k] = ka
             if k == last_event:
                 last_keep[r] = ka
     return last_keep
@@ -163,15 +167,18 @@ def _replay_cadence(rows: List[int], events: List[List[int]], fit: GridFit,
 def _apply_forecast_overrides(times2d: np.ndarray, counts: np.ndarray,
                               hybrid: HybridConfig, la: np.ndarray,
                               ua: np.ndarray, branch: np.ndarray,
-                              device: torch.device) -> np.ndarray:
-    """Batched-ARIMA overrides of the scanned bounds, in place: stage 1, one
-    fit of every window on ``device``, stage 2. Returns ``last_keep``."""
+                              device: torch.device,
+                              keep: Optional[np.ndarray] = None
+                              ) -> np.ndarray:
+    """Batched-ARIMA overrides of the scanned bounds (and ``keep``), in
+    place: stage 1, one fit of every window on ``device``, stage 2.
+    Returns ``last_keep``."""
     if not hybrid.use_arima or not branch.any():
         return np.full(times2d.shape[0], np.nan)
     rows, events, stacked, lens = _call_windows(times2d, counts, hybrid,
                                                 branch)
     fit = fit_arima_grid(stacked, lens, device=device)
-    return _replay_cadence(rows, events, fit, counts, hybrid, la, ua)
+    return _replay_cadence(rows, events, fit, counts, hybrid, la, ua, keep)
 
 
 def _verdict(sub_t: np.ndarray, sub_c: np.ndarray, duration: float,

@@ -29,6 +29,9 @@ def test_imports_with_jax_blocked():
         "import repro_torch.kernels.histogram\n"
         "import repro_torch.forecast, repro_torch.forecast.arima_batched\n"
         "import repro_torch.forecast.forecaster, repro_torch.forecast.replay\n"
+        "import repro_torch.serving.apptable, repro_torch.serving.cluster_sim\n"
+        "import repro_torch.serving.cluster_vector\n"
+        "import repro_torch.runtime, repro_torch.runtime.straggler\n"
         "assert not [m for m in sys.modules if m.startswith('jax')"
         " and sys.modules[m] is not None]\n"
         "print('ok')\n")
@@ -73,6 +76,26 @@ def test_serve_engine_asked_for_cuda_without_a_card_raises(monkeypatch):
         ServeEngine(Registry())
     with pytest.raises(RuntimeError):
         ServeEngine(Registry(), device="cuda")
+
+
+def test_run_cluster_defaults_to_cuda(monkeypatch):
+    """The fleet engines run phase B (and the oracle's forecasters) on the
+    card unless the caller asks for the CPU; without a card that raises,
+    for every engine and through the experiment front door."""
+    from repro_torch.core.experiment import FixedSpec, HybridSpec, run
+    from repro_torch.core.workload_spec import azure_like
+    from repro_torch.serving import ClusterSpec, run_cluster, sweep_cluster
+    spec = azure_like(8, days=0.1, seed=1, max_events=4)
+    cl = ClusterSpec(n_workers=2, hbm_budget_bytes=float("inf"))
+    assert run_cluster(spec, HybridSpec(), cl, device="cpu") is not None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for engine in ("auto", "vector", "scalar"):
+        with pytest.raises(RuntimeError, match="is_available"):
+            run_cluster(spec, FixedSpec(), cl, engine=engine)
+    with pytest.raises(RuntimeError, match="is_available"):
+        run(spec, HybridSpec(), cluster=cl)
+    with pytest.raises(RuntimeError, match="is_available"):
+        sweep_cluster(spec, [FixedSpec()], [cl])
 
 
 @pytest.mark.parametrize("arch,entry", [
