@@ -29,12 +29,27 @@ port's main paths:
     prefill) and the decode kernel 420 times (15 decode steps of 28
     layers), and the logits of four decode steps are held to the plain
     branches too;
+  * serving OLMoE-1B-7B (phase ``serve_olmoe``, the MoE family: 64
+    experts, top 8, at the ``depth_scaled`` draw, whose routing does not
+    collapse) the same way: 16 attention and 240 decode launches a
+    request, the decode kernel at group 1; beside the gates, each layer's
+    routing agreement between the kernel and plain paths, the choices
+    dropped by capacity, and the prefill with the gather dispatch beside
+    the einsum one;
+  * serving SeamlessM4T-medium (phase ``serve_seamless``, the
+    encoder-decoder, head dim 64) the same way: the encoder fed the
+    frontend stub's zero frames, 12 attention and 180 decode launches a
+    request;
   * the paper's default hybrid, ARIMA on, over ``azure_like(100_000,
     days=7, seed=0)`` (phase ``arima_point``): the histogram pass, then
-    the forecast post-pass of the OOB-heavy apps (one step-kernel launch
-    per event column in the rescan, one batched fit of every forecaster
-    window), held to the use_arima=False run on the other apps, to the
-    scalar oracle with its forecasters on the card on sampled apps, the
+    the forecast post-pass of the apps the scan flags as consulting the
+    forecaster (one step-kernel launch per event column in the rescan,
+    one batched fit of every forecaster window); the kernel scan's flags
+    held to the plain scan's and to the host's selection, the first 200
+    apps that selection adds over the old final-state one to the scalar
+    oracle; the replay held to the use_arima=False run on the other apps,
+    to the scalar oracle with its forecasters on the card on sampled
+    apps, the
     fit bit-identical whole, in chunks of 7 and row by row, and within
     the fit's bounds of the CPU fit; and the SPES predictor over the
     scale trace (phase ``spes_point``), equal to ``SpesPolicy`` on 1,000
@@ -97,6 +112,15 @@ SWEEP_APPS = 100_000
 # ARIMA_FIT_CHUNK, and ARIMA_ROW_BY_ROW of them one at a time; on the CPU).
 ARIMA_APPS, ARIMA_DAYS = 100_000, 7.0
 ARIMA_SCALAR_FITS = 40
+# The post-pass selection: the apps at which the scalar policy consults the
+# forecaster at some event (the scan's ``consulted`` flag). The selection
+# before that repair took the apps OOB-heavy in the scan's final state,
+# 12,621 apps here (on an NVIDIA H100 80GB HBM3 and on the CPU alike: the
+# count follows from the trace). The scalar oracle (forecasters on
+# the CPU, where a lone window fits faster than on the card) replays the
+# first ARIMA_ADDED_CHECK apps the new selection adds.
+ARIMA_OLD_SELECTION = 12_621
+ARIMA_ADDED_CHECK = 200
 ARIMA_FIT_SAMPLE, ARIMA_FIT_CHUNK, ARIMA_ROW_BY_ROW = 4096, 7, 8
 # The fit's bounds against the reference, as tests/test_torch_forecast_
 # conformance.py states them: at most 1% of the (window, order) pairs
@@ -139,6 +163,11 @@ ATTN_SHAPE = dict(B=SERVE_BATCH, S=SERVE_SEQ, Hq=10, Hkv=1, D=256, W=2048)
 # Qwen2-7B's prefill attention: 28 q heads over 4 KV heads of 128, causal,
 # k and v the first SERVE_SEQ rows of the SERVE_SEQ + SERVE_NEW-row cache
 QWEN2_ATTN_SHAPE = dict(B=SERVE_BATCH, S=SERVE_SEQ, Hq=28, Hkv=4, D=128, W=0)
+# OLMoE-1B-7B's (16 heads of 128, MHA) and SeamlessM4T-medium's decoder
+# prefill attention (16 heads of 64), causal, k and v cache views as Qwen2's
+OLMOE_ATTN_SHAPE = dict(B=SERVE_BATCH, S=SERVE_SEQ, Hq=16, Hkv=16, D=128, W=0)
+SEAMLESS_ATTN_SHAPE = dict(B=SERVE_BATCH, S=SERVE_SEQ, Hq=16, Hkv=16, D=64,
+                           W=0)
 # bf16 attention kernel vs its plain version, (atol as a share of the
 # largest |want|, rtol). Both compute the softmax in f32 and round the
 # output to bf16 once (2^-8 of its magnitude at most: rtol 8e-3); the kernel
@@ -158,8 +187,10 @@ SERVE_FORMS = {"flash_attention": "hopper", "decode_attention": "tensor_cores",
                "rglru_scan": "vec4"}
 NO_SPILL_KERNELS = {
     "flash_attention": ("flash_attention_hopper_kernel<256>",
-                        "flash_attention_hopper_kernel<128>"),
-    "decode_attention": ("decode_attention_mma_kernel<128,1,3>",),
+                        "flash_attention_hopper_kernel<128>",
+                        "flash_attention_hopper_kernel<64>"),
+    "decode_attention": ("decode_attention_mma_kernel<128,1,3>",
+                         "decode_attention_mma_kernel<64,1,3>"),
     "policy_update": ("policy_update_kernel<4>", "policy_update_kernel<1>"),
     "rglru_scan": ("rglru_scan_kernel<4>", "rglru_scan_kernel<1>")}
 RGLRU_SHAPE = (SERVE_BATCH, SERVE_SEQ, 2560)
@@ -235,6 +266,37 @@ DECODE_SPLIT_KEYS_TIMED = (128, 256, 384, 512)
 # other two models, the last-token logits within 5% of their largest
 # magnitude; the same gate holds the logits of the decode steps.
 SERVE_QWEN2_LOGITS_REL_TOL = 5e-2
+# The MoE serving path: olmoe-1b-7b (16 layers, 16 heads of 128, 64
+# experts of 1,024, top 8) over the same prompts: per request 16 attention
+# launches (the prefill) and 15 x 16 decode launches at group 1; its decode
+# kernel shape as each step calls it (timed at the full 4,112). The
+# encoder-decoder: seamless-m4t-medium (12 encoder and 12 decoder layers,
+# 16 heads of 64); only the decoder's causal self-attention takes the
+# kernels (the encoder's is not causal, the cross-attention reads a
+# memory: both the plain _sdpa, as in the reference). The same gates as
+# Qwen2-7B's, four decode steps included.
+OLMOE_LAYERS, SEAMLESS_DEC_LAYERS = 16, 12
+OLMOE_ATTN_PER_REQUEST = OLMOE_LAYERS
+OLMOE_DECODE_PER_REQUEST = OLMOE_LAYERS * (SERVE_NEW - 1)
+SEAMLESS_ATTN_PER_REQUEST = SEAMLESS_DEC_LAYERS
+SEAMLESS_DECODE_PER_REQUEST = SEAMLESS_DEC_LAYERS * (SERVE_NEW - 1)
+OLMOE_DECODE_SHAPE = dict(B=SERVE_BATCH, Hq=16, Hkv=16, D=128,
+                          Skv=SERVE_SEQ + SERVE_NEW)
+SEAMLESS_DECODE_SHAPE = dict(B=SERVE_BATCH, Hq=16, Hkv=16, D=64,
+                             Skv=SERVE_SEQ + SERVE_NEW)
+# The MoE family's bf16 gate is the other families': the kernel path's
+# logits against the plain branches', each run on its own routing. A
+# router is discrete, so a last-bit difference in an attention output can
+# swap two near-equal gates and move tokens across the capacity edge; the
+# phase prints, per layer, the prefill's routing agreement and dropped
+# choices and the decode steps' flipped choices beside the gate. OLMoE is
+# served at the "depth_scaled" draw (models.moe.depth_scale_): at the
+# reference's draw a 4,096-token prompt's hidden states collapse onto each
+# other, routing with them, and the plain bf16 branches themselves lie
+# 7-11% from the f32 ones, so no kernel short of bit-exact could be told
+# right from wrong at 5%.
+SERVE_MOE_LOGITS_REL_TOL = 5e-2
+SERVE_ENCDEC_LOGITS_REL_TOL = 5e-2
 # The fleet's policy-update tick: one tick per event column of the scale
 # trace (1M apps, <= 64 columns), idle times in the paper's 240 one-minute
 # bins.
@@ -453,9 +515,10 @@ def plain_without_keys(q, k, v, window, lo, hi):
 
 
 def attention_parity(device):
-    """The attention kernel against its plain version: both serving paths'
+    """The attention kernel against its plain version: the serving paths'
     shapes in bf16 (RecurrentGemma: D 256, window 2,048; Qwen2: D 128,
-    causal, k and v the first rows of a longer cache) at ATTN_BF16_TOL,
+    causal, k and v the first rows of a longer cache; OLMoE: D 128 and
+    SeamlessM4T: D 64, both MHA and causal) at ATTN_BF16_TOL,
     with the largest and median |out| and what leaving out one 64-key tile
     would do (the gate must catch that); f32 cases within 2e-5; S=640,
     which the TPU kernel gets wrong; and the form each case took. Returns
@@ -466,9 +529,12 @@ def attention_parity(device):
     shape = lambda a: (a["B"], a["S"], a["Hq"], a["Hkv"], a["D"])
     bf16, f32 = torch.bfloat16, torch.float32
     rg, qw = ATTN_SHAPE, QWEN2_ATTN_SHAPE
+    ol, sm = OLMOE_ATTN_SHAPE, SEAMLESS_ATTN_SHAPE
     # (shape, dtype, window, extra cache rows of k and v, drop-tile check)
     cases = [(shape(rg), bf16, rg["W"], 0, True),
              (shape(qw), bf16, qw["W"], SERVE_NEW, True),
+             (shape(ol), bf16, ol["W"], SERVE_NEW, True),
+             (shape(sm), bf16, sm["W"], SERVE_NEW, True),
              ((2, 1024, 8, 2, 128), f32, 0, 0, False),
              ((2, 1024, 8, 2, 128), f32, 256, 0, False),
              ((1, 640, 10, 1, 256), f32, 128, 0, False),
@@ -704,19 +770,20 @@ def decode_tol(dtype, want):
 
 def decode_parity(device):
     """The decode kernel against its plain version: the reference's cases
-    (B 2, Hq 4, Hkv 2, D 64), the serving path's shape at kv_len 4,097,
-    4,112 and 1, and a ragged cache (Skv 640, kv_len 600, which the TPU
+    (B 2, Hq 4, Hkv 2, D 64), the serving paths' shapes (Qwen2-7B,
+    OLMoE-1B-7B and SeamlessM4T-medium) at kv_len 4,097, 4,112 and 1, and
+    a ragged cache (Skv 640, kv_len 600, which the TPU
     kernel gets wrong); f32 and bf16 at DECODE_TOL, each case's largest and
     median |out| printed beside its error. Returns the largest absolute
     difference seen."""
     import torch
     from repro_torch.kernels import decode_attention as DA
 
-    d = DECODE_SHAPE
-    serving = (d["B"], d["Skv"], d["Hq"], d["Hkv"], d["D"])
     cases = [((2, Skv, 4, 2, 64), n) for Skv, n in
              ((256, 256), (512, 300), (512, 1), (1024, 777))]
-    cases += [(serving, n) for n in (4097, 4112, 1)]
+    for d in (DECODE_SHAPE, OLMOE_DECODE_SHAPE, SEAMLESS_DECODE_SHAPE):
+        serving = (d["B"], d["Skv"], d["Hq"], d["Hkv"], d["D"])
+        cases += [(serving, n) for n in (4097, 4112, 1)]
     cases += [((1, 640, 8, 2, 64), 600)]
     worst = 0.0
     for k, (shape, kv_len) in enumerate(cases):
@@ -904,10 +971,10 @@ def policy_update_parity(trace, device):
 
 
 def serve(device, phase, arch, prefix, kernels, logits_rel_tol,
-          decode_steps=0):
-    """Two full-width endpoints of ``arch`` (seeds 0 and 1, ``use_kernels``,
-    bf16) behind a WarmPool(HybridSpec(use_arima=False)), driven by
-    SERVE_STREAM; the pool's residency decisions are mirrored onto the
+          decode_steps=0, init="reference"):
+    """Two full-width endpoints of ``arch`` (seeds 0 and 1, drawn as
+    ``init`` says, ``use_kernels``, bf16) behind a
+    WarmPool(HybridSpec(use_arima=False)), driven by SERVE_STREAM; the pool's residency decisions are mirrored onto the
     engine after every pool call. ``kernels`` maps each kernel module of
     the path to the launches one request must make; the counts are set to
     0 just before the stream and read just after. The kernel path's
@@ -918,19 +985,28 @@ def serve(device, phase, arch, prefix, kernels, logits_rel_tol,
     state (each path on its own copy of it). Before the f32 check the
     endpoint not under check is unloaded (the stream is over). Every
     launch of a kernel module with forms must take the form SERVE_FORMS
-    names. Returns the stream's launches by kernel name, its launches by
-    form and the number of requests."""
+    names. The encoder-decoder's requests get the engine's frontend stub
+    (zero frames); its checks and profile get seeded frames
+    (``frontend.audio_frames``), so that the cross-attention reads a
+    memory that is not zero. For the MoE family the phase also prints each
+    layer's routing agreement between the kernel and plain paths, the
+    choices dropped by capacity, and the prefill seconds of the gather
+    dispatch beside the einsum one. Returns the stream's launches by
+    kernel name, its launches by form, the number of requests and the
+    logits gates that failed (the phase line lists them too; the caller
+    fails the run once the later phases have run)."""
+    import contextlib
     import torch
     from repro_torch.configs import get
     from repro_torch.core.experiment import HybridSpec
-    from repro_torch.models import build
+    from repro_torch.models import build, frontend
     from repro_torch.serving import (ModelEndpoint, Registry, ServeEngine,
                                      WarmPool)
 
     cfg = get(arch).with_(use_kernels=True)
     reg = Registry()
     for i in range(2):
-        reg.register(ModelEndpoint(f"{prefix}-{i}", cfg, seed=i))
+        reg.register(ModelEndpoint(f"{prefix}-{i}", cfg, seed=i, init=init))
     engine = ServeEngine(reg, device=device)
     pool = WarmPool(reg, HybridSpec(use_arima=False))
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
@@ -1008,6 +1084,12 @@ def serve(device, phase, arch, prefix, kernels, logits_rel_tol,
     params = engine._loaded[app]
     max_len = SERVE_SEQ + SERVE_NEW
     kmodel, pmodel = build(cfg), build(cfg.with_(use_kernels=False))
+    frames = None
+    if cfg.family == "encdec":
+        frames = frontend.audio_frames(
+            cfg, SERVE_BATCH, torch.Generator(device).manual_seed(3),
+            device=device)
+    moe_family = cfg.family == "moe"
     rng = np.random.default_rng(1)
     dec_tokens = [torch.from_numpy(rng.integers(0, cfg.vocab, SERVE_BATCH)
                                    ).to(device) for _ in range(decode_steps)]
@@ -1022,38 +1104,62 @@ def serve(device, phase, arch, prefix, kernels, logits_rel_tol,
         return torch.stack(out) if out else None
 
     def copied(state, dtype=None):
-        return {"k": [t.to(dtype or t.dtype, copy=True) for t in state["k"]],
-                "v": [t.to(dtype or t.dtype, copy=True) for t in state["v"]],
-                "pos": state["pos"]}
+        out = {"k": [t.to(dtype or t.dtype, copy=True) for t in state["k"]],
+               "v": [t.to(dtype or t.dtype, copy=True) for t in state["v"]],
+               "pos": state["pos"]}
+        if "enc" in state:                # the encoder-decoder's memory
+            out["enc"] = state["enc"].to(dtype or state["enc"].dtype,
+                                         copy=True)
+        return out
 
+    routes = lambda: recorded_routes() if moe_family \
+        else contextlib.nullcontext()
     with torch.inference_mode():
-        got, state = kmodel.prefill(params, tokens, max_len)
-        plain, _ = pmodel.prefill(params, tokens, max_len)
+        with routes() as k_routes:
+            got, state = kmodel.prefill(params, tokens, max_len,
+                                        embeds=frames)
+        with routes() as p_routes:
+            plain, _ = pmodel.prefill(params, tokens, max_len,
+                                      embeds=frames)
         if decode_steps:
-            dec_got = decode_logits(kmodel, params, copied(state))
-            dec_plain = decode_logits(pmodel, params, copied(state))
+            with routes() as k_dec_routes:
+                dec_got = decode_logits(kmodel, params, copied(state))
+            with routes() as p_dec_routes:
+                dec_plain = decode_logits(pmodel, params, copied(state))
+    # every gate is evaluated and the phase line printed before the
+    # failures go back to the caller, so that a failing run still reports
+    # what it measured
+    failures = []
     got, plain = got.float(), plain.float()
     diff = float((got - plain).abs().max())
     scale = float(plain.abs().max())
     if not (torch.isfinite(got).all() and diff <= logits_rel_tol * scale):
-        raise AssertionError(f"kernel-path logits differ from the plain "
-                             f"branches by {diff} (largest logit {scale})")
+        failures.append(f"kernel-path logits differ from the plain "
+                        f"branches by {diff} (largest logit {scale})")
     same_argmax = float((got.argmax(-1) == plain.argmax(-1)).float().mean())
+    moe_fields = moe_report(cfg, params, tokens, max_len, k_routes, p_routes,
+                            got) if moe_family else {}
     decode_fields = {}
     if decode_steps:
         dec_diff = float((dec_got - dec_plain).abs().max())
         dec_scale = float(dec_plain.abs().max())
         if not (torch.isfinite(dec_got).all()
                 and dec_diff <= logits_rel_tol * dec_scale):
-            raise AssertionError(f"kernel-path decode logits differ from "
-                                 f"the plain branches' by {dec_diff} "
-                                 f"(largest logit {dec_scale})")
+            failures.append(f"kernel-path decode logits differ from the "
+                            f"plain branches' by {dec_diff} (largest logit "
+                            f"{dec_scale})")
         decode_fields = dict(
             decode_steps_checked=decode_steps,
             decode_logits_max_abs_diff_vs_plain=dec_diff,
             decode_logits_max_abs=dec_scale,
+            decode_logits_max_abs_diff_by_step=[
+                float((a - b).abs().max()) for a, b in zip(dec_got,
+                                                           dec_plain)],
             decode_argmax_agreement_vs_plain=float(
                 (dec_got.argmax(-1) == dec_plain.argmax(-1)).float().mean()))
+        if moe_family:
+            decode_fields.update(decode_routing_flips(
+                cfg, k_dec_routes, p_dec_routes, decode_steps))
     # the plain branches in f32, on f32 copies of the same weights; the
     # other endpoint is unloaded first (the stream is over)
     for ep in reg:
@@ -1064,10 +1170,12 @@ def serve(device, phase, arch, prefix, kernels, logits_rel_tol,
     params32 = _placed(engine._weights[app], device, torch.float32)
     model32 = build(cfg.with_(use_kernels=False, dtype="float32"))
     with torch.inference_mode():
-        ref32, _ = model32.prefill(params32, tokens, max_len)
+        ref32, _ = model32.prefill(params32, tokens, max_len,
+                                   embeds=frames)
         if decode_steps:
-            dec32 = decode_logits(model32, params32,
-                                  copied(state, torch.float32))
+            with routes() as f_dec_routes:
+                dec32 = decode_logits(model32, params32,
+                                      copied(state, torch.float32))
     del params32, state
     ref32 = ref32.float()
     vs_f32 = {"kernel_bf16": float((got - ref32).abs().max()),
@@ -1076,10 +1184,17 @@ def serve(device, phase, arch, prefix, kernels, logits_rel_tol,
         vs_f32.update(
             decode_kernel_bf16=float((dec_got - dec32).abs().max()),
             decode_plain_bf16=float((dec_plain - dec32).abs().max()))
+        if moe_family:
+            # routings of the decode steps that differ from the f32 run's
+            for name, rts in (("kernel", k_dec_routes),
+                              ("plain", p_dec_routes)):
+                decode_fields[f"decode_routing_flips_{name}_vs_f32"] = sum(
+                    int((a[0] != b[0]).sum())
+                    for a, b in zip(rts.calls, f_dec_routes.calls))
     for which in ["", "decode_"] if decode_steps else [""]:
         k_d, p_d = vs_f32[which + "kernel_bf16"], vs_f32[which + "plain_bf16"]
         if not k_d <= SERVE_F32_DIST_FACTOR * p_d:
-            raise AssertionError(
+            failures.append(
                 f"kernel-path {which}logits lie {k_d} from the f32 plain "
                 f"branches', more than {SERVE_F32_DIST_FACTOR} x the plain "
                 f"bf16 branches' {p_d}")
@@ -1088,9 +1203,10 @@ def serve(device, phase, arch, prefix, kernels, logits_rel_tol,
     warm_decode = [q["decode_s"] for q in warms]
     profile = serve_profile(kmodel, params, tokens, max_len,
                             prefill_s=min(warm_prefill),
-                            decode_step_s=min(warm_decode) / (SERVE_NEW - 1))
+                            decode_step_s=min(warm_decode) / (SERVE_NEW - 1),
+                            embeds=frames)
     emit(phase, arch=cfg.arch_id, n_params=build(cfg).n_params(),
-         dtype=cfg.dtype, batch=SERVE_BATCH, prompt=SERVE_SEQ,
+         init=init, dtype=cfg.dtype, batch=SERVE_BATCH, prompt=SERVE_SEQ,
          max_new=SERVE_NEW, requests=len(requests),
          cold=len(colds), warm=len(warms),
          pool_cold_starts=st.cold_starts, pool_warm_starts=st.warm_starts,
@@ -1107,9 +1223,95 @@ def serve(device, phase, arch, prefix, kernels, logits_rel_tol,
          logits_max_abs=scale,
          logits_rel_tol=logits_rel_tol,
          argmax_agreement_vs_plain=same_argmax, **decode_fields,
+         **moe_fields,
          logits_max_abs_diff_vs_plain_f32=vs_f32,
-         f32_dist_factor=SERVE_F32_DIST_FACTOR, profile=profile)
-    return launches, by_form, len(requests)
+         f32_dist_factor=SERVE_F32_DIST_FACTOR, profile=profile,
+         gates_failed=failures)
+    return launches, by_form, len(requests), [f"{phase}: {f}"
+                                              for f in failures]
+
+
+class recorded_routes:
+    """Within the block, each call of ``repro_torch.models.moe._route``
+    (one a layer) leaves its ``(topi, keep, positions)`` in ``calls``."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.mod, self.orig, self.calls = moe, moe._route, []
+
+        def route(*args, **kw):
+            out = self.orig(*args, **kw)
+            self.calls.append((out[0], out[3], out[2]))
+            return out
+
+        moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._route = self.orig
+
+
+def decode_routing_flips(cfg, k_routes, p_routes, steps):
+    """Routing of the teacher-forced decode steps, kernel path against
+    plain branches: per step and layer, the (token, choice) routings whose
+    expert differs, and those whose kept/dropped verdict differs (a
+    decode step routes its 2 tokens in a group of its own, capacity 1)."""
+    L = cfg.n_layers
+    if len(k_routes.calls) != steps * L or len(p_routes.calls) != steps * L:
+        raise AssertionError(f"recorded {len(k_routes.calls)} and "
+                             f"{len(p_routes.calls)} decode routings for "
+                             f"{steps} steps of {L} layers")
+    pairs = list(zip(k_routes.calls, p_routes.calls))
+    flips = [[int((k[0] != p[0]).sum()) for k, p in pairs[i * L:(i + 1) * L]]
+             for i in range(steps)]
+    keep = [[int((k[1] != p[1]).sum()) for k, p in pairs[i * L:(i + 1) * L]]
+            for i in range(steps)]
+    return dict(decode_routing_choices_per_layer=int(
+                    k_routes.calls[0][0].numel()),
+                decode_routing_flips_by_step_and_layer=flips,
+                decode_routing_keep_changes_by_step_and_layer=keep)
+
+
+def moe_report(cfg, params, tokens, max_len, k_routes, p_routes, got):
+    """What the MoE prefill's routing did: per layer, the share of (token,
+    choice) routings equal between the kernel path (``k_routes``) and the
+    plain branches (``p_routes``), and the choices and tokens the kernel
+    path dropped by capacity; then the kernel path's prefill seconds with
+    the gather dispatch beside the einsum one on the same weights (in
+    turns: gather, einsum, einsum, gather), and how far the gather's
+    last-token logits lie from ``got``, the einsum's."""
+    import torch
+    from repro_torch.models import build
+
+    layers = len(k_routes.calls)
+    if layers != cfg.n_layers or len(p_routes.calls) != layers:
+        raise AssertionError(f"recorded {layers} and "
+                             f"{len(p_routes.calls)} routings for "
+                             f"{cfg.n_layers} layers")
+    agree = [float((k[0] == p[0]).float().mean())
+             for k, p in zip(k_routes.calls, p_routes.calls)]
+    dropped = [int((~k[1]).sum()) for k in k_routes.calls]
+    dropped_tokens = [int((~k[1]).any(-1).sum()) for k in k_routes.calls]
+    models = {impl: build(cfg.with_(moe_impl=impl))
+              for impl in ("einsum", "gather")}
+    seconds = {"einsum": [], "gather": []}
+    with torch.inference_mode():
+        for impl in ("gather", "einsum", "einsum", "gather"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = models[impl].prefill(params, tokens, max_len)
+            torch.cuda.synchronize()
+            seconds[impl].append(time.perf_counter() - t0)
+            if impl == "gather":
+                gather_logits = logits.float()
+    return dict(
+        routing_choices_per_layer=int(k_routes.calls[0][0].numel()),
+        routing_agreement_per_layer=agree,
+        routing_dropped_choices_per_layer=dropped,
+        routing_tokens_with_a_dropped_choice_per_layer=dropped_tokens,
+        prefill_seconds_by_moe_impl=seconds,
+        gather_logits_max_abs_diff_vs_einsum=float(
+            (gather_logits - got).abs().max()))
 
 
 def _kernel_class(name: str) -> str:
@@ -1154,7 +1356,7 @@ def device_ms(run, counts=None):
 
 
 def serve_profile(model, params, tokens, max_len, *, prefill_s,
-                  decode_step_s):
+                  decode_step_s, embeds=None):
     """Device time by kernel class (torch.profiler) of one prefill and of
     four decode steps, and the device's idle share against the wall
     seconds of the same work in the unprofiled stream (the profiler slows
@@ -1164,10 +1366,11 @@ def serve_profile(model, params, tokens, max_len, *, prefill_s,
 
     steps = 4
     with torch.inference_mode():
-        logits, cache = model.prefill(params, tokens, max_len)
+        logits, cache = model.prefill(params, tokens, max_len, embeds=embeds)
         tok = logits.argmax(-1)[:, 0]
         torch.cuda.synchronize()
-        pre = device_ms(lambda: model.prefill(params, tokens, max_len))
+        pre = device_ms(lambda: model.prefill(params, tokens, max_len,
+                                              embeds=embeds))
         state = {"cache": cache, "tok": tok}
 
         def decode():
@@ -1327,10 +1530,12 @@ def reset_counts(*mods) -> None:
                     v[key] = 0
 
 
-def oob_heavy_apps(times, counts, hybrid):
-    """The apps the engines hand to the forecast post-pass — those whose
-    out-of-bounds share ends over the threshold — computed on the host
-    from the trace alone, as a check of the engine's own flags."""
+def post_pass_selections(times, counts, hybrid):
+    """The apps the engines hand to the forecast post-pass — those at which
+    the scalar policy consults the forecaster after some event (enough
+    samples, OOB-heavy) — and the selection before that repair — those
+    OOB-heavy after their last event — both computed on the host from the
+    trace alone, as a check of the engine's own flags."""
     from repro_torch.core import policy_math
     h = hybrid.histogram
     col = np.arange(times.shape[1] - 1)[None, :]
@@ -1340,9 +1545,50 @@ def oob_heavy_apps(times, counts, hybrid):
                       - times[:, :-1].astype(np.float64), 0.0)
     _, in_b, oob = policy_math.classify_idle_time(it, gap, h.bin_minutes,
                                                   h.n_bins)
-    return policy_math.oob_heavy(in_b.sum(1).astype(np.int32),
-                                 oob.sum(1).astype(np.int32),
-                                 hybrid.oob_fraction_threshold)
+    total = np.cumsum(in_b, 1, dtype=np.int32)
+    oob = np.cumsum(oob, 1, dtype=np.int32)
+    heavy = policy_math.oob_heavy(total, oob, hybrid.oob_fraction_threshold)
+    consulted = (heavy & (total + oob >= hybrid.min_samples) & gap).any(1)
+    return consulted, heavy[:, -1]
+
+
+def scan_flags(times, counts, hybrid, device):
+    """The scan's ``consulted`` flags of every app, from the kernel scan
+    and from the plain scan on the card, chunk by chunk as the engine
+    scans (uncounted); every output of the two must be equal. Returns the
+    kernel's flags [n] and the seconds of the kernel scans."""
+    import torch
+    from repro_torch.core.simulator import (DEFAULT_APP_CHUNK,
+                                            _build_cfg_blocks, _chunk_stream,
+                                            _chunked_buckets,
+                                            _hybrid_sweep_scan)
+    from repro_torch.kernels import histogram as H
+    dev = torch.device(device)
+    ci, cf = (torch.from_numpy(x).to(dev)
+              for x in _build_cfg_blocks([hybrid]))
+    bm = torch.tensor([float(hybrid.histogram.bin_minutes)],
+                      dtype=torch.float64, device=dev)
+    n_bins = hybrid.histogram.n_bins
+    flags = np.zeros(len(counts), bool)
+    kernel_s = 0.0
+    with uncounted(H):
+        for sel, cols in _chunk_stream(_chunked_buckets(
+                times, counts, DEFAULT_APP_CHUNK), dev):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = _hybrid_sweep_scan(cols, ci, cf, bm, n_bins,
+                                     H.fused_hybrid_sweep_scan)
+            torch.cuda.synchronize()
+            kernel_s += time.perf_counter() - t0
+            want = _hybrid_sweep_scan(cols, ci, cf, bm, n_bins,
+                                      H.fused_hybrid_sweep_scan_plain)
+            for name, g, w in zip(("cold", "waste", "consulted", "last_t",
+                                   "prewarm", "unload_at"), got, want):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"arima_point: the kernel scan's "
+                                         f"{name} != the plain scan's")
+            flags[sel] = got[2][0].cpu().numpy()
+    return flags, kernel_s
 
 
 def fit_bounds(want, got):
@@ -1392,9 +1638,13 @@ def fits_equal(a, b) -> bool:
 def arima_point(device):
     """run(azure_like(100k, 7 days), HybridSpec()) on the card, engine
     "kernel": the histogram pass (one scan launch a chunk), then the
-    forecast post-pass of the OOB-heavy apps (the step kernel once per
-    event column in the rescan, one batched fit of every forecaster
-    window). Gates: (1) apps not flagged equal the use_arima=False run;
+    forecast post-pass of the apps the scan flags (the step kernel once
+    per event column in the rescan, one batched fit of every forecaster
+    window). The selection's gates: the kernel scan's flags equal the
+    plain scan's and the host's (``post_pass_selections``), the old
+    final-state selection has ARIMA_OLD_SELECTION apps, and the first
+    ARIMA_ADDED_CHECK apps the new one adds equal ``simulate_scalar``.
+    Gates: (1) apps not flagged equal the use_arima=False run;
     (2) simulate_scalar with the forecasters on the card equals the
     replay on sampled flagged apps; (3) the card's fit of sampled windows
     is bit-identical whole, in chunks of 7 and row by row; (4) it is
@@ -1434,7 +1684,18 @@ def arima_point(device):
     total_s = time.perf_counter() - t0
     step_launches, scan_launches = H.LAUNCHES, H.SCAN_LAUNCHES
 
-    flagged = oob_heavy_apps(times, counts, hyb)
+    flagged, old_selection = post_pass_selections(times, counts, hyb)
+    # the kernel scan's flags: equal to the plain scan's, and to the host's
+    # selection from the trace alone
+    kernel_flags, flags_scan_s = scan_flags(times, counts, hyb, device)
+    if not np.array_equal(kernel_flags, flagged):
+        raise AssertionError(f"arima_point: the scan flags "
+                             f"{int(kernel_flags.sum())} apps, the host's "
+                             f"selection {int(flagged.sum())}")
+    if int(old_selection.sum()) != ARIMA_OLD_SELECTION:
+        raise AssertionError(f"arima_point: the final-state selection has "
+                             f"{int(old_selection.sum())} apps, not "
+                             f"{ARIMA_OLD_SELECTION}")
     aidx = np.nonzero(flagged)[0]
     sub_t, sub_c = times[aidx], counts[aidx].astype(np.int64)
     columns = sum(sub.shape[1] for _, sub in
@@ -1481,6 +1742,19 @@ def arima_point(device):
             raise AssertionError(f"arima_point: the stages' {field} differs "
                                  f"from the main run's")
     forecast_apps = int((~np.isnan(last_keep)).sum())
+
+    # the apps the new selection adds: on the first ARIMA_ADDED_CHECK of
+    # them, the scalar oracle's cold counts are the main run's (the old
+    # selection left them at the use_arima=False run's)
+    added = np.nonzero(flagged & ~old_selection)[0][:ARIMA_ADDED_CHECK]
+    t0 = time.perf_counter()
+    added_oracle = simulate_scalar(trace, spec.build(device="cpu"),
+                                   app_indices=added)
+    added_s = time.perf_counter() - t0
+    if not np.array_equal(got.cold[added], added_oracle.cold[added]):
+        raise AssertionError("arima_point: the kernel engine's cold counts "
+                             "!= the scalar oracle's on the added apps")
+    added_moved = int((base.cold[added] != got.cold[added]).sum())
 
     # gate 2: the scalar oracle with its forecasters on the card, on
     # sampled flagged apps whose replay needs a few dozen fits in all
@@ -1547,7 +1821,15 @@ def arima_point(device):
     spans = np.asarray([A._pow2(x) for x in lens])
     emit("arima_point", n_apps=ARIMA_APPS, days=ARIMA_DAYS, seed=0,
          n_bins=hyb.histogram.n_bins, invocations=int(counts.sum()),
-         trace_gen_seconds=gen_s, oob_heavy_apps=int(len(aidx)),
+         trace_gen_seconds=gen_s, post_passed_apps=int(len(aidx)),
+         post_passed_apps_old_selection=int(old_selection.sum()),
+         selection_added=int((flagged & ~old_selection).sum()),
+         selection_dropped=int((old_selection & ~flagged).sum()),
+         flags_kernel_equal_plain=True,
+         flags_kernel_scan_seconds=flags_scan_s,
+         added_checked_apps=int(len(added)),
+         added_checked_cold_moved=added_moved,
+         added_checked_oracle_seconds=added_s,
          forecast_apps=int(len(rows)), final_forecast_apps=forecast_apps,
          forecaster_windows=int(len(lens)),
          windows_by_span={int(k): int((spans == k).sum())
@@ -2290,11 +2572,13 @@ def time_ssd(device):
     return kernel_ms, plain_ms, bound_ms, bound_by
 
 
-def time_decode(device):
-    """The decode kernel at the Qwen2-7B serving shape (bf16, the full
-    4,112-row cache), its plain version, and scaled_dot_product_attention
-    with enable_gqa, with the boolean kv_len mask and without one (the same
-    function at kv_len = Skv), each SDPA backend pinned in turn (timed here
+def time_decode(device, d=DECODE_SHAPE,
+                per_request=QWEN2_DECODE_PER_REQUEST):
+    """The decode kernel at a serving shape ``d`` (bf16, the full 4,112-row
+    cache: Qwen2-7B's by default), its plain version, and
+    scaled_dot_product_attention with enable_gqa, with the boolean kv_len
+    mask and without one (the same function at kv_len = Skv), each SDPA
+    backend pinned in turn (timed here
     only; the port never calls it; the fastest accepted call is the
     yardstick). Each call reads one of eight caches in turn (135 MB, more
     than the 50 MB L2), as a decode step finds each layer's cache cold.
@@ -2308,7 +2592,6 @@ def time_decode(device):
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels.timing import graph_ms, launch_ms
 
-    d = DECODE_SHAPE
     B, Hq, Hkv, D, Skv = (d[k] for k in ("B", "Hq", "Hkv", "D", "Skv"))
     kv_len = Skv
     bufs = [decode_inputs(B, Skv, Hq, Hkv, D, torch.bfloat16, device,
@@ -2372,7 +2655,7 @@ def time_decode(device):
                bound_by=bound_by, bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms,
                share_of_bound=bound_ms / kernel_ms,
                cuda_core_ops_bound_ms=ops / F32_CUDA_CORE_OPS_PER_S * 1e3,
-               launches_per_request=QWEN2_DECODE_PER_REQUEST)
+               launches_per_request=per_request)
     emit("times_decode", **out)
     return out
 
@@ -2479,8 +2762,8 @@ def time_policy_update(columns, device, ptxas):
 def release_host_memory():
     """Hand the pinned host memory of the serving phases that ended back to
     the system: PyTorch's pinned allocator keeps freed blocks cached, and
-    the two Qwen2-7B host stores that come next need 69 GB of pinned
-    memory of the machine's 101 GB on their own."""
+    the two Qwen2-7B host stores need 69 GB of pinned memory of the
+    machine's 101 GB on their own, the two OLMoE-1B-7B ones 55 GB."""
     import gc
     import torch
     gc.collect()
@@ -2553,24 +2836,48 @@ def main() -> int:
     fleet_step_launches = fleet_point(device)
     fleet_s = time.perf_counter() - t_fleet
     t_serve = time.perf_counter()
-    serve_launches, serve_forms, n_requests = serve(
+    failed = []                           # the serving phases' logits gates
+    serve_launches, serve_forms, n_requests, f = serve(
         device, "serve", "recurrentgemma-2b", "rg2b",
         {"flash_attention": (FA, ATTN_PER_PREFILL),
          "rglru_scan": (R, RGLRU_PER_PREFILL)}, SERVE_LOGITS_REL_TOL)
     serve_s = time.perf_counter() - t_serve
+    failed += f
     t_serve = time.perf_counter()
-    mamba_launches, _, n_mamba = serve(
+    mamba_launches, _, n_mamba, f = serve(
         device, "serve_mamba2", "mamba2-2.7b", "m2",
         {"ssd_scan": (SS, SSD_PER_PREFILL)}, SERVE_MAMBA2_LOGITS_REL_TOL)
     serve_mamba_s = time.perf_counter() - t_serve
+    failed += f
     release_host_memory()
     t_serve = time.perf_counter()
-    qwen2_launches, qwen2_forms, n_qwen2 = serve(
+    qwen2_launches, qwen2_forms, n_qwen2, f = serve(
         device, "serve_qwen2", "qwen2-7b", "q7",
         {"flash_attention": (FA, QWEN2_ATTN_PER_REQUEST),
          "decode_attention": (DA, QWEN2_DECODE_PER_REQUEST)},
         SERVE_QWEN2_LOGITS_REL_TOL, decode_steps=SERVE_QWEN2_DECODE_STEPS)
     serve_qwen2_s = time.perf_counter() - t_serve
+    failed += f
+    release_host_memory()
+    t_serve = time.perf_counter()
+    olmoe_launches, olmoe_forms, n_olmoe, f = serve(
+        device, "serve_olmoe", "olmoe-1b-7b", "ol",
+        {"flash_attention": (FA, OLMOE_ATTN_PER_REQUEST),
+         "decode_attention": (DA, OLMOE_DECODE_PER_REQUEST)},
+        SERVE_MOE_LOGITS_REL_TOL, decode_steps=SERVE_QWEN2_DECODE_STEPS,
+        init="depth_scaled")
+    serve_olmoe_s = time.perf_counter() - t_serve
+    failed += f
+    release_host_memory()
+    t_serve = time.perf_counter()
+    seamless_launches, seamless_forms, n_seamless, f = serve(
+        device, "serve_seamless", "seamless-m4t-medium", "sm",
+        {"flash_attention": (FA, SEAMLESS_ATTN_PER_REQUEST),
+         "decode_attention": (DA, SEAMLESS_DECODE_PER_REQUEST)},
+        SERVE_ENCDEC_LOGITS_REL_TOL, decode_steps=SERVE_QWEN2_DECODE_STEPS)
+    serve_seamless_s = time.perf_counter() - t_serve
+    failed += f
+    release_host_memory()
     # time the step and the scan on the scale trace's columns, as the main
     # path ran them
     step = time_kernel(sweep_cols, device)
@@ -2578,9 +2885,14 @@ def main() -> int:
     del sweep_cols
     fa_rg = time_attention(device, ATTN_SHAPE, seed=30)
     fa_qw = time_attention(device, QWEN2_ATTN_SHAPE, seed=31)
+    fa_ol = time_attention(device, OLMOE_ATTN_SHAPE, seed=32)
+    fa_sm = time_attention(device, SEAMLESS_ATTN_SHAPE, seed=33)
     rg_ms, rg_call_ms, rg_plain_ms, rg_bound_ms = time_rglru(device, ptxas)
     ssd_ms, ssd_plain_ms, ssd_bound_ms, ssd_bound_by = time_ssd(device)
     da = time_decode(device)
+    da_ol = time_decode(device, OLMOE_DECODE_SHAPE, OLMOE_DECODE_PER_REQUEST)
+    da_sm = time_decode(device, SEAMLESS_DECODE_SHAPE,
+                        SEAMLESS_DECODE_PER_REQUEST)
     pu_ms, pu_back_ms, pu_plain_ms, pu_bound_ms, pu_bound_by = \
         time_policy_update(policy_cols, device, ptxas)
 
@@ -2608,20 +2920,26 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": csrc + "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:104",
-        # both serving paths' runs (RecurrentGemma's and Qwen2's prefills);
-        # ms, plain_ms, library_ms and bound_ms at RecurrentGemma's shape,
-        # Qwen2's beside them
+        # the serving paths' runs (RecurrentGemma's, Qwen2's, OLMoE's and
+        # SeamlessM4T's prefills); ms, plain_ms, library_ms and bound_ms at
+        # RecurrentGemma's shape, the others' beside them
         "launches": serve_launches["flash_attention"]
-        + qwen2_launches["flash_attention"],
+        + qwen2_launches["flash_attention"]
+        + olmoe_launches["flash_attention"]
+        + seamless_launches["flash_attention"],
         "launches_by_path": {"recurrentgemma": serve_forms["flash_attention"],
-                             "qwen2": qwen2_forms["flash_attention"]},
+                             "qwen2": qwen2_forms["flash_attention"],
+                             "olmoe": olmoe_forms["flash_attention"],
+                             "seamless": seamless_forms["flash_attention"]},
         "max_abs_err": attn_err, "ms": fa_rg["kernel_ms"],
         "plain_ms": fa_rg["plain_ms"], "bound_ms": fa_rg["bound_ms"],
         "bound_by": fa_rg["bound_by"], "library_ms": fa_rg["library_ms"],
         "library_backend": fa_rg["library_backend"],
-        "qwen2": {k: fa_qw[k] for k in (
+        **{name: {k: t[k] for k in (
             "kernel_ms", "plain_ms", "library_ms", "library_backend",
-            "bound_ms", "bound_by")}}, {
+            "bound_ms", "bound_by")} for name, t in (
+                ("qwen2", fa_qw), ("olmoe", fa_ol), ("seamless", fa_sm))}},
+        {
         "name": "rglru_scan", "route": "cuda",
         "source": csrc + "rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan.py:73",
@@ -2641,12 +2959,26 @@ def main() -> int:
         "name": "decode_attention", "route": "cuda",
         "source": csrc + "decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:96",
-        "launches": qwen2_launches["decode_attention"],
-        "launches_by_form": qwen2_forms["decode_attention"],
+        # the serving paths' decode steps; ms, plain_ms, library_ms and
+        # bound_ms at Qwen2's shape, OLMoE's and SeamlessM4T's beside them
+        "launches": qwen2_launches["decode_attention"]
+        + olmoe_launches["decode_attention"]
+        + seamless_launches["decode_attention"],
+        "launches_by_form": {form: sum(
+            forms["decode_attention"][form] for forms in (
+                qwen2_forms, olmoe_forms, seamless_forms))
+            for form in qwen2_forms["decode_attention"]},
+        "launches_by_path": {"qwen2": qwen2_forms["decode_attention"],
+                             "olmoe": olmoe_forms["decode_attention"],
+                             "seamless": seamless_forms["decode_attention"]},
         "max_abs_err": decode_err, "ms": da["kernel_ms"],
         "plain_ms": da["plain_ms"], "bound_ms": da["bound_ms"],
         "bound_by": da["bound_by"], "library_ms": da["library_ms"],
-        "library_backend": da["library_backend"]}, {
+        "library_backend": da["library_backend"],
+        **{name: {k: t[k] for k in (
+            "kernel_ms", "plain_ms", "library_ms", "library_backend",
+            "bound_ms", "bound_by")} for name, t in (
+                ("olmoe", da_ol), ("seamless", da_sm))}}, {
         "name": "policy_update", "route": "cuda",
         "source": csrc + "policy_update.cu",
         "replaces": "src/repro/kernels/histogram.py:128",
@@ -2660,9 +2992,17 @@ def main() -> int:
          scale_point_seconds=e2e["seconds"], serve_seconds=serve_s,
          serve_requests=n_requests, serve_mamba2_seconds=serve_mamba_s,
          serve_mamba2_requests=n_mamba, serve_qwen2_seconds=serve_qwen2_s,
-         serve_qwen2_requests=n_qwen2, policy_update_seconds=policy_s,
+         serve_qwen2_requests=n_qwen2, serve_olmoe_seconds=serve_olmoe_s,
+         serve_olmoe_requests=n_olmoe,
+         serve_seamless_seconds=serve_seamless_s,
+         serve_seamless_requests=n_seamless, policy_update_seconds=policy_s,
          arima_point_phase_seconds=arima_s, spes_point_seconds=spes_s,
          fleet_point_phase_seconds=fleet_s)
+    if failed:
+        # every phase ran and printed its line; a failed gate fails the run
+        emit("failed", gates=failed)
+        print("chip_smoke: " + "; ".join(failed), file=sys.stderr)
+        return 1
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

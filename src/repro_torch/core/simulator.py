@@ -16,8 +16,8 @@ this module holds the engines, all deciding through
     launch of the CUDA scan kernel on the card); otherwise through its
     plain version, the plain step per column. Per-config state is carried
     unfactored, ``[S, n, n_bins]`` int32. A forecaster cannot run inside
-    the scan: for each config with ``use_arima`` the apps that end
-    OOB-heavy are replayed afterwards through
+    the scan: for each config with ``use_arima`` the apps whose scan
+    flags a forecaster call at some event are replayed afterwards through
     :func:`repro_torch.forecast.replay.replay_oob_apps` on the same device
     (the step kernel once per event column with ``use_kernel``).
   * :func:`_run_spes_sweep` — S SPES predictor configs in one float64
@@ -416,14 +416,15 @@ def _hybrid_sweep_scan(cols: torch.Tensor, cfg_i32: torch.Tensor,
     for all S configs — ``kernels.histogram.fused_hybrid_sweep_scan`` (one
     launch of the CUDA kernel on the card) or its plain version (the plain
     step once per column). Idle times are binned by the exact float64
-    ``bin_minutes`` [S], from :func:`_initial_carry`. Returns (cold, waste, oob_heavy, last_t, prewarm, unload_at)."""
+    ``bin_minutes`` [S], from :func:`_initial_carry`. Returns (cold, waste,
+    consulted, last_t, prewarm, unload_at); ``consulted`` flags the apps at
+    which the scalar policy consults the forecaster at some event."""
     _check_scan_width(cols.shape[0])
     state = _initial_carry(cfg_f32, cols.shape[1], n_bins, cols.dtype)
-    prev_t, cum, oob, _, _, prewarm, unload_at, cold, waste = scan(
+    prev_t, _, _, _, _, prewarm, unload_at, cold, waste, consulted = scan(
         cols, *state, cfg_i32, cfg_f32, bin_minutes=bin_minutes)
-    oobh = policy_math.oob_heavy(cum[..., -1], oob, cfg_f32[:, 5:6])
     # the clock is config-independent: any row of prev_t is the last event
-    return cold, waste, oobh, prev_t[0], prewarm, unload_at
+    return cold, waste, consulted, prev_t[0], prewarm, unload_at
 
 
 def _run_hybrid_sweep(trace: Trace, hybrids: Sequence[HybridConfig],
@@ -446,7 +447,7 @@ def _run_hybrid_sweep(trace: Trace, hybrids: Sequence[HybridConfig],
     waste = np.zeros((S, n), np.float64)
     pre = np.zeros((S, n), np.float64)
     keep = np.empty((S, n), np.float64)
-    oob_flags = np.zeros((S, n), bool)
+    consulted = np.zeros((S, n), bool)
     for s, h in enumerate(hybrids):
         keep[s, :] = h.standard_keep_alive     # zero-event apps: never scanned
     duration = float(trace.duration_minutes)
@@ -476,23 +477,26 @@ def _run_hybrid_sweep(trace: Trace, hybrids: Sequence[HybridConfig],
     work = _chunked_buckets(times, counts, chunk)
     for sel, cols in _chunk_stream(work, device):
         for idx, ci, cf, bm, n_bins in bands:
-            c, w, oobh, last_t, pw, ub = (
+            c, w, flag, last_t, pw, ub = (
                 x.cpu().numpy()
                 for x in _hybrid_sweep_scan(cols, ci, cf, bm, n_bins, scan))
             at = np.ix_(idx, sel)
             cold[at] = c
-            oob_flags[at] = oobh
+            consulted[at] = flag
             waste[at], pre[at], keep[at] = _absolute_results(
                 w, last_t, pw, ub, duration, include_trailing)
 
-    # Forecast post-pass: each use_arima config's OOB-heavy apps replay
-    # through the batched forecasting subsystem (a rescan, one grid fit of
-    # every forecaster window, the cadence on the host), bit-identical to
-    # the scalar policy (see repro_torch.forecast.replay).
+    # Forecast post-pass: each use_arima config's apps at which the scalar
+    # policy consults the forecaster at some event (OOB-heavy with enough
+    # samples, mid-trace included) replay through the batched forecasting
+    # subsystem (a rescan, one grid fit of every forecaster window, the
+    # cadence on the host), bit-identical to the scalar policy (see
+    # repro_torch.forecast.replay). Every other app never takes the ARIMA
+    # branch, so the scan's results are already the scalar policy's.
     for s, h in enumerate(hybrids):
-        if h.use_arima and oob_flags[s].any():
+        if h.use_arima and consulted[s].any():
             from ..forecast.replay import replay_oob_apps
-            aidx = np.where(oob_flags[s])[0]
+            aidx = np.where(consulted[s])[0]
             out = replay_oob_apps(times, counts, duration, h, aidx,
                                   include_trailing, device=device,
                                   use_kernel=use_kernel)

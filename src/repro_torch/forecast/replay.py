@@ -2,8 +2,9 @@
 
 The port of ``repro/forecast/replay.py``: the engines' post-pass for
 ``HybridSpec(use_arima=True)``. A forecaster cannot run inside the sweep
-scan, so the apps whose out-of-bounds share ends over the threshold are
-replayed here, on the engine's device:
+scan, so the apps at which the scan flags a forecaster call (at some
+event, OOB-heavy with enough samples) are replayed here, on the engine's
+device:
 
   1. a rescan of those apps through the fused hybrid step, one launch of
      the sweep-step kernel per event column on the card

@@ -77,18 +77,19 @@ def _flatten(tree: Dict, prefix: str = "") -> Iterator[Tuple[str, object]]:
             yield path, val
 
 
-def _param_module(cfg: ModelConfig) -> Tuple[type, str]:
-    """The port's parameter module of ``cfg``'s family, and the key under
+def _param_module(cfg: ModelConfig) -> Tuple[type, Tuple[str, ...]]:
+    """The port's parameter module of ``cfg``'s family, and the keys under
     which the reference stacks its per-layer leaves."""
-    from .models import build
     from .models.mamba2 import SSMParams
+    from .models.moe import MoEParams
     from .models.rglru import HybridParams
-    from .models.transformer import DenseParams
+    from .models.transformer import DenseParams, EncDecParams
 
-    build(cfg)                      # raises for a family not ported yet
-    return {"dense": (DenseParams, "layers"),
-            "hybrid": (HybridParams, "blocks"),
-            "ssm": (SSMParams, "layers")}[cfg.family]
+    return {"dense": (DenseParams, ("layers",)),
+            "moe": (MoEParams, ("layers",)),
+            "encdec": (EncDecParams, ("enc_layers", "layers")),
+            "hybrid": (HybridParams, ("blocks",)),
+            "ssm": (SSMParams, ("layers",))}[cfg.family]
 
 
 def model_params_from_numpy(cfg: ModelConfig, tree: Dict, *,
@@ -96,8 +97,10 @@ def model_params_from_numpy(cfg: ModelConfig, tree: Dict, *,
     """The reference's parameter pytree (nested dicts of numpy arrays, the
     repeated blocks stacked on a leading axis: ``[n_super, ...]`` under
     ``blocks`` for the hybrid family, ``[n_layers, ...]`` under ``layers``
-    for the dense and SSM families) as the port's fp32 parameter module on
-    ``device``.
+    for the dense, MoE and SSM families (the MoE experts' leaves are
+    ``[n_layers, E, D, F]``), ``[n_encoder_layers, ...]`` under
+    ``enc_layers`` and ``[n_layers, ...]`` under ``layers`` for the
+    encoder-decoder) as the port's fp32 parameter module on ``device``.
 
     Names map one to one (``blocks/rec1/wx/w``[i] -> ``blocks.i.rec1.wx.w``,
     ``layers/A_log``[i] -> ``layers.i.A_log``, ``layers/attn/wq/b``[i] ->
@@ -106,12 +109,14 @@ def model_params_from_numpy(cfg: ModelConfig, tree: Dict, *,
     reference's ``[d_in, d_out]`` layout, which the port multiplies the same
     way (``x @ w``). Raises ``ValueError`` on a missing or extra leaf or a
     shape that differs."""
-    module, stacked = _param_module(cfg)
+    module, stacked_keys = _param_module(cfg)
     dev = resolve_device(device)
     flat = {}
     for path, arr in _flatten(tree):
         arr = np.asarray(arr)
-        if path.startswith(stacked + "."):
+        stacked = next((k for k in stacked_keys
+                        if path.startswith(k + ".")), None)
+        if stacked is not None:
             for i in range(arr.shape[0]):
                 flat[f"{stacked}.{i}.{path[len(stacked) + 1:]}"] = arr[i]
         else:

@@ -34,10 +34,12 @@
 // The scan (hybrid_sweep_scan_*): the time loop moves into the kernel, so a
 // row's histogram crosses device memory once a chunk instead of once a
 // column: read once, kept on chip across all the columns, written once;
-// the eight scalars stay in registers and are written once. One warp per
-// row; the event times come 32 columns at a time, one load a lane, and
-// reach the warp by shuffles. The host picks the form from n_bins
-// (kernels/histogram.py::scan_form):
+// the eight scalars stay in registers and are written once, with one flag
+// more: whether the scalar policy's forecaster guard (enough samples, OOB
+// heavy) held after some event column, which selects the apps of the
+// ARIMA post-pass. One warp per row; the event times come 32 columns at a
+// time, one load a lane, and reach the warp by shuffles. The host picks
+// the form from n_bins (kernels/histogram.py::scan_form):
 //   * registers (n_bins <= 32 * BPL, BPL 2 or 8 bins a lane: the sweep
 //     point's 60 bins and the paper's 240): lane L holds bins
 //     [L*BPL, (L+1)*BPL) in registers. The raw counts at
@@ -214,8 +216,10 @@ __device__ __forceinline__ bool reaches(int cum, int thr) {
 
 // After the histogram pass: the Welford accumulators from the bin's
 // pre-update raw count, the out-of-bounds count, the float32 windows (left
-// to right) and the gate; the windows govern the row's next gap.
-__device__ __forceinline__ void decide(Row& r, double t, const Hit& h,
+// to right) and the gate; the windows govern the row's next gap. Returns
+// whether the scalar policy consults the forecaster at this event: enough
+// samples and the OOB counter heavy (forecast/replay.py::_branch_scan).
+__device__ __forceinline__ bool decide(Row& r, double t, const Hit& h,
                                        const Cfg& c, int total, int raw_old,
                                        int head, int tail) {
   const double inb = h.in_b ? 1.0 : 0.0;
@@ -244,6 +248,7 @@ __device__ __forceinline__ void decide(Row& r, double t, const Hit& h,
   r.pre = (double)(use_hist ? load : 0.0f);
   r.ub = (double)(use_hist ? unload : c.std_keep);
   r.p = t;
+  return seen >= c.min_samples && heavy;
 }
 
 // One pass of a warp over a row whose lane L owns the bins b = L mod 32:
@@ -355,7 +360,8 @@ hybrid_sweep_scan_reg_kernel(const double* __restrict__ cols, int width,
                              const int* __restrict__ cfg_i32,
                              const float* __restrict__ cfg_f32,
                              const double* __restrict__ bin_minutes, Out o,
-                             int S, int n, int n_bins) {
+                             bool* __restrict__ consulted, int S, int n,
+                             int n_bins) {
   const int lane = threadIdx.x & 31;
   const int64_t row =
       (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
@@ -375,6 +381,7 @@ hybrid_sweep_scan_reg_kernel(const double* __restrict__ cols, int width,
                          (n_bins - 1) / BPL);
 
   double block = 0.0;
+  bool consult = false;   // the forecaster consulted at some event column
   for (int col = 0; col < width; ++col) {
     const double t = column_time(cols, width, n, a, col, lane, block);
     if (!isfinite(t)) continue;          // uniform across the warp
@@ -400,13 +407,16 @@ hybrid_sweep_scan_reg_kernel(const double* __restrict__ cols, int width,
     }
     head = __reduce_min_sync(kFull, head);
     tail = __reduce_min_sync(kFull, tail) + 1;
-    decide(r, t, h, c, total, raw_old, head, tail);
+    consult |= decide(r, t, h, c, total, raw_old, head, tail);
   }
 
 #pragma unroll
   for (int k = 0; k < BPL; ++k)
     if (b0 + k < n_bins) crow[b0 + k] = v[k];
-  if (lane == 0) store_row(o, row, r);
+  if (lane == 0) {
+    store_row(o, row, r);
+    consulted[row] = consult;
+  }
 }
 
 State make_state(const void* prev_t, const void* oob, const void* cv_sum,
@@ -441,12 +451,13 @@ Out make_out(void* o_prev, void* o_oob, void* o_cvs, void* o_cvss,
 template <int BPL>
 void launch_reg(cudaStream_t stream, const double* cols, int width,
                 const State& st, int* cum, const int* ci, const float* cf,
-                const double* bm, const Out& o, int S, int n, int n_bins) {
+                const double* bm, const Out& o, bool* consulted, int S,
+                int n, int n_bins) {
   const int64_t blocks =
       ((int64_t)S * n + kWarpsPerBlock - 1) / kWarpsPerBlock;
   hybrid_sweep_scan_reg_kernel<BPL><<<(unsigned)blocks, kWarpsPerBlock * 32,
                                       0, stream>>>(
-      cols, width, st, cum, ci, cf, bm, o, S, n, n_bins);
+      cols, width, st, cum, ci, cf, bm, o, consulted, S, n, n_bins);
 }
 
 }  // namespace
@@ -480,7 +491,9 @@ int hybrid_sweep_step(
 
 // Launch the scan of `width` columns (cols [width, n] float64) on `stream`
 // in the register form, `bpl` bins a lane (2 or 8; n_bins <= 32 * bpl).
-// Returns 0, a CUDA error code or kErrForm.
+// Besides the eight scalars it writes `consulted` [S, n] (bool): whether
+// the forecaster guard held at some event column of the row. Returns 0, a
+// CUDA error code or kErrForm.
 int hybrid_sweep_scan(
     const void* cols, int width, const void* prev_t, void* cum,
     const void* oob, const void* cv_sum, const void* cv_sum_sq,
@@ -488,7 +501,7 @@ int hybrid_sweep_scan(
     const void* waste, const void* cfg_i32, const void* cfg_f32,
     const void* bin_minutes, void* o_prev, void* o_oob, void* o_cvs,
     void* o_cvss, void* o_pre, void* o_unload, void* o_cold, void* o_waste,
-    int S, int n, int n_bins, int bpl, void* stream) {
+    void* consulted, int S, int n, int n_bins, int bpl, void* stream) {
   const int64_t rows = (int64_t)S * n;
   if (rows == 0) return 0;
   if (n_bins > 32 * bpl) return kErrForm;
@@ -501,11 +514,12 @@ int hybrid_sweep_scan(
   const int* ci = (const int*)cfg_i32;
   const float* cf = (const float*)cfg_f32;
   const double* bm = (const double*)bin_minutes;
+  bool* fl = (bool*)consulted;
   cudaStream_t sm = (cudaStream_t)stream;
   switch (bpl) {
-    case 2: launch_reg<2>(sm, c, width, st, cm, ci, cf, bm, o, S, n,
+    case 2: launch_reg<2>(sm, c, width, st, cm, ci, cf, bm, o, fl, S, n,
                           n_bins); break;
-    case 8: launch_reg<8>(sm, c, width, st, cm, ci, cf, bm, o, S, n,
+    case 8: launch_reg<8>(sm, c, width, st, cm, ci, cf, bm, o, fl, S, n,
                           n_bins); break;
     default: return kErrForm;
   }

@@ -23,8 +23,10 @@ on CUDA tensors one launch of the scan kernel in the same source (each
 row's histogram kept on chip across the columns, in the form
 :func:`scan_form` picks from the row width), on CPU tensors
 :func:`fused_hybrid_sweep_scan_plain` (the plain step iterated). Its
-outputs are the iterated step's, bit for bit. The step stays: it is the
-S=1 parity surface and what the scan is held to on the card.
+outputs are the iterated step's, bit for bit, and the per-row flag "the
+forecaster was consulted" that selects the apps of the ARIMA post-pass.
+The step stays: it is the S=1 parity surface and what the scan is held to
+on the card.
 
 :func:`policy_update` is one control-plane tick for the whole fleet — the
 port of ``repro/kernels/histogram.py::policy_update_pallas`` (body
@@ -234,19 +236,34 @@ def scan_form(n_bins: int) -> tuple:
     return "columns", 0
 
 
+def _consulted_after(t_now, state, cfg_i32, cfg_f32):
+    """Whether the scalar policy consults the forecaster after the event
+    column ``t_now`` ``[n]``, per row ``[S, n]``: an event, enough recorded
+    samples AND the OOB counter heavy (the guard of
+    ``HybridHistogramPolicy._decide`` that ``forecast/replay.py::
+    _branch_scan`` evaluates), on the step's post-update ``state``."""
+    total, oob = state[1][..., -1], state[2]
+    heavy = policy_math.oob_heavy(total, oob, cfg_f32[:, 5:6])
+    return heavy & ((total + oob) >= cfg_i32[:, 3:4]) & \
+        torch.isfinite(t_now)[None]
+
+
 def fused_hybrid_sweep_scan_plain(cols, prev_t, cum, oob, cv_sum, cv_sum_sq,
                                   prewarm, unload_at, cold, waste, cfg_i32,
                                   cfg_f32, *, bin_minutes=None):
     """:func:`fused_hybrid_sweep_step_plain` over the event columns ``cols``
     ``[width, n]`` in order, on any device and in any time dtype; ``cum`` is
-    updated in place."""
+    updated in place. Returns the step's nine outputs and ``consulted``
+    ``[S, n]`` bool, the OR over the columns of :func:`_consulted_after`."""
     state = (prev_t, cum, oob, cv_sum, cv_sum_sq, prewarm, unload_at, cold,
              waste)
+    consulted = torch.zeros(oob.shape, dtype=torch.bool, device=oob.device)
     for t_now in cols:
         state = fused_hybrid_sweep_step_plain(t_now, *state, cfg_i32,
                                               cfg_f32,
                                               bin_minutes=bin_minutes)
-    return state
+        consulted |= _consulted_after(t_now, state, cfg_i32, cfg_f32)
+    return (*state, consulted)
 
 
 def _check_cols(cols, n) -> None:
@@ -275,7 +292,7 @@ def _scan_lib() -> ctypes.CDLL:
     if not getattr(lib, "_scan_typed", False):
         fn = lib.hybrid_sweep_scan
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + \
-            [ctypes.c_void_p] * 20 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 21 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib._scan_typed = True
     return lib
@@ -292,19 +309,23 @@ def _scan_launch(cols, args, bin_minutes):
     form, bpl = scan_form(n_bins)
     if form == "columns":
         state = args[:9]
+        consulted = torch.zeros((S, n), dtype=torch.bool, device=cum.device)
         for t_now in cols:
             state = _launch((t_now, *state, *args[9:]), bin_minutes)
+            consulted |= _consulted_after(t_now, state, args[9], cfg_f32)
         SCAN_LAUNCHES += 1
         SCAN_LAUNCHES_BY_FORM[form] += 1
-        return state
+        return (*state, consulted)
     lib = _scan_lib()
     outs = [torch.empty_like(x) for x in (args[0], *args[2:9])]
+    consulted = torch.empty((S, n), dtype=torch.bool, device=cum.device)
     with torch.cuda.device(cum.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.hybrid_sweep_scan(
             cols.data_ptr(), cols.shape[0],
             *(x.data_ptr() for x in (*args, bin_minutes)),
-            *(o.data_ptr() for o in outs), S, n, n_bins, bpl, stream)
+            *(o.data_ptr() for o in outs), consulted.data_ptr(), S, n,
+            n_bins, bpl, stream)
     if rc != 0:
         raise RuntimeError("hybrid_sweep_scan launch failed: "
                            + lib.hybrid_error_string(rc).decode())
@@ -312,7 +333,7 @@ def _scan_launch(cols, args, bin_minutes):
     SCAN_LAUNCHES_BY_FORM[form] += 1
     o_prev, o_oob, o_cvs, o_cvss, o_pre, o_unload, o_cold, o_waste = outs
     return (o_prev, cum, o_oob, o_cvs, o_cvss, o_pre, o_unload, o_cold,
-            o_waste)
+            o_waste, consulted)
 
 
 def fused_hybrid_sweep_scan(cols, prev_t, cum, oob, cv_sum, cv_sum_sq,
@@ -321,7 +342,10 @@ def fused_hybrid_sweep_scan(cols, prev_t, cum, oob, cv_sum, cv_sum_sq,
     """:func:`fused_hybrid_sweep_step` over every event column of ``cols``
     ``[width, n]`` (``+inf`` = no event), in one call: returns exactly what
     the step iterated over the columns returns, the nine tensors in the
-    step's order, with ``cum`` updated in place.
+    step's order, with ``cum`` updated in place, and a tenth, ``consulted``
+    ``[S, n]`` bool: whether the scalar policy would consult the forecaster
+    after some event of the row (enough samples, OOB-heavy), the selection
+    of the ARIMA post-pass.
 
     CPU tensors run :func:`fused_hybrid_sweep_scan_plain`, in any time
     dtype; CUDA tensors (float64 ``cols`` and time) launch the scan kernel

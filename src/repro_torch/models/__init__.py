@@ -1,5 +1,5 @@
-"""Model stack of the port: the dense (Qwen2, SmolLM), hybrid
-(RecurrentGemma) and SSM (Mamba-2) families so far."""
+"""Model stack of the port: every family of ``configs.ARCHS`` (dense,
+MoE, encoder-decoder, hybrid, SSM) and the frontend stubs."""
 from .model import Model, build, n_params
 
 __all__ = ["Model", "build", "n_params"]

@@ -1,7 +1,8 @@
 """Shared layers of the ported families, as functions on parameter modules.
 
 The counterpart of ``repro/models/layers.py``, kept to what the serving
-paths of the dense (Qwen2, SmolLM), hybrid (RecurrentGemma) and SSM
+paths of the dense (Qwen2, SmolLM, the LLaVA backbone), MoE (OLMoE,
+Qwen3-MoE), encoder-decoder (SeamlessM4T), hybrid (RecurrentGemma) and SSM
 (Mamba-2) families need. Conventions, as in the reference:
 
   * parameters are ``nn.Module`` trees whose names follow the reference's
@@ -12,6 +13,8 @@ paths of the dense (Qwen2, SmolLM), hybrid (RecurrentGemma) and SSM
     embedding table, the conv taps), while those in ``FP32_AT_USE`` stay
     fp32 and ``rmsnorm`` computes in fp32 before the final cast;
   * attention is GQA with RoPE; ``window > 0`` masks to a local band;
+    ``kv_source`` makes it cross-attention over a memory (no RoPE, no
+    cache, not causal);
   * a KV cache is ``{"k": [per layer [B, max_len, Hkv, hd]], "v": ...,
     "pos": int}``: one preallocated tensor pair per layer (the reference
     stacks them ``[n_layers, ...]``), written in place, with ``pos`` a host
@@ -19,9 +22,8 @@ paths of the dense (Qwen2, SmolLM), hybrid (RecurrentGemma) and SSM
 
 Left out (on no path): the distributed-decode branch of
 ``attention_apply`` (``dist_decode.applicable`` is false on one device),
-cross-attention (``kv_source``, the encoder-decoder family), the
-cross-entropy losses, and ``scan_blocks`` (the port loops over layers in
-Python).
+the cross-entropy losses (ROADMAP Queue A item 4, with training), and
+``scan_blocks`` (the port loops over layers in Python).
 """
 from __future__ import annotations
 
@@ -36,17 +38,27 @@ from ..device import resolve_device
 from ..kernels import ops as kops
 from ..kernels.flash_attention import sdpa
 
-__all__ = ["FP32_AT_USE", "compute_dtype", "Linear", "RMSNorm", "Attention", "MLP",
-           "Embedding", "normal_", "linear", "rmsnorm", "causal_conv", "rope",
-           "attention_apply", "make_cache", "mlp_apply", "embed", "unembed",
-           "_sdpa"]
+__all__ = ["FP32_AT_USE", "fp32_at_use", "compute_dtype", "Linear",
+           "RMSNorm", "Attention", "MLP", "Embedding", "normal_", "linear",
+           "rmsnorm", "causal_conv", "rope", "attention_apply", "make_cache",
+           "mlp_apply", "embed", "unembed", "_sdpa"]
 
-#: Parameter names (the last part) that stay fp32 at use: the ``rmsnorm``
-#: scales, the RG-LRU ``lam``, and Mamba-2's ``A_log`` and ``dt_bias``
-#: (``A = -exp(A_log)`` and ``softplus(dt + dt_bias)`` are f32 in the
-#: reference). Every other parameter is cast to the activation dtype where
-#: it is used.
-FP32_AT_USE = ("scale", "lam", "A_log", "dt_bias")
+#: Parameter names that stay fp32 at use, matched against the last parts of
+#: a parameter's dotted name (:func:`fp32_at_use`): the ``rmsnorm`` scales,
+#: the RG-LRU ``lam``, Mamba-2's ``A_log`` and ``dt_bias`` (``A =
+#: -exp(A_log)`` and ``softplus(dt + dt_bias)`` are f32 in the reference)
+#: and the MoE router's weight (the reference routes in f32: ``xg.astype(
+#: f32) @ router.w``). Every other parameter is cast to the activation
+#: dtype where it is used.
+FP32_AT_USE = ("scale", "lam", "A_log", "dt_bias", "router.w")
+
+
+def fp32_at_use(name: str) -> bool:
+    """Whether the parameter of dotted ``name`` stays fp32 at use: its last
+    parts equal an entry of ``FP32_AT_USE`` (``layers.3.moe.router.w``
+    matches ``router.w``; ``layers.3.attn.wq.w`` matches nothing)."""
+    return any(name == e or name.endswith("." + e) for e in FP32_AT_USE)
+
 
 #: The reference's plain attention (``layers._sdpa``, with its query-blocked
 #: form from 8,192 query rows): the model's branch when the kernels are
@@ -61,7 +73,8 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 def normal_(t: torch.Tensor, gen: torch.Generator, scale=None) -> None:
     """The reference's ``_init``: normal times ``scale``, by default
     1/sqrt(fan_in) with fan_in the first dimension of a matrix (1 for a
-    vector)."""
+    vector). For stacked weights (the MoE experts' ``[E, D, F]``) the
+    first dimension is not the fan-in: pass ``scale``."""
     fan_in = t.shape[0] if t.dim() > 1 else 1
     scale = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
     with torch.no_grad():
@@ -176,8 +189,15 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 
 def attention_apply(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                     positions: torch.Tensor, *, causal: bool = True,
-                    window: int = 0, cache=None) -> torch.Tensor:
-    """Self-attention.
+                    window: int = 0, cache=None, kv_source=None,
+                    use_rope: bool = True) -> torch.Tensor:
+    """Self- or cross-attention.
+
+    With ``kv_source`` [B, S_mem, D] (cross-attention, the encoder's
+    states): K and V come from the memory, no RoPE, no cache, not causal,
+    through the plain ``_sdpa``, as in the reference (its attention kernel
+    serves causal self-attention only). ``use_rope=False`` leaves RoPE out
+    of self-attention too.
 
     With no ``cache``: over the whole sequence; the kernel branch is taken
     under the reference's condition (``use_kernels``, S a multiple of 128,
@@ -195,10 +215,16 @@ def attention_apply(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     B, S, _ = x.shape
     hd = cfg.hd
     q = linear(p.wq, x).reshape(B, S, cfg.n_heads, hd)
-    k = linear(p.wk, x).reshape(B, S, cfg.n_kv_heads, hd)
-    v = linear(p.wv, x).reshape(B, S, cfg.n_kv_heads, hd)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    kv_in = x if kv_source is None else kv_source
+    S_kv = kv_in.shape[1]
+    k = linear(p.wk, kv_in).reshape(B, S_kv, cfg.n_kv_heads, hd)
+    v = linear(p.wv, kv_in).reshape(B, S_kv, cfg.n_kv_heads, hd)
+    if kv_source is not None:
+        out = _sdpa(q, k, v, causal=False, window=0, q_offset=0)
+        return linear(p.wo, out.reshape(B, S, cfg.n_heads * hd))
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     flash_ok = S % 128 == 0 and hd % 8 == 0 and causal
     if cache is None:
         if cfg.use_kernels and flash_ok:

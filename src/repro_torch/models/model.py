@@ -1,36 +1,41 @@
 """The model interface (the port of ``repro/models/model.py``).
 
-``Model(cfg)`` exposes, for the dense (Qwen2, SmolLM), hybrid
-(RecurrentGemma) and SSM (Mamba-2) families:
+``Model(cfg)`` exposes, for every family of ``configs.ARCHS`` (dense:
+Qwen2, SmolLM, DeepSeek, the LLaVA backbone; MoE: OLMoE, Qwen3-MoE;
+encoder-decoder: SeamlessM4T; hybrid: RecurrentGemma; SSM: Mamba-2):
 
-  * ``init(seed, device)``                  — parameter module (fp32)
-  * ``forward(params, tokens)``             — full-sequence logits
-  * ``prefill(params, tokens, max_len)``    — (last-token logits, state)
-  * ``decode_step(params, token, cache)``   — (logits, state)
-  * ``n_params()``                          — analytic parameter count
+  * ``init(seed, device, scheme="reference")`` — parameter module (fp32):
+    the reference's distributions, or for the MoE family
+    ``"depth_scaled"`` (:func:`moe.depth_scale_`)
+  * ``forward(params, tokens, embeds=None)`` — full-sequence logits (MoE:
+    ``(logits, aux)``, as the reference returns them)
+  * ``prefill(params, tokens, max_len, embeds=None)`` — (last-token
+    logits, state)
+  * ``decode_step(params, token, cache)`` — (logits, state)
+  * ``n_params()`` — analytic parameter count
 
-The MoE and encoder-decoder families are not ported yet: ``Model(cfg)``
-raises ``NotImplementedError`` naming the ROADMAP item that ports them, and
-so do ``forward`` and ``prefill`` given frontend ``embeds`` (the VLM
-path). :func:`n_params` is plain arithmetic and covers every family.
+Frontend ``embeds`` [B, frontend_tokens, D] (``models.frontend``) are the
+VLM backbone's prepended patches and the encoder-decoder's frames, which
+it needs (a ``ValueError`` without them); the other families take none.
+``loss`` belongs to training (ROADMAP Queue A item 4) and raises.
 """
 from __future__ import annotations
 
 from ..configs.base import ModelConfig
-from . import mamba2, rglru, transformer
+from . import mamba2, moe, rglru, transformer
 
-__all__ = ["Model", "build", "n_params", "FAMILY_NOT_PORTED",
-           "EMBEDS_NOT_PORTED"]
+__all__ = ["Model", "build", "n_params", "LOSS_NOT_PORTED", "INIT_SCHEMES"]
 
-FAMILY_NOT_PORTED = (
-    "model family {family!r} is not ported to repro_torch yet (ROADMAP "
-    "Queue A item 2: the MoE and encoder-decoder families are left); "
-    "the dense, hybrid and SSM families are")
-EMBEDS_NOT_PORTED = (
-    "frontend embeddings (the VLM path of the dense family) are not ported "
-    "to repro_torch yet (ROADMAP Queue A item 2: frontend.py)")
+LOSS_NOT_PORTED = (
+    "Model.loss is not ported to repro_torch yet (ROADMAP Queue A item 4: "
+    "the losses come with the training substrate)")
 
-_FAMILIES = {"dense": transformer, "hybrid": rglru, "ssm": mamba2}
+#: The draws ``Model.init`` makes: the reference's distributions, and
+#: ``"depth_scaled"`` (MoE family only; :func:`moe.depth_scale_`).
+INIT_SCHEMES = ("reference", "depth_scaled")
+
+_FAMILIES = {"dense": transformer, "moe": moe, "encdec": transformer,
+             "hybrid": rglru, "ssm": mamba2}
 
 
 def n_params(cfg: ModelConfig, active_only: bool = False) -> int:
@@ -70,30 +75,64 @@ def n_params(cfg: ModelConfig, active_only: bool = False) -> int:
 class Model:
     def __init__(self, cfg: ModelConfig):
         if cfg.family not in _FAMILIES:
-            raise NotImplementedError(
-                FAMILY_NOT_PORTED.format(family=cfg.family))
+            raise ValueError(f"unknown family {cfg.family!r}")
         self.cfg = cfg
         self._m = _FAMILIES[cfg.family]
 
-    def init(self, seed: int = 0, device=None):
+    def init(self, seed: int = 0, device=None, scheme: str = "reference"):
         """Random fp32 parameters from ``seed`` on ``device`` (the card
-        unless ``device="cpu"``)."""
-        return self._m.init(self.cfg, seed, device)
+        unless ``device="cpu"``), drawn as ``scheme`` (``INIT_SCHEMES``)
+        says."""
+        if scheme not in INIT_SCHEMES:
+            raise ValueError(f"unknown init scheme {scheme!r}")
+        if scheme == "depth_scaled" and self.cfg.family != "moe":
+            raise ValueError(f"the depth_scaled draw is the MoE family's; "
+                             f"not {self.cfg.family!r}")
+        if self.cfg.family == "encdec":
+            return transformer.encdec_init(self.cfg, seed, device)
+        params = self._m.init(self.cfg, seed, device)
+        if scheme == "depth_scaled":
+            moe.depth_scale_(self.cfg, params)
+        return params
 
-    def forward(self, params, tokens, embeds=None):
-        if embeds is not None:
-            raise NotImplementedError(EMBEDS_NOT_PORTED)
-        return self._m.forward(self.cfg, params, tokens)
+    def _check_embeds(self, embeds) -> None:
+        fam = self.cfg.family
+        if fam == "encdec" and embeds is None:
+            raise ValueError("the encoder-decoder needs frame embeddings: "
+                             "pass embeds [B, frontend_tokens, d_model]")
+        if fam not in ("dense", "encdec") and embeds is not None:
+            raise ValueError(f"family {fam!r} takes no frontend embeddings")
+
+    def loss(self, params, batch):
+        raise NotImplementedError(LOSS_NOT_PORTED)
+
+    def forward(self, params, tokens=None, embeds=None):
+        cfg = self.cfg
+        self._check_embeds(embeds)
+        if cfg.family == "encdec":
+            return transformer.encdec_forward(cfg, params, tokens, embeds)
+        if cfg.family == "dense":
+            return transformer.forward(cfg, params, tokens, embeds)
+        return self._m.forward(cfg, params, tokens)
 
     def prefill(self, params, tokens, max_len: int = 0, embeds=None):
         """Last-token logits and the decode state; ``max_len`` is the KV
-        cache's capacity for the dense family (0: the prompt's length) and
-        is not used by the others, whose state does not grow."""
-        if embeds is not None:
-            raise NotImplementedError(EMBEDS_NOT_PORTED)
-        return self._m.prefill(self.cfg, params, tokens, max_len)
+        cache's capacity for the attention families (0: the prompt's
+        length) and is not used by the others, whose state does not grow."""
+        cfg = self.cfg
+        self._check_embeds(embeds)
+        if cfg.family == "encdec":
+            return transformer.encdec_prefill(cfg, params, tokens, max_len,
+                                              embeds=embeds)
+        if cfg.family == "dense":
+            return transformer.prefill(cfg, params, tokens, max_len,
+                                       embeds=embeds)
+        return self._m.prefill(cfg, params, tokens, max_len)
 
     def decode_step(self, params, token, cache):
+        if self.cfg.family == "encdec":
+            return transformer.encdec_decode_step(self.cfg, params, token,
+                                                  cache)
         return self._m.decode_step(self.cfg, params, token, cache)
 
     def n_params(self, active_only: bool = False) -> int:

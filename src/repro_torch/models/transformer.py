@@ -1,5 +1,6 @@
-"""Dense decoder-only transformer (the llama/Qwen family). The port of the
-dense entries of ``repro/models/transformer.py``.
+"""Dense decoder-only transformer (the llama/Qwen family, also the VLM
+backbone) and the encoder-decoder (SeamlessM4T). The port of
+``repro/models/transformer.py``.
 
 Each block: rmsnorm, GQA self-attention with RoPE (and QKV biases where the
 config has them), residual; rmsnorm, SwiGLU MLP, residual. The reference's
@@ -16,9 +17,17 @@ per layer (``layers.make_cache``), written in place.
     card), else the plain ``_sdpa`` over the cache.
 
 The unembedding is tied to the embedding table (``tie_embeddings``, e.g.
-SmolLM) or a separate ``head`` (Qwen2). The VLM frontend (``embeds``) and
-the encoder-decoder entries are not ported: ``model.Model`` raises for
-them.
+SmolLM) or a separate ``head`` (Qwen2). ``forward`` and ``prefill`` take
+frontend ``embeds`` [B, S_f, D] (the VLM's patch embeddings, from
+``models.frontend``), prepended to the token embeddings.
+
+The encoder-decoder: an encoder of dense blocks over frame embeddings
+(non-causal, so its attention is the plain ``_sdpa``), then decoder blocks
+with a cross-attention residual (``ln_x``, ``xattn``) over the encoder's
+states. Its prefill cache carries those states as ``"enc"``; the decoder's
+self-attention takes the kernel branches as the dense family does, and
+the cross-attention the plain ``_sdpa`` (the reference takes its attention
+kernel for causal self-attention only).
 """
 from __future__ import annotations
 
@@ -31,8 +40,10 @@ from ..configs.base import ModelConfig
 from ..device import resolve_device
 from . import layers as L
 
-__all__ = ["DenseBlock", "DenseParams", "init", "block_apply", "forward",
-           "prefill", "decode_step"]
+__all__ = ["DenseBlock", "DenseParams", "EncDecBlock", "EncDecParams", "init",
+           "block_apply", "forward", "prefill", "decode_step",
+           "encdec_init", "encode", "encdec_forward", "encdec_prefill",
+           "encdec_decode_step"]
 
 
 # ---------------------------------------------------------------------------
@@ -68,16 +79,44 @@ class DenseParams(nn.Module):
             self.head = L.Linear(cfg.d_model, cfg.vocab)
 
 
-def init(cfg: ModelConfig, seed: int = 0, device=None) -> DenseParams:
-    """Random parameters from ``seed`` with the reference's distributions
-    (normal / sqrt(fan_in) for linear weights and the head, 0.02 for the
-    embedding, zero QKV biases, unit norm scales), made on ``device`` in
-    fp32. A ``torch.Generator`` does not give ``jax.random``'s numbers:
-    tests carry the reference's weights across through
-    ``interop.model_params_from_numpy``."""
+class EncDecBlock(DenseBlock):
+    """A decoder block of the encoder-decoder: a dense block plus the
+    cross-attention's ``ln_x`` and ``xattn``."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__(cfg)
+        self.ln_x = L.RMSNorm(cfg.d_model)
+        self.xattn = L.Attention(cfg)
+
+    def init_(self, gen: torch.Generator) -> None:
+        super().init_(gen)
+        self.xattn.init_(gen)
+
+
+class EncDecParams(nn.Module):
+    """``embed``, ``enc_layers`` (dense blocks), ``enc_ln``, ``layers``
+    (:class:`EncDecBlock`), ``ln_f`` and ``head``."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.embed = L.Embedding(cfg.vocab, cfg.d_model)
+        self.enc_layers = nn.ModuleList(DenseBlock(cfg)
+                                        for _ in range(cfg.n_encoder_layers))
+        self.enc_ln = L.RMSNorm(cfg.d_model)
+        self.layers = nn.ModuleList(EncDecBlock(cfg)
+                                    for _ in range(cfg.n_layers))
+        self.ln_f = L.RMSNorm(cfg.d_model)
+        self.head = L.Linear(cfg.d_model, cfg.vocab)
+
+
+def _init_params(module: type, cfg: ModelConfig, seed: int, device):
+    """``module(cfg)`` on ``device`` in fp32 with the reference's
+    distributions: zero biases, unit norm scales, then each submodule's
+    ``init_`` (normal / sqrt(fan_in) for linear weights, 0.02 for the
+    embedding) from one generator seeded with ``seed``."""
     device = resolve_device(device)
     with torch.device("meta"):
-        p = DenseParams(cfg)
+        p = module(cfg)
     p = p.to_empty(device=device).requires_grad_(False)
     with torch.no_grad():
         for name, t in p.named_parameters():
@@ -86,12 +125,29 @@ def init(cfg: ModelConfig, seed: int = 0, device=None) -> DenseParams:
             elif name.endswith(".scale"):
                 t.fill_(1.0)
     gen = torch.Generator(device=device).manual_seed(int(seed))
-    p.embed.init_(gen)
-    for lp in p.layers:
-        lp.init_(gen)
-    if not cfg.tie_embeddings:
-        p.head.init_(gen)
+    for m in p.children():
+        if isinstance(m, nn.ModuleList):
+            for lp in m:
+                lp.init_(gen)
+        elif hasattr(m, "init_"):
+            m.init_(gen)
     return p
+
+
+def init(cfg: ModelConfig, seed: int = 0, device=None) -> DenseParams:
+    """Random parameters from ``seed`` with the reference's distributions
+    (normal / sqrt(fan_in) for linear weights and the head, 0.02 for the
+    embedding, zero QKV biases, unit norm scales), made on ``device`` in
+    fp32. A ``torch.Generator`` does not give ``jax.random``'s numbers:
+    tests carry the reference's weights across through
+    ``interop.model_params_from_numpy``."""
+    return _init_params(DenseParams, cfg, seed, device)
+
+
+def encdec_init(cfg: ModelConfig, seed: int = 0,
+                device=None) -> EncDecParams:
+    """The encoder-decoder's parameters, as :func:`init` makes them."""
+    return _init_params(EncDecParams, cfg, seed, device)
 
 
 # ---------------------------------------------------------------------------
@@ -99,11 +155,18 @@ def init(cfg: ModelConfig, seed: int = 0, device=None) -> DenseParams:
 # ---------------------------------------------------------------------------
 
 
-def block_apply(cfg: ModelConfig, p: DenseBlock, x, positions, cache=None):
+def block_apply(cfg: ModelConfig, p: DenseBlock, x, positions, cache=None,
+                *, causal: bool = True, enc=None):
     """One block with its residuals; ``cache`` (one layer's ``k``, ``v``
-    and ``pos``) is written in place."""
+    and ``pos``) is written in place. With ``enc`` (the encoder's states)
+    the block is a decoder block of the encoder-decoder and adds the
+    cross-attention residual after the self-attention's."""
     x = x + L.attention_apply(p.attn, cfg, L.rmsnorm(p.ln1, x, cfg.norm_eps),
-                              positions, cache=cache)
+                              positions, causal=causal, cache=cache)
+    if enc is not None:
+        x = x + L.attention_apply(p.xattn, cfg,
+                                  L.rmsnorm(p.ln_x, x, cfg.norm_eps),
+                                  positions, kv_source=enc, use_rope=False)
     return x + L.mlp_apply(p.mlp, L.rmsnorm(p.ln2, x, cfg.norm_eps))
 
 
@@ -114,9 +177,22 @@ def _logits(cfg: ModelConfig, params: DenseParams, x):
     return L.linear(params.head, x)
 
 
-def forward(cfg: ModelConfig, params: DenseParams, tokens):
-    """Full-sequence causal logits [B, S, vocab] in the activation dtype."""
-    x = L.embed(params.embed, tokens, L.compute_dtype(cfg))
+def _embed_inputs(cfg: ModelConfig, params, tokens, embeds, dtype):
+    """Token embeddings, with frontend embeddings (VLM patches) prepended."""
+    parts = []
+    if embeds is not None:
+        parts.append(embeds.to(dtype))
+    if tokens is not None:
+        parts.append(L.embed(params.embed, tokens, dtype))
+    if not parts:
+        raise ValueError("give tokens, embeds or both")
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
+def forward(cfg: ModelConfig, params: DenseParams, tokens=None, embeds=None):
+    """Full-sequence causal logits [B, S, vocab] in the activation dtype
+    (S counts the ``embeds`` rows prepended to the tokens)."""
+    x = _embed_inputs(cfg, params, tokens, embeds, L.compute_dtype(cfg))
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     for lp in params.layers:
@@ -125,11 +201,12 @@ def forward(cfg: ModelConfig, params: DenseParams, tokens):
 
 
 def prefill(cfg: ModelConfig, params: DenseParams, tokens,
-            max_len: int = 0):
+            max_len: int = 0, embeds=None):
     """Prompt pass: last-token logits [B, 1, vocab] and a KV cache of
     capacity ``max_len`` (0: the prompt's length) holding the prompt's keys
-    and values, ``pos`` = S."""
-    x = L.embed(params.embed, tokens, L.compute_dtype(cfg))
+    and values, ``pos`` = S (``embeds`` rows prepended, as in
+    :func:`forward`)."""
+    x = _embed_inputs(cfg, params, tokens, embeds, L.compute_dtype(cfg))
     B, S, _ = x.shape
     max_len = max_len or S
     if max_len < S:
@@ -156,3 +233,77 @@ def decode_step(cfg: ModelConfig, params: DenseParams, token, cache: Dict):
                         cache={"k": ck, "v": cv, "pos": pos})
     logits = _logits(cfg, params, x)[:, 0]
     return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+
+
+# ---------------------------------------------------------------------------
+# Encoder-decoder (the SeamlessM4T backbone)
+# ---------------------------------------------------------------------------
+
+
+def encode(cfg: ModelConfig, params: EncDecParams, frames):
+    """The encoder over frontend frame embeddings [B, S_enc, D] (the audio
+    stub's): non-causal dense blocks, then ``enc_ln``."""
+    x = frames.to(L.compute_dtype(cfg))
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    for lp in params.enc_layers:
+        x = block_apply(cfg, lp, x, positions, causal=False)
+    return L.rmsnorm(params.enc_ln, x, cfg.norm_eps)
+
+
+def _encdec_logits(cfg: ModelConfig, params: EncDecParams, x):
+    return L.linear(params.head, L.rmsnorm(params.ln_f, x, cfg.norm_eps))
+
+
+def encdec_forward(cfg: ModelConfig, params: EncDecParams, tokens, frames):
+    """Decoder logits [B, S, vocab] over ``tokens``, cross-attending to
+    the encoding of ``frames``."""
+    enc = encode(cfg, params, frames)
+    x = L.embed(params.embed, tokens, L.compute_dtype(cfg))
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    for lp in params.layers:
+        x = block_apply(cfg, lp, x, positions, enc=enc)
+    return _encdec_logits(cfg, params, x)
+
+
+def encdec_prefill(cfg: ModelConfig, params: EncDecParams, tokens,
+                   max_len: int = 0, embeds=None):
+    """Encode ``embeds`` (the frames), run the prompt through the decoder:
+    last-token logits [B, 1, vocab] and a cache of capacity ``max_len``
+    (0: the prompt's length) that also carries the encoder's states as
+    ``"enc"``."""
+    if embeds is None:
+        raise ValueError("encdec_prefill: the encoder needs frame embeddings "
+                         "(embeds)")
+    enc = encode(cfg, params, embeds)
+    x = L.embed(params.embed, tokens, L.compute_dtype(cfg))
+    B, S, _ = x.shape
+    max_len = max_len or S
+    if max_len < S:
+        raise ValueError(f"prefill: max_len {max_len} < prompt length {S}")
+    cache = L.make_cache(cfg, B, max_len, cfg.n_layers, x.dtype, x.device)
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    for lp, ck, cv in zip(params.layers, cache["k"], cache["v"]):
+        x = block_apply(cfg, lp, x, positions,
+                        cache={"k": ck, "v": cv, "pos": 0}, enc=enc)
+    cache["pos"] = S
+    cache["enc"] = enc
+    return _encdec_logits(cfg, params, x[:, -1:]), cache
+
+
+def encdec_decode_step(cfg: ModelConfig, params: EncDecParams, token,
+                       cache: Dict):
+    """One decoder token per sequence against the cache and its ``"enc"``
+    -> (logits [B, vocab], the cache with ``pos`` advanced)."""
+    x = L.embed(params.embed, token[:, None], L.compute_dtype(cfg))
+    B = x.shape[0]
+    pos = int(cache["pos"])
+    enc = cache["enc"]
+    positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    for lp, ck, cv in zip(params.layers, cache["k"], cache["v"]):
+        x = block_apply(cfg, lp, x, positions,
+                        cache={"k": ck, "v": cv, "pos": pos}, enc=enc)
+    logits = _encdec_logits(cfg, params, x)[:, 0]
+    return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1,
+                    "enc": enc}

@@ -6,12 +6,14 @@ loaded apps, and greedy batched decode. PyTorch runs eagerly, so there is
 no ``jit`` and no executable cache: a cold start here is the weights'
 trip to the device (plus, at an app's first load, their initialisation).
 
-Any ported family serves (the dense Qwen2, the hybrid RecurrentGemma and
-the SSM Mamba-2 so far). The device copy is cast once at load to the activation dtype,
-except the parameters the model keeps in fp32 at use
+Every family serves: dense (Qwen2; a VLM backbone serves text only, as in
+the reference), MoE (OLMoE), encoder-decoder (SeamlessM4T, whose encoder
+gets the reference's frontend stub: zero frames), hybrid (RecurrentGemma)
+and SSM (Mamba-2). The device copy is cast once at load to the activation
+dtype, except the parameters the model keeps in fp32 at use
 (``layers.FP32_AT_USE``: the ``rmsnorm`` scales, the RG-LRU ``lam``,
-Mamba-2's ``A_log`` and ``dt_bias``). Casting every other parameter at
-use, as the reference does, gives the same numbers; casting once avoids
+Mamba-2's ``A_log`` and ``dt_bias``, the MoE router's ``router.w``).
+Casting every other parameter at use, as the reference does, gives the same numbers; casting once avoids
 re-reading the fp32 weights (11.6 GB for RecurrentGemma-2B, 10.8 GB for
 Mamba-2-2.7B, 30.5 GB for Qwen2-7B) on every decode step, and matches the registry's cost
 model, which counts ``2 * n_params`` bytes per image.
@@ -29,7 +31,7 @@ from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..kernels import ssd_scan
 from ..models import Model, build
-from ..models.layers import FP32_AT_USE, compute_dtype
+from ..models.layers import compute_dtype, fp32_at_use
 from .registry import Registry
 
 __all__ = ["ServeEngine"]
@@ -91,11 +93,12 @@ def _to_host(params: nn.Module, pin: bool) -> nn.Module:
 def _placed(params: nn.Module, device: torch.device,
             dtype: torch.dtype) -> nn.Module:
     """A copy of ``params`` on ``device``, each parameter cast to ``dtype``
-    except those named in ``FP32_AT_USE``; the host copy is untouched."""
+    except those that stay fp32 at use (``layers.fp32_at_use``); the host
+    copy is untouched."""
     memo = {}
     for name, p in params.named_parameters():
         t = p.detach().to(device, non_blocking=True)
-        if name.rpartition(".")[2] not in FP32_AT_USE:
+        if not fp32_at_use(name):
             t = t.to(dtype)
         memo[id(p)] = nn.Parameter(t, requires_grad=False)
     return copy.deepcopy(params, memo)
@@ -129,12 +132,13 @@ class ServeEngine:
 
     def load(self, app_id: str) -> float:
         """Put the app's weights on the device (made from the endpoint's
-        seed into the host store first, at its first load); returns the
-        wall seconds taken."""
+        seed, drawn as its ``init`` says, into the host store first, at its
+        first load); returns the wall seconds taken."""
         t0 = time.perf_counter()
         ep = self.registry.get(app_id)
         if app_id not in self._weights:
-            params = self._model(ep.cfg).init(ep.seed, device=self.device)
+            params = self._model(ep.cfg).init(ep.seed, device=self.device,
+                                              scheme=ep.init)
             self._weights[app_id] = _to_host(
                 params, pin=self.device.type == "cuda")
         self._loaded[app_id] = _placed(self._weights[app_id], self.device,
@@ -156,6 +160,16 @@ class ServeEngine:
 
     # -- inference -------------------------------------------------------------
 
+    def _frontend(self, cfg: ModelConfig, tokens: torch.Tensor):
+        """The reference's modality frontend stub: zero frame embeddings
+        [B, max(frontend_tokens, 1), d_model] (f32) for the
+        encoder-decoder's encoder; ``None`` for every other family."""
+        if cfg.family != "encdec":
+            return None
+        return torch.zeros((tokens.shape[0], max(cfg.frontend_tokens, 1),
+                            cfg.d_model), dtype=torch.float32,
+                           device=self.device)
+
     def generate(self, app_id: str, tokens, max_new: int = 8,
                  max_len: int = 128) -> Tuple[torch.Tensor, float]:
         """Greedy generation: one prefill, then ``max_new - 1`` decode
@@ -169,7 +183,9 @@ class ServeEngine:
         model = self._model(ep.cfg)
         tokens = torch.as_tensor(tokens, device=self.device)
         with torch.inference_mode():
-            logits, cache = model.prefill(params, tokens, max_len)
+            logits, cache = model.prefill(params, tokens, max_len,
+                                          embeds=self._frontend(ep.cfg,
+                                                                tokens))
             outs = [torch.argmax(logits, dim=-1)[:, 0]]
             self._sync()
             t1 = time.perf_counter()

@@ -31,6 +31,7 @@ class ModelEndpoint:
     replicas: int = 1
     weight_bytes: int = 0          # 0 -> derived from cfg (bf16)
     avg_request_s: float = 0.5     # mean request execution time
+    init: str = "reference"        # the weights' draw (Model.init scheme)
 
     def __post_init__(self):
         if not self.weight_bytes:

@@ -27,7 +27,13 @@ scalar oracle, is ``tests/test_torch_forecast_replay.py``:
     seeds and the three golden traces; an app's final windows may differ
     only where both sides' final window is a forecast's and the forecasts
     lie within 1% (measured: 22 apps, at most 9.3e-4; each is listed in
-    ROADMAP Queue C).
+    ROADMAP Queue C). On ``synthesized_small`` 15 apps consult the
+    forecaster only before their last event: the reference's ``fused``
+    engine skips their post-pass (it selects from the scan's final
+    state), the port's does not, so those apps are held to the
+    reference's ``scalar`` engine, the oracle its post-pass reproduces
+    (14 of them differ between the reference's two engines in their cold
+    counts, app 20 only in its waste).
 """
 import dataclasses
 from types import SimpleNamespace
@@ -52,6 +58,12 @@ SELECTION_DELTA = 0.01       # AIC gap under which the order may differ
 # a run's final forecast windows against the reference's
 RUN_FORECAST_TOL = 1e-2
 GOLDENS = ("bursty_subms_multiweek", "coarse_twoweek", "synthesized_small")
+# the apps of synthesized_small where the reference's fused engine is not
+# its scalar oracle (ROADMAP Queue C, repaired in the port); app 20 differs
+# in waste only, the others in their cold counts
+MID_TRACE_APPS = {"synthesized_small": [7, 9, 11, 13, 14, 16, 17, 20, 22, 32,
+                                        33, 34, 41, 56, 60]}
+RUN_FIELDS = ("cold", "final_prewarm", "final_keep_alive", "wasted_minutes")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -265,9 +277,19 @@ def test_hybrid_arima_runs_match_the_reference(ref, case):
     """Cold counts and invocations equal the reference's; final windows
     too, except where both final windows are forecasts within
     RUN_FORECAST_TOL (the fit's float32 rounding; ROADMAP Queue C lists
-    each such app). Waste follows the windows (within 1%)."""
+    each such app). Waste follows the windows (within 1%). The apps of
+    MID_TRACE_APPS are held to the reference's scalar engine."""
     rtrace, rspec = _reference_case(ref, case)
     want = ref.E.run(rtrace, rspec, engine="fused")
+    if case in MID_TRACE_APPS:
+        oracle = ref.E.run(rtrace, rspec, engine="scalar")
+        moved = np.zeros(len(want.cold), bool)
+        for f in RUN_FIELDS:
+            moved |= getattr(oracle, f) != getattr(want, f)
+        assert np.nonzero(moved)[0].tolist() == MID_TRACE_APPS[case]
+        assert int((oracle.cold != want.cold).sum()) == 14
+        for f in RUN_FIELDS:
+            getattr(want, f)[moved] = getattr(oracle, f)[moved]
     spec = E.HybridSpec(**{k: v for k, v in vars(rspec).items()})
     got = E.run(_port_trace(rtrace), spec, engine="fused",
                 options=E.EngineOptions(**CPU))

@@ -10,6 +10,12 @@ windows, waste), all on the CPU here:
     rescan through the sweep step's plain version here), whole and with
     ``app_chunk=5``, equals ``simulate_scalar`` with
     ``HybridHistogramPolicy`` on the reference's three replay seeds;
+  * the post-pass takes exactly the apps at which the scan flags a
+    forecaster call at some event: the engines equal the oracle on traces
+    with apps that are OOB-heavy only mid-trace (``synthesized_small``,
+    ``diurnal(120, days=4, seed=13)`` and a hand-made one, where the old
+    final-state selection misses the app), and the scan's flag is the OR
+    over the events of the rescan's per-event flag;
   * every SPES engine equals ``SpesPolicy`` and the reference's
     ``"fused"`` engine (float64 compute, one float32 rounding: waste is
     exact); mixed sweep rows equal single runs and the reference's rows;
@@ -31,8 +37,13 @@ from repro_torch.core.policy import (HybridConfig, HybridHistogramPolicy,
                                      SpesPolicy)
 from repro_torch.core.simulator import simulate_scalar
 from repro_torch.core.workload import Trace
-from repro_torch.core.workload_spec import azure_like, timer_heavy
+from repro_torch.core import policy_math
+from repro_torch.core.simulator import _build_cfg_blocks, _initial_carry
+from repro_torch.core.workload_spec import (WorkloadSpec, azure_like,
+                                            diurnal, timer_heavy)
+from repro_torch.forecast.replay import _branch_scan
 from repro_torch.interop import trace_from_numpy
+from repro_torch.kernels import histogram as H
 
 CPU = dict(device="cpu")
 
@@ -104,6 +115,100 @@ def test_hybrid_arima_replay_matches_scalar_oracle(arima_case, engine, opts):
     _assert_run_equal(got, oracle, f"hybrid+arima {engine} {opts} "
                                    f"seed={seed}")
     assert (oracle.final_keep_alive != CFG48_ARIMA.standard_keep_alive).any()
+
+
+# --------------------------------------------------------------------------
+# The post-pass selection: apps that consult the forecaster mid-trace
+# --------------------------------------------------------------------------
+
+
+def _mid_trace_app_trace():
+    """App 0 goes out of the histogram's range for eight ~300-minute gaps
+    (OOB-heavy with enough samples: the scalar policy consults the
+    forecaster), then settles into 40 gaps of 5 minutes, so that it ends
+    under the OOB threshold. App 1 is a plain 10-minute timer."""
+    rng = np.random.default_rng(0)
+    a0 = 10.0 + np.concatenate(
+        [[0.0], np.cumsum(300.0 + rng.uniform(-20.0, 20.0, 8))])
+    a0 = np.concatenate([a0, a0[-1] + np.cumsum(np.full(40, 5.0))])
+    a1 = 3.0 + np.arange(100) * 10.0
+    return Trace(specs=None, times=[a0, a1], duration_minutes=3200.0)
+
+
+def _selection_traces():
+    return {
+        # tests/golden_traces.py::synthesized_small with ARIMA on: 14 apps
+        # consult the forecaster only before their last event
+        "synthesized_small": (WorkloadSpec.uniform(
+            64, days=3.0, seed=7, max_events=16, min_events=1).materialize(),
+            E.HybridSpec()),
+        "diurnal": (diurnal(120, days=4, seed=13).materialize(),
+                    E.HybridSpec()),
+        "hand_made": (_mid_trace_app_trace(), E.HybridSpec()),
+    }
+
+
+@pytest.fixture(scope="module", params=["synthesized_small", "diurnal",
+                                        "hand_made"])
+def selection_case(request):
+    trace, spec = _selection_traces()[request.param]
+    oracle = simulate_scalar(trace, HybridHistogramPolicy(spec.to_config(),
+                                                          device="cpu"))
+    return request.param, trace, spec, oracle
+
+
+def _scan_one_chunk(trace, spec):
+    """The whole trace as one chunk through the plain sweep scan: its
+    final state and its ``consulted`` flag, and the inputs of the scan."""
+    times, _ = trace.to_padded()
+    cfg = spec.to_config()
+    ci, cf = (torch.from_numpy(x) for x in _build_cfg_blocks([cfg]))
+    bm = torch.tensor([float(cfg.histogram.bin_minutes)], dtype=torch.float64)
+    cols = torch.from_numpy(np.ascontiguousarray(times.T, np.float64))
+    n_bins = cfg.histogram.n_bins
+    state = _initial_carry(cf, cols.shape[1], n_bins, torch.float64)
+    out = H.fused_hybrid_sweep_scan(cols, *state, ci, cf, bin_minutes=bm)
+    return out, (cols, ci, cf, bm, n_bins)
+
+
+def _final_state_selection(out, cf):
+    """The selection before the repair: the apps OOB-heavy in the scan's
+    final state."""
+    return policy_math.oob_heavy(out[1][..., -1], out[2], cf[:, 5:6])[0]
+
+
+@pytest.mark.parametrize("engine", ["fused", "kernel"])
+def test_hybrid_arima_engines_match_scalar_oracle_on_mid_trace_apps(
+        selection_case, engine):
+    name, trace, spec, oracle = selection_case
+    got = E.run(trace, spec, engine=engine, options=E.EngineOptions(**CPU))
+    _assert_run_equal(got, oracle, f"{engine} on {name}")
+    out, (_, _, cf, _, _) = _scan_one_chunk(trace, spec)
+    consulted = out[9][0].numpy()
+    old = _final_state_selection(out, cf).numpy()
+    missed = consulted & ~old
+    # apps the final-state selection misses, and whose cold counts the
+    # forecaster changes
+    no_arima = E.run(trace, E.HybridSpec(use_arima=False), engine=engine,
+                     options=E.EngineOptions(**CPU))
+    moved = missed & (no_arima.cold != oracle.cold)
+    assert moved.any(), name
+    if name == "hand_made":
+        assert missed.tolist() == [True, False]
+    if name == "synthesized_small":
+        assert int(moved.sum()) == 14
+
+
+def test_scan_flag_is_the_or_of_the_rescan_flags(selection_case):
+    """The plain scan's ``consulted`` equals the OR over the event columns
+    of ``forecast/replay.py::_branch_scan``'s per-event flag."""
+    _, trace, spec, _ = selection_case
+    out, (cols, ci, cf, bm, n_bins) = _scan_one_chunk(trace, spec)
+    _, _, branch = _branch_scan(cols, ci, cf, bm, n_bins,
+                                H.fused_hybrid_sweep_step_plain)
+    assert out[9].dtype == torch.bool and out[9].shape == (1, cols.shape[1])
+    assert torch.equal(out[9][0], branch.any(0))
+    assert bool(out[9].any())
 
 
 # --------------------------------------------------------------------------

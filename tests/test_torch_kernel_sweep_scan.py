@@ -12,8 +12,10 @@ one call.
     small float32 stream, exactly;
   * the form chooser at its edges, and the argument checks, which refuse a
     ``cols`` of the wrong shape or dtype before any launch;
-  * on a CUDA card (test marked ``gpu``, skipped elsewhere) the scan kernel
-    must equal the step kernel iterated and the plain scan, in each form.
+  * on a CUDA card (tests marked ``gpu``, skipped elsewhere) the scan kernel
+    must equal the step kernel iterated and the plain scan, in each form,
+    and its ``consulted`` flag (the forecaster guard held after some event
+    column) must equal the plain scan's.
 """
 from functools import partial
 from types import SimpleNamespace
@@ -229,17 +231,21 @@ def test_wrapper_rejects_devices_without_a_kernel():
                                   *state, ci.to("meta"), cf.to("meta"))
 
 
+# (S, n, n_bins, form): registers with 2 bins a lane (up to 64 bins) and
+# with 8 (up to 256), columns past that
+CUDA_CASES = [(3, 1000, 240, "registers"), (2, 333, 60, "registers"),
+              (1, 77, 1, "registers"), (3, 50, 9, "registers"),
+              (1, 101, 128, "registers"), (2, 90, 64, "registers"),
+              (2, 90, 65, "registers"), (3, 129, 257, "columns"),
+              (2, 200, 2400, "columns")]
+
+
 @pytest.mark.gpu
 def test_cuda_scan_equals_step_iterated_in_each_form():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     dev = torch.device("cuda")
-    cases = [(3, 1000, 240, "registers"), (2, 333, 60, "registers"),
-             (1, 77, 1, "registers"), (3, 50, 9, "registers"),
-             (1, 101, 128, "registers"), (2, 90, 64, "registers"),
-             (2, 90, 65, "registers"), (3, 129, 257, "columns"),
-             (2, 200, 2400, "columns")]
-    for S, n, n_bins, form in cases:
+    for S, n, n_bins, form in CUDA_CASES:
         assert H.scan_form(n_bins)[0] == form
         for mid_trace in (False, True):
             rng = np.random.default_rng(n + n_bins + mid_trace)
@@ -264,3 +270,30 @@ def test_cuda_scan_equals_step_iterated_in_each_form():
     with pytest.raises(ValueError, match="cols"):
         H.fused_hybrid_sweep_scan(gcols.float(), *[x.to(dev) for x in state],
                                   gci, gcf)
+
+
+@pytest.mark.gpu
+def test_cuda_scan_consulted_flag_equals_plain_in_each_form():
+    """The tenth output, bit for bit, in every form and from both the
+    simulator's initial carry and a mid-trace state; both flag values
+    occur in every form."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    seen = {"registers": set(), "columns": set()}
+    for S, n, n_bins, form in CUDA_CASES:
+        for mid_trace in (False, True):
+            rng = np.random.default_rng(3 * n + n_bins + mid_trace)
+            ci, cf = _cfg_blocks(S, n_bins, rng)
+            cols = _columns(n, n_bins, rng)
+            state = _state(S, n, n_bins, cf, rng, mid_trace=mid_trace)
+            plain = H.fused_hybrid_sweep_scan(
+                cols, *[x.clone() for x in state], ci, cf)[9]
+            got = H.fused_hybrid_sweep_scan(
+                cols.to(dev), *[x.to(dev) for x in state], ci.to(dev),
+                cf.to(dev))[9]
+            torch.cuda.synchronize()
+            assert got.dtype == torch.bool and got.shape == (S, n)
+            assert torch.equal(got.cpu(), plain), (form, n_bins, mid_trace)
+            seen[form].update(plain.unique().tolist())
+    assert seen == {"registers": {False, True}, "columns": {False, True}}

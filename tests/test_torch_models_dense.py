@@ -27,7 +27,6 @@ import torch
 from repro_torch import configs
 from repro_torch.interop import model_params_from_numpy
 from repro_torch.models import Model, build, transformer
-from repro_torch.models.model import EMBEDS_NOT_PORTED
 
 ARCHS = ("qwen2-7b", "smollm-135m")
 TOL = 1e-4
@@ -239,14 +238,30 @@ def test_cache_is_written_in_place_and_bounded():
         m.prefill(p, toks, max_len=4)
 
 
-def test_vlm_embeds_raise_naming_the_roadmap_item():
+def test_vlm_embeds_raise_naming_the_roadmap_item(ref):
+    """The VLM path is ported now: the reduced LLaVA backbone's forward and
+    prefill (logits and KV cache) given patch embeddings equal the
+    reference's within TOL (``tests/test_torch_models_encdec.py`` holds
+    its decode steps too)."""
+    jax, jnp = ref.jax, ref.jnp
+    jcfg = ref.configs.reduced(ref.configs.get("llava-next-34b"))
     cfg = configs.reduced(configs.get("llava-next-34b"))
-    m = Model(cfg)
-    p = m.init(seed=0, device="cpu")
-    toks = torch.zeros((1, 4), dtype=torch.long)
-    embeds = torch.zeros((1, cfg.frontend_tokens, cfg.d_model))
-    assert "Queue A item 2" in EMBEDS_NOT_PORTED
-    for call in (lambda: m.forward(p, toks, embeds=embeds),
-                 lambda: m.prefill(p, toks, 8, embeds=embeds)):
-        with pytest.raises(NotImplementedError, match="Queue A item 2"):
-            call()
+    m, jm = Model(cfg), ref.build(jcfg)
+    jp = jm.init(jax.random.PRNGKey(4))
+    p = model_params_from_numpy(cfg, jax.device_get(jp), device="cpu")
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, cfg.vocab, (2, 12))
+    embeds = (0.02 * rng.standard_normal(
+        (2, cfg.frontend_tokens, cfg.d_model))).astype(np.float32)
+    jt, je = jnp.asarray(toks, jnp.int32), jnp.asarray(embeds)
+    pt, pe = torch.from_numpy(toks), torch.from_numpy(embeds)
+    S = cfg.frontend_tokens + toks.shape[1]
+    _close((np.asarray(jm.forward(jp, jt, je)),
+            m.forward(p, pt, embeds=pe).numpy()))
+    jl, jc = jm.prefill(jp, jt, S + 2, embeds=je)
+    pl, pc = m.prefill(p, pt, S + 2, embeds=pe)
+    assert pc["pos"] == int(jc["pos"]) == S
+    _close((np.asarray(jl), pl.numpy()))
+    for i in range(cfg.n_layers):
+        _close((np.asarray(jc["k"][i]), pc["k"][i].numpy()))
+        _close((np.asarray(jc["v"][i]), pc["v"][i].numpy()))

@@ -4,14 +4,16 @@
     on the port's pool and on the reference's side by side; the returned
     values, ``PoolStats`` and every ``AppState`` must be equal (pure
     Python: exact), and so must the ``state_dict`` and its round trip;
-  * ``ServeEngine``: on a reduced hybrid, Mamba-2 and Qwen2 (dense, KV
-    cache) endpoint whose host weight store is filled from the reference
-    engine's ``_weights`` through interop, ``generate`` gives the same
-    tokens as the reference's ``ServeEngine`` (f32 on the CPU, S=128 so
-    both take their kernel branches); ``load``, ``unload`` and
-    ``is_loaded`` behave as the reference's do; the device copy keeps the
-    ``FP32_AT_USE`` parameters in f32 and casts the rest to the activation
-    dtype;
+  * ``ServeEngine``: on a reduced hybrid, Mamba-2, Qwen2 (dense, KV
+    cache), OLMoE (MoE) and SeamlessM4T (encoder-decoder, its encoder fed
+    the frontend stub's zero frames) endpoint whose host weight store is
+    filled from the reference engine's ``_weights`` through interop,
+    ``generate`` gives the same tokens as the reference's ``ServeEngine``
+    (f32 on the CPU, S=128 so both take their kernel branches); ``load``,
+    ``unload`` and ``is_loaded`` behave as the reference's do; the device
+    copy keeps the ``FP32_AT_USE`` parameters in f32 (the MoE router's
+    ``router.w`` among them, not the other ``.w``) and casts the rest to
+    the activation dtype;
   * a reduced Qwen2 endpoint behind the ``WarmPool`` on the CPU, the pool's
     decisions mirrored onto the engine as ``chip_smoke.py`` does: a cold
     start, a warm start, and one engine load per cold start;
@@ -209,7 +211,9 @@ def test_qwen2_cost_model():
 
 @pytest.mark.parametrize("arch,n_layers", [("recurrentgemma-2b", 5),
                                            ("mamba2-2.7b", 2),
-                                           ("qwen2-7b", 2)])
+                                           ("qwen2-7b", 2),
+                                           ("olmoe-1b-7b", 2),
+                                           ("seamless-m4t-medium", 2)])
 def test_engine_generates_the_reference_tokens(ref, arch, n_layers):
     S, max_new, app = 128, 6, "app-000000"
     jcfg = ref.configs.reduced(ref.configs.get(arch)).with_(
@@ -273,6 +277,58 @@ def test_engine_casts_once_at_load_and_keeps_norms_and_lam_fp32():
         assert p.dtype == want, name
     assert all(p.dtype == torch.float32
                for p in eng._weights[app].parameters())
+
+
+def test_engine_keeps_the_moe_router_fp32_and_casts_the_experts():
+    """The reference routes in f32 on an f32 weight: ``moe.router.w`` stays
+    fp32 on the device while every other ``.w`` (attention, head) and the
+    stacked experts are cast to bf16; the name rule matches ``router.w``
+    by its last two parts only."""
+    from repro_torch.models.layers import fp32_at_use
+    app = "app-000000"
+    cfg = port_configs.reduced(port_configs.get("olmoe-1b-7b")).with_(
+        dtype="bfloat16")
+    reg = port_registry.Registry()
+    reg.register(port_registry.ModelEndpoint(app, cfg, seed=2))
+    eng = port_engine.ServeEngine(reg, device="cpu")
+    eng.load(app)
+    loaded = dict(eng._loaded[app].named_parameters())
+    for i in range(cfg.n_layers):
+        assert loaded[f"layers.{i}.moe.router.w"].dtype == torch.float32
+        for name in ("moe.wi", "moe.wg", "moe.wo", "attn.wq.w"):
+            assert loaded[f"layers.{i}.{name}"].dtype == torch.bfloat16
+    assert loaded["head.w"].dtype == torch.bfloat16
+    assert loaded["ln_f.scale"].dtype == torch.float32
+    assert torch.equal(loaded["layers.0.moe.router.w"],
+                       eng._weights[app].layers[0].moe.router.w)
+    assert fp32_at_use("router.w") and fp32_at_use("layers.1.moe.router.w")
+    assert not fp32_at_use("layers.1.moe.xrouter.w")
+    assert not fp32_at_use("layers.1.attn.wo.w")
+    assert not fp32_at_use("layers.1.moe.wi")
+    # a bf16 endpoint serves: the router's f32 product meets bf16 tokens
+    out, _ = eng.generate(app, torch.zeros((1, 8), dtype=torch.long),
+                          max_new=2)
+    assert out.shape == (1, 2)
+
+
+def test_engine_draws_the_weights_as_the_endpoint_says():
+    """An endpoint's ``init`` reaches ``Model.init``: the host store holds
+    the reference draw by default and the ``depth_scaled`` one when the
+    endpoint names it, from the same seed."""
+    from repro_torch.models import build
+    cfg = port_configs.reduced(port_configs.get("olmoe-1b-7b"))
+    reg = port_registry.Registry()
+    reg.register(port_registry.ModelEndpoint("ref", cfg, seed=4))
+    reg.register(port_registry.ModelEndpoint("deep", cfg, seed=4,
+                                             init="depth_scaled"))
+    eng = port_engine.ServeEngine(reg, device="cpu")
+    for app, scheme in (("ref", "reference"), ("deep", "depth_scaled")):
+        eng.load(app)
+        want = build(cfg).init(4, device="cpu", scheme=scheme)
+        assert all(torch.equal(a, b) for a, b in zip(
+            eng._weights[app].parameters(), want.parameters())), app
+    assert not torch.equal(eng._weights["ref"].embed.table,
+                           eng._weights["deep"].embed.table)
 
 
 def test_engine_keeps_the_ssm_decay_and_step_bias_fp32():
