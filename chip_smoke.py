@@ -68,7 +68,19 @@ port's main paths:
     kernel, every output equal to the plain version's at every tick and,
     on 1,000 sampled apps, to the scalar ``AppHistogram``; and one more
     tick at 1,000 bins on a seeded small fleet with rows past
-    ``MAX_SCALED_COUNT``, equal to the plain version.
+    ``MAX_SCALED_COUNT``, equal to the plain version;
+  * the serving launcher (phase ``launch_serve``):
+    ``repro_torch.launch.serve.main`` on the card at the reference's
+    example (40 apps, 120 minutes) and at 2,000 apps x 240 minutes under
+    both policies, each run's printed lines equal to the per-event
+    oracle's (``--engine scalar``);
+  * training (phase ``train_smollm``): full-width SmolLM-135M (30 layers,
+    bf16 compute, fp32 AdamW masters, remat, ``use_kernels=False``) for 20
+    steps of 8 x 4,096 tokens through the training launcher
+    (``launch.train.run``), gated on the loss falling by 0.3 nats, the first
+    step in bf16 against f32, a restart after a fault at step 10 that
+    reproduces steps 11-20 bit for bit, and a kernel refusing autograd;
+    no kernel of the port launches there, as in the reference.
 
 Then it times each kernel at its path's shapes beside its bound, its plain
 version and, where one exists, the one PyTorch call computing the same
@@ -313,6 +325,22 @@ POLICY_WIDE = dict(n=4099, n_bins=1000)
 # move the bf16 result along another path of rounding flips but must not
 # make it less accurate.
 SERVE_F32_DIST_FACTOR = 1.5
+
+# Training (phase train_smollm): SmolLM-135M at full width and depth, the
+# train_4k shape at seq 4,096 with batch 8 instead of 256 (32,768 tokens a
+# step: one card does not hold 1M tokens a step); 20 steps, a fault after
+# step 10 with a checkpoint every 10 steps for the restart gate.
+TRAIN_ARCH = "smollm-135m"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 4096, 20
+TRAIN_FAULT = TRAIN_CKPT_EVERY = 10
+TRAIN_LR = 1e-2          # the launcher's --lr; warmup at OptConfig's 100
+TRAIN_MIN_DROP = 0.3     # nats, the reference's test_train_step_reduces_loss
+# the bf16 step against the same step in f32: the loss within 2%, the
+# gradients' global norm within 5%
+TRAIN_F32_LOSS_RTOL, TRAIN_F32_GNORM_RTOL = 0.02, 0.05
+# launch_serve: the reference's example and a larger fleet, both policies
+SERVE_CLI_RUNS = ((40, 120), (2000, 240))
+SERVE_CLI_POLICIES = ("hybrid", "fixed")
 
 
 def emit(phase: str, **fields) -> None:
@@ -1329,10 +1357,11 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
-def device_ms(run, counts=None):
+def device_ms(run, counts=None, names=None):
     """Device ms by kernel class of ``run()`` (torch.profiler), or None
     where the profiler records no device events; with a dict ``counts``,
-    the kernel launches by class go there too."""
+    the kernel launches by class go there too, and with a dict ``names``
+    the device ms by kernel name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1352,6 +1381,8 @@ def device_ms(run, counts=None):
         by_class[k] = by_class.get(k, 0.0) + us / 1e3
         if counts is not None:
             counts[k] = counts.get(k, 0) + e.count
+        if names is not None:
+            names[e.key] = names.get(e.key, 0.0) + us / 1e3
     return by_class or None
 
 
@@ -2759,6 +2790,246 @@ def time_policy_update(columns, device, ptxas):
     return kernel_ms, back_ms, plain_ms, bound_ms, bound_by
 
 
+def launch_serve(device):
+    """``repro_torch.launch.serve.main`` on the card (the vector engine,
+    phase B through the sweep-step kernel) at each of ``SERVE_CLI_RUNS``
+    under both policies. Gate: each run prints the same lines as the same
+    run with ``--engine scalar`` (the per-event oracle). Returns the step
+    launches of the vector runs and the failed gates."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.kernels import histogram as H
+    from repro_torch.launch import serve as serve_cli
+
+    def main(argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = serve_cli.main(argv)
+        torch.cuda.synchronize()
+        if rc != 0:
+            raise RuntimeError(f"launch.serve.main({argv}) returned {rc}")
+        return buf.getvalue(), time.perf_counter() - t0
+
+    runs, failed, launches = [], [], 0
+    for apps, minutes in SERVE_CLI_RUNS:
+        for policy in SERVE_CLI_POLICIES:
+            argv = ["--apps", str(apps), "--minutes", str(minutes),
+                    "--policy", policy, "--device", str(device)]
+            reset_counts(H)
+            got, got_s = main(argv)
+            steps = H.LAUNCHES
+            launches += steps
+            with uncounted(H):
+                want, want_s = main(argv + ["--engine", "scalar"])
+            same = got == want
+            if not same:
+                failed.append(f"launch_serve {apps} apps {minutes:g} min "
+                              f"{policy}: the vector run printed {got!r}, "
+                              f"the oracle {want!r}")
+            runs.append({"apps": apps, "minutes": minutes, "policy": policy,
+                         "seconds": got_s, "oracle_seconds": want_s,
+                         "step_launches": steps, "equal": same,
+                         "lines": got.splitlines()})
+    if launches == 0:
+        failed.append("launch_serve: the vector runs made no step-kernel "
+                      "launch (phase B of the hybrid policy runs it)")
+    emit("launch_serve", runs=runs, step_launches=launches,
+         gates_failed=failed)
+    return launches, failed
+
+
+def _sdpa_train_ms(device, cfg, batch):
+    """Device ms of the plain attention (``layers._sdpa``, f32 inside) at
+    one layer's training shape: forward, and forward + backward, by CUDA
+    events over 3 calls after a warm-up."""
+    import torch
+    from repro_torch.models import layers as L
+
+    g = torch.Generator(device=device).manual_seed(7)
+    S, hd = TRAIN_SEQ, cfg.hd
+    mk = lambda h: torch.randn(batch, S, h, hd, device=device, generator=g,
+                               dtype=torch.bfloat16).requires_grad_(True)
+    q, k, v = mk(cfg.n_heads), mk(cfg.n_kv_heads), mk(cfg.n_kv_heads)
+    dy = torch.randn(batch, S, cfg.n_heads, hd, device=device, generator=g,
+                     dtype=torch.bfloat16)
+
+    def fwd():
+        with torch.no_grad():
+            L._sdpa(q, k, v, causal=True, window=0)
+
+    def fwd_bwd():
+        out = L._sdpa(q, k, v, causal=True, window=0)
+        torch.autograd.grad(out, (q, k, v), dy)
+
+    out = {}
+    for name, fn in (("fwd", fwd), ("fwd_bwd", fwd_bwd)):
+        fn()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        for _ in range(3):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        out[name] = start.elapsed_time(end) / 3
+    return out
+
+
+def train_smollm(device, kernel_mods):
+    """Train full-width SmolLM-135M on the card through the launcher's path
+    (``launch.train.run``: ``train_loop.train``, and ``run_with_restarts``
+    under ``--fault-at-step``), bf16 compute, fp32 AdamW masters, remat,
+    ``use_kernels=False`` (the reference trains so; its Pallas path has no
+    backward). Gates: (a) every loss finite and the last below the first
+    by ``TRAIN_MIN_DROP``; (b) the first step's loss and gradient norm in
+    bf16 within 2% and 5% of the same step in f32; (c) the restarted run
+    (fault after step 10, a checkpoint every 10) gives steps 11-20 the
+    uninterrupted run's losses bit for bit; (d) a grad-enabled
+    ``flash_attention`` on the card raises. Returns each kernel module's
+    launches during training (none) and the failed gates."""
+    import dataclasses
+    import shutil
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import data
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import to_device
+
+    cfg = configs.get(TRAIN_ARCH)
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=TRAIN_SEQ)
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--lr", str(TRAIN_LR),
+            "--device", str(device)]
+    failed, logs = [], []
+
+    # the uninterrupted run, every kernel's count at 0 before it
+    reset_counts(*kernel_mods)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = train_cli.run(argv, log=logs.append)
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {f"{mod.__name__.rsplit('.', 1)[-1]}.{k}": v
+                for mod in kernel_mods for k, v in vars(mod).items()
+                if k.endswith("LAUNCHES") and isinstance(v, int)}
+    if any(launches.values()):
+        failed.append(f"train_smollm: the training path launched kernels "
+                      f"{launches}; it runs use_kernels=False")
+    losses = run["losses"]
+    # gate (a)
+    drop = losses[0] - losses[-1]
+    if not all(math.isfinite(x) for x in losses) or drop < TRAIN_MIN_DROP:
+        failed.append(f"train_smollm (a): losses {losses[0]:.4f} -> "
+                      f"{losses[-1]:.4f}, a drop of {drop:.4f} < "
+                      f"{TRAIN_MIN_DROP}")
+
+    # gate (b): the first step in bf16 and in f32, from the same draw
+    batch = to_device(data.batch_at(0, cfg, shape,
+                                    batch_override=TRAIN_BATCH), device)
+    ocfg = opt.OptConfig(lr=TRAIN_LR, total_steps=TRAIN_STEPS)
+    first = {}
+    for name, c in (("bf16", cfg), ("f32", cfg.with_(dtype="float32"))):
+        model = build(c)
+        state = opt.init_state(model.init(0, device))
+        step = make_train_step(model, ocfg)
+        state, met = step(state, batch)
+        first[name] = (float(met["loss"]), float(met["grad_norm"]))
+        if name == "bf16":
+            # one more step, profiled: device ms by class and kernel
+            names = {}
+            prof = device_ms(lambda: step(state, batch), names=names)
+        del state, step
+    (lb, gb), (lf, gf) = first["bf16"], first["f32"]
+    if abs(lb - lf) > TRAIN_F32_LOSS_RTOL * abs(lf) or \
+            abs(gb - gf) > TRAIN_F32_GNORM_RTOL * abs(gf):
+        failed.append(f"train_smollm (b): step 1 bf16 loss {lb:.5f} gnorm "
+                      f"{gb:.5f}, f32 {lf:.5f} {gf:.5f}")
+
+    # gate (c): the restarted run, checkpoint save and restore timed
+    ckdir = os.path.join(ROOT, "build", "train_smollm_ckpt")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    timed = {"save": [], "restore": []}
+    originals = {k: getattr(ckpt, k) for k in timed}
+
+    def timing(name):
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = originals[name](*a, **kw)
+            torch.cuda.synchronize()
+            timed[name].append(time.perf_counter() - t)
+            return out
+        return wrapped
+    try:
+        for name in timed:
+            setattr(ckpt, name, timing(name))
+        t0 = time.perf_counter()
+        restarted = train_cli.run(argv + [
+            "--checkpoint-dir", ckdir, "--checkpoint-every",
+            str(TRAIN_CKPT_EVERY), "--fault-at-step", str(TRAIN_FAULT)],
+            log=logs.append)
+        restart_s = time.perf_counter() - t0
+    finally:
+        for name, fn in originals.items():
+            setattr(ckpt, name, fn)
+        shutil.rmtree(ckdir, ignore_errors=True)
+    if restarted["attempts"] != 2 or \
+            restarted["resumed_from"] != TRAIN_FAULT or \
+            restarted["losses"] != losses[TRAIN_FAULT:]:
+        failed.append(f"train_smollm (c): {restarted['attempts']} attempts, "
+                      f"resumed from {restarted['resumed_from']}, losses "
+                      f"{restarted['losses']} against "
+                      f"{losses[TRAIN_FAULT:]}")
+
+    # gate (d): a kernel asked to differentiate refuses on the card
+    q = torch.zeros(1, 128, 9, 64, device=device, dtype=torch.bfloat16,
+                    requires_grad=True)
+    kv = torch.zeros(1, 128, 3, 64, device=device, dtype=torch.bfloat16)
+    launched, refused = FA.LAUNCHES, None
+    try:
+        FA.flash_attention(q, kv, kv)
+        failed.append("train_smollm (d): a grad-enabled flash_attention "
+                      "call on the card did not raise")
+    except RuntimeError as e:
+        refused = str(e)
+    if FA.LAUNCHES != launched:
+        failed.append("train_smollm (d): the refused call launched")
+
+    attn = _sdpa_train_ms(device, cfg, TRAIN_BATCH)
+    steady = sorted(run["step_seconds"][1:])
+    step_s = steady[len(steady) // 2]
+    prof_ms = sum(prof.values()) if prof else None
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:10]
+    emit("train_smollm", arch=TRAIN_ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         steps=TRAIN_STEPS, lr=TRAIN_LR, losses=losses,
+         loss_drop=drop, step_seconds=run["step_seconds"],
+         step_seconds_median=step_s,
+         tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s,
+         run_seconds=run_s, peak_device_bytes=peak,
+         first_step={"bf16": first["bf16"], "f32": first["f32"],
+                     "bf16_equals_run": lb == losses[0]},
+         restart={"attempts": restarted["attempts"],
+                  "resumed_from": restarted["resumed_from"],
+                  "losses": restarted["losses"], "seconds": restart_s,
+                  "save_seconds": timed["save"],
+                  "restore_seconds": timed["restore"]},
+         refused=refused,
+         profile_device_ms=prof, profile_top_kernels_ms=top,
+         idle_share=(1.0 - prof_ms / 1e3 / step_s) if prof_ms else None,
+         attention_layer_ms=attn,
+         attention_ms_per_step=cfg.n_layers * (attn["fwd"]
+                                               + attn["fwd_bwd"]),
+         kernel_launches=launches, log=logs, gates_failed=failed)
+    return launches, failed
+
+
 def release_host_memory():
     """Hand the pinned host memory of the serving phases that ended back to
     the system: PyTorch's pinned allocator keeps freed blocks cached, and
@@ -2777,6 +3048,9 @@ def release_host_memory():
 
 
 def main() -> int:
+    # deterministic cuBLAS products for train_smollm's bit-exact restart,
+    # set before the first CUDA call creates cuBLAS's handle
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2791,6 +3065,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import histogram as H
     from repro_torch.kernels import rglru_scan as R
     from repro_torch.kernels import ssd_scan as SS
     device = torch.device("cuda")
@@ -2835,8 +3110,12 @@ def main() -> int:
     t_fleet = time.perf_counter()
     fleet_step_launches = fleet_point(device)
     fleet_s = time.perf_counter() - t_fleet
+    failed = []                 # the serving and training phases' gates
+    t_cli = time.perf_counter()
+    cli_step_launches, f = launch_serve(device)
+    launch_serve_s = time.perf_counter() - t_cli
+    failed += f
     t_serve = time.perf_counter()
-    failed = []                           # the serving phases' logits gates
     serve_launches, serve_forms, n_requests, f = serve(
         device, "serve", "recurrentgemma-2b", "rg2b",
         {"flash_attention": (FA, ATTN_PER_PREFILL),
@@ -2878,6 +3157,11 @@ def main() -> int:
     serve_seamless_s = time.perf_counter() - t_serve
     failed += f
     release_host_memory()
+    t_train = time.perf_counter()
+    train_launches, f = train_smollm(device, (H, FA, DA, R, SS))
+    train_s = time.perf_counter() - t_train
+    failed += f
+    release_host_memory()
     # time the step and the scan on the scale trace's columns, as the main
     # path ran them
     step = time_kernel(sweep_cols, device)
@@ -2904,6 +3188,7 @@ def main() -> int:
         "name": "fused_hybrid_sweep_scan", "route": "cuda",
         "source": csrc + "hybrid_sweep_step.cu",
         "replaces": "src/repro/kernels/histogram.py:245",
+        "train_launches": train_launches["histogram.SCAN_LAUNCHES"],
         "launches": launches, "launches_by_form": launches_by_form,
         "max_abs_err": max_err, "ms": scan["kernel_ms"],
         "plain_ms": scan["plain_ms"], "bound_ms": scan["bound_ms"],
@@ -2911,15 +3196,19 @@ def main() -> int:
         # the step runs on the ARIMA post-pass's rescan and on the fleet
         # simulation's phase B, once per column of each chunk
         "step": {"name": "fused_hybrid_sweep_step",
-                 "launches": arima_step_launches + fleet_step_launches,
+                 "launches": arima_step_launches + fleet_step_launches
+                 + cli_step_launches,
                  "launches_by_path": {"arima_point": arima_step_launches,
-                                      "fleet_point": fleet_step_launches},
+                                      "fleet_point": fleet_step_launches,
+                                      "launch_serve": cli_step_launches},
                  "ms": step["kernel_ms"], "plain_ms": step["plain_ms"],
                  "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
+                 "train_launches": train_launches["histogram.LAUNCHES"],
                  "launches_per_replay": step["launches"]}}, {
         "name": "flash_attention", "route": "cuda",
         "source": csrc + "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:104",
+        "train_launches": train_launches["flash_attention.LAUNCHES"],
         # the serving paths' runs (RecurrentGemma's, Qwen2's, OLMoE's and
         # SeamlessM4T's prefills); ms, plain_ms, library_ms and bound_ms at
         # RecurrentGemma's shape, the others' beside them
@@ -2943,6 +3232,7 @@ def main() -> int:
         "name": "rglru_scan", "route": "cuda",
         "source": csrc + "rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan.py:73",
+        "train_launches": train_launches["rglru_scan.LAUNCHES"],
         # ms: device time a call by CUDA-graph replay; call_ms with the
         # wrapper's host work (what ms held before)
         "launches": serve_launches["rglru_scan"],
@@ -2953,12 +3243,14 @@ def main() -> int:
         "name": "ssd_scan", "route": "cuda",
         "source": csrc + "ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:84",
+        "train_launches": train_launches["ssd_scan.LAUNCHES"],
         "launches": mamba_launches["ssd_scan"], "max_abs_err": ssd_err,
         "ms": ssd_ms, "plain_ms": ssd_plain_ms, "bound_ms": ssd_bound_ms,
         "bound_by": ssd_bound_by, "library_ms": None}, {
         "name": "decode_attention", "route": "cuda",
         "source": csrc + "decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:96",
+        "train_launches": train_launches["decode_attention.LAUNCHES"],
         # the serving paths' decode steps; ms, plain_ms, library_ms and
         # bound_ms at Qwen2's shape, OLMoE's and SeamlessM4T's beside them
         "launches": qwen2_launches["decode_attention"]
@@ -2982,6 +3274,7 @@ def main() -> int:
         "name": "policy_update", "route": "cuda",
         "source": csrc + "policy_update.cu",
         "replaces": "src/repro/kernels/histogram.py:128",
+        "train_launches": train_launches["histogram.POLICY_UPDATE_LAUNCHES"],
         # ms a tick per call (events around each call); back to back
         # beside it (one event pair around the 64 ticks)
         "launches": policy_launches, "max_abs_err": policy_err,
@@ -2997,7 +3290,8 @@ def main() -> int:
          serve_seamless_seconds=serve_seamless_s,
          serve_seamless_requests=n_seamless, policy_update_seconds=policy_s,
          arima_point_phase_seconds=arima_s, spes_point_seconds=spes_s,
-         fleet_point_phase_seconds=fleet_s)
+         fleet_point_phase_seconds=fleet_s,
+         launch_serve_seconds=launch_serve_s, train_smollm_seconds=train_s)
     if failed:
         # every phase ran and printed its line; a failed gate fails the run
         emit("failed", gates=failed)

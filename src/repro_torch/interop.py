@@ -19,7 +19,8 @@ from .core.workload import Trace
 from .device import resolve_device
 
 __all__ = ["trace_from_numpy", "step_state_from_numpy",
-           "cfg_blocks_from_numpy", "model_params_from_numpy"]
+           "cfg_blocks_from_numpy", "model_params_from_numpy",
+           "train_state_from_numpy"]
 
 _STEP_DTYPES = (torch.float32, torch.int32, torch.int32, torch.float32,
                 torch.float32, torch.float32, torch.float32, torch.int32,
@@ -77,19 +78,16 @@ def _flatten(tree: Dict, prefix: str = "") -> Iterator[Tuple[str, object]]:
             yield path, val
 
 
-def _param_module(cfg: ModelConfig) -> Tuple[type, Tuple[str, ...]]:
-    """The port's parameter module of ``cfg``'s family, and the keys under
-    which the reference stacks its per-layer leaves."""
+def _param_module(cfg: ModelConfig) -> type:
+    """The port's parameter module of ``cfg``'s family (its ``STACKED``
+    names the keys under which the reference stacks per-layer leaves)."""
     from .models.mamba2 import SSMParams
     from .models.moe import MoEParams
     from .models.rglru import HybridParams
     from .models.transformer import DenseParams, EncDecParams
 
-    return {"dense": (DenseParams, ("layers",)),
-            "moe": (MoEParams, ("layers",)),
-            "encdec": (EncDecParams, ("enc_layers", "layers")),
-            "hybrid": (HybridParams, ("blocks",)),
-            "ssm": (SSMParams, ("layers",))}[cfg.family]
+    return {"dense": DenseParams, "moe": MoEParams, "encdec": EncDecParams,
+            "hybrid": HybridParams, "ssm": SSMParams}[cfg.family]
 
 
 def model_params_from_numpy(cfg: ModelConfig, tree: Dict, *,
@@ -109,7 +107,8 @@ def model_params_from_numpy(cfg: ModelConfig, tree: Dict, *,
     reference's ``[d_in, d_out]`` layout, which the port multiplies the same
     way (``x @ w``). Raises ``ValueError`` on a missing or extra leaf or a
     shape that differs."""
-    module, stacked_keys = _param_module(cfg)
+    module = _param_module(cfg)
+    stacked_keys = module.STACKED
     dev = resolve_device(device)
     flat = {}
     for path, arr in _flatten(tree):
@@ -135,3 +134,23 @@ def model_params_from_numpy(cfg: ModelConfig, tree: Dict, *,
                              f"{tuple(p.shape)}")
         p.copy_(torch.from_numpy(np.array(flat[name], dtype=np.float32)))
     return params
+
+
+def train_state_from_numpy(cfg: ModelConfig, state, *, device="cuda"):
+    """The reference's ``TrainState`` (``step``, ``params``, ``m``, ``v``;
+    numpy leaves, each tree laid out as the parameters) as the port's
+    :class:`~repro_torch.training.optimizer.TrainState` on ``device``: the
+    masters through :func:`model_params_from_numpy`, each moment tree
+    through it too and keyed by the port's parameter names. The same call
+    carries the reference's gradients (a tree of the parameters' layout)
+    across leaf by leaf."""
+    from .training.optimizer import TrainState
+
+    def named(tree):
+        return {n: p.detach() for n, p in model_params_from_numpy(
+            cfg, tree, device=device).named_parameters()}
+
+    return TrainState(step=int(np.asarray(state.step)),
+                      params=model_params_from_numpy(cfg, state.params,
+                                                     device=device),
+                      m=named(state.m), v=named(state.v))

@@ -29,6 +29,8 @@ import operator
 import numpy as np
 import torch
 
+from . import refuse_grad
+
 __all__ = ["LAUNCHES", "LAUNCHES_BY_FORM", "SPLIT_KEYS", "decode_attention",
            "decode_attention_plain"]
 
@@ -192,7 +194,10 @@ def decode_attention(q, k, v, kv_len):
 
     CPU tensors run the plain version; CUDA tensors launch the kernel in
     the form :func:`_form` picks (and count one launch in ``LAUNCHES`` and
-    in ``LAUNCHES_BY_FORM``) or raise."""
+    in ``LAUNCHES_BY_FORM``) or raise.
+    An input that requires grad, in grad mode, raises on either device
+    (:func:`refuse_grad`)."""
+    refuse_grad("decode_attention", q, k, v)
     n = _kv_len(kv_len, k.shape[1])
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, n)

@@ -25,6 +25,8 @@ import math
 
 import torch
 
+from . import refuse_grad
+
 __all__ = ["LAUNCHES", "LAUNCHES_BY_FORM", "CHUNKED_Q_THRESHOLD", "sdpa",
            "flash_attention", "flash_attention_plain"]
 
@@ -219,7 +221,10 @@ def flash_attention(q, k, v, *, window: int = 0):
 
     CPU tensors run the plain version; CUDA tensors launch the kernel in
     the form :func:`_form` picks (and count one launch in ``LAUNCHES`` and
-    in ``LAUNCHES_BY_FORM``) or raise."""
+    in ``LAUNCHES_BY_FORM``) or raise.
+    An input that requires grad, in grad mode, raises on either device
+    (:func:`refuse_grad`)."""
+    refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, window=window)
     if q.device.type == "cuda":

@@ -19,6 +19,8 @@ import ctypes
 
 import torch
 
+from . import refuse_grad
+
 __all__ = ["LAUNCHES", "LAUNCHES_BY_FORM", "CHUNK", "rglru_scan",
            "rglru_scan_plain"]
 
@@ -121,7 +123,10 @@ def rglru_scan(b_in, a):
     float32 contiguous -> (h [B, L, D], h_last [B, D]).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel (and
-    count one launch in ``LAUNCHES``) or raise."""
+    count one launch in ``LAUNCHES``) or raise.
+    An input that requires grad, in grad mode, raises on either device
+    (:func:`refuse_grad`)."""
+    refuse_grad("rglru_scan", b_in, a)
     if a.device.type == "cpu":
         return rglru_scan_plain(b_in, a)
     if a.device.type == "cuda":

@@ -21,8 +21,11 @@ runs a short last chunk. The result is the same up to rounding.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
+
+from . import refuse_grad
 
 __all__ = ["LAUNCHES", "MAX_BF16_STATE", "MAX_CHUNK", "release_scratch",
            "ssd_scan", "ssd_scan_plain"]
@@ -83,7 +86,10 @@ def ssd_scan_plain(x, dt, A, B, C, chunk: int, initial_state=None):
     CB = torch.einsum("bcin,bcjn->bcij", Cb, Bb)
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # [b,nc,i,j,h]
     causal = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()
-    decay = torch.where(causal[:, :, None], torch.exp(seg), 0.0)
+    # masked before the exp: exp(seg) of the upper triangle overflows to
+    # inf, and masking after it leaves inf * 0 = NaN in the backward (the
+    # reference's order, ROADMAP Queue C); the values are the same
+    decay = torch.exp(torch.where(causal[:, :, None], seg, -math.inf))
     M = CB[..., None] * decay
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", M, xb * dtb[..., None])
 
@@ -227,7 +233,10 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 256, initial_state=None):
     (y [b, l, h, p] in x's dtype, final state [b, h, n, p] f32).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel (and
-    count one launch in ``LAUNCHES``) or raise."""
+    count one launch in ``LAUNCHES``) or raise.
+    An input that requires grad, in grad mode, raises on either device
+    (:func:`refuse_grad`)."""
+    refuse_grad("ssd_scan", x, dt, A, B, C, initial_state)
     if x.device.type == "cpu":
         y, final = ssd_scan_plain(x, dt, A, B, C, chunk, initial_state)
         return y.to(x.dtype), final

@@ -20,10 +20,15 @@ Qwen3-MoE), encoder-decoder (SeamlessM4T), hybrid (RecurrentGemma) and SSM
     stacks them ``[n_layers, ...]``), written in place, with ``pos`` a host
     int.
 
+Training: the cross-entropy losses (:func:`softmax_xent`, and
+:func:`softmax_xent_chunked`, which never holds the ``[B, S, V]`` logits)
+compute in f32, and :func:`remat` re-computes a block in the backward
+(``cfg.remat``, as the reference wraps its scanned body in
+``jax.checkpoint``).
+
 Left out (on no path): the distributed-decode branch of
 ``attention_apply`` (``dist_decode.applicable`` is false on one device),
-the cross-entropy losses (ROADMAP Queue A item 4, with training), and
-``scan_blocks`` (the port loops over layers in Python).
+and ``scan_blocks`` (the port loops over layers in Python).
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
@@ -41,7 +47,8 @@ from ..kernels.flash_attention import sdpa
 __all__ = ["FP32_AT_USE", "fp32_at_use", "compute_dtype", "Linear",
            "RMSNorm", "Attention", "MLP", "Embedding", "normal_", "linear",
            "rmsnorm", "causal_conv", "rope", "attention_apply", "make_cache",
-           "mlp_apply", "embed", "unembed", "_sdpa"]
+           "mlp_apply", "embed", "unembed", "_sdpa", "remat", "softmax_xent",
+           "softmax_xent_chunked"]
 
 #: Parameter names that stay fp32 at use, matched against the last parts of
 #: a parameter's dotted name (:func:`fp32_at_use`): the ``rmsnorm`` scales,
@@ -272,3 +279,74 @@ def embed(p: Embedding, tokens: torch.Tensor, dtype) -> torch.Tensor:
 def unembed(p: Embedding, x: torch.Tensor) -> torch.Tensor:
     """Tied unembedding; logits in the activation dtype."""
     return x @ p.table.to(x.dtype).T
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+
+def remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, re-computed in the backward instead of keeping its
+    activations when ``cfg.remat`` is set and autograd is recording (the
+    reference's ``jax.checkpoint`` around each scanned block). Under
+    ``torch.no_grad()``/``torch.inference_mode()`` (serving) it is a plain
+    call."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _token_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-token ``logsumexp - label logit`` in f32; the label logit taken
+    by an index compare and a masked sum, as the reference does (no gather
+    across the vocabulary)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    ll = torch.where(vocab == labels[..., None], logits, 0.0).sum(dim=-1)
+    return logz - ll
+
+
+def _mean_loss(loss: torch.Tensor, mask) -> torch.Tensor:
+    if mask is not None:
+        loss = loss * mask
+        return loss.sum() / torch.clamp(mask.sum().to(loss.dtype), min=1.0)
+    return loss.mean()
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask=None) -> torch.Tensor:
+    """Mean token cross-entropy in f32 over logits [..., V] and integer
+    ``labels`` [...]; with ``mask`` (same shape as ``labels``) the masked
+    mean, ``sum(loss * mask) / max(sum(mask), 1)``."""
+    return _mean_loss(_token_xent(logits, labels), mask)
+
+
+def softmax_xent_chunked(x: torch.Tensor, table: torch.Tensor,
+                         labels: torch.Tensor, mask=None,
+                         transpose_table: bool = False,
+                         chunk: int = 512) -> torch.Tensor:
+    """:func:`softmax_xent` of the logits ``x @ table.T`` (``table`` the
+    tied ``[V, D]`` embedding) or ``x @ table`` (``transpose_table``: an
+    untied head ``[D, V]``) over the final hidden ``x`` [B, S, D], one
+    sequence chunk at a time: each chunk's ``[B, chunk, V]`` logits are
+    reduced to per-token losses and dropped, and re-computed in the
+    backward (``torch.utils.checkpoint``, as the reference's
+    ``jax.checkpoint``), so the ``[B, S, V]`` logits never exist. The
+    chunk is the largest divisor of S no larger than ``chunk``."""
+    B, S, _ = x.shape
+    chunk = min(chunk, S)
+    while S % chunk:
+        chunk -= 1
+
+    def body(xc, lc):
+        w = table.to(xc.dtype)
+        return _token_xent(xc @ w if transpose_table else xc @ w.T, lc)
+
+    parts = []
+    for i in range(0, S, chunk):
+        xc, lc = x[:, i:i + chunk], labels[:, i:i + chunk]
+        parts.append(checkpoint(body, xc, lc, use_reentrant=False)
+                     if torch.is_grad_enabled() else body(xc, lc))
+    return _mean_loss(torch.cat(parts, dim=1), mask)

@@ -13,7 +13,9 @@ reference's stacked ``[n_layers, ...]`` parameters are unrolled into a
     length is a multiple of ``ssm_chunk``, else through the plain chunked
     form (``kernels.ssd_scan.ssd_scan_plain``);
   * decode is O(1) a token: the state update ``S <- a S + dt B x^T`` and a
-    rolling conv buffer, in plain PyTorch as in the reference.
+    rolling conv buffer, in plain PyTorch as in the reference;
+  * training (``loss_fn``) re-computes each layer in the backward under
+    ``cfg.remat``.
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ from ..kernels.ssd_scan import ssd_scan_plain
 from . import layers as L
 
 __all__ = ["ssd_decode_step", "Mamba2Block", "SSMParams", "init",
-           "block_apply", "forward", "init_state", "prefill", "decode_step"]
+           "block_apply", "forward", "loss_fn", "init_state", "prefill",
+           "decode_step"]
 
 
 def ssd_decode_step(S, x, dt, A, B, C):
@@ -78,6 +81,10 @@ class Mamba2Block(nn.Module):
 class SSMParams(nn.Module):
     """The whole model's parameters: ``embed``, ``layers`` (one
     :class:`Mamba2Block` per layer) and ``ln_f``."""
+
+    #: The module lists whose blocks the reference stacks on a leading
+    #: axis (one leaf ``[n, ...]`` per parameter name).
+    STACKED = ("layers",)
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -183,9 +190,17 @@ def forward(cfg: ModelConfig, params: SSMParams, tokens):
     """Full-sequence logits [B, S, vocab] in the activation dtype."""
     x = L.embed(params.embed, tokens, L.compute_dtype(cfg))
     for lp in params.layers:
-        x, _ = block_apply(cfg, lp, x, use_kernel=True)
+        x = L.remat(cfg, lambda x, lp=lp: block_apply(cfg, lp, x,
+                                                      use_kernel=True)[0], x)
     x = L.rmsnorm(params.ln_f, x, cfg.norm_eps)
     return L.unembed(params.embed, x)
+
+
+def loss_fn(cfg: ModelConfig, params: SSMParams, batch: Dict):
+    """Mean next-token cross-entropy of ``batch`` (``tokens``, ``labels``,
+    optional ``mask``)."""
+    logits = forward(cfg, params, batch["tokens"])
+    return L.softmax_xent(logits, batch["labels"], batch.get("mask"))
 
 
 def init_state(cfg: ModelConfig, batch: int, dtype, device=None) -> Dict:

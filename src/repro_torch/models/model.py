@@ -7,6 +7,8 @@ encoder-decoder: SeamlessM4T; hybrid: RecurrentGemma; SSM: Mamba-2):
   * ``init(seed, device, scheme="reference")`` — parameter module (fp32):
     the reference's distributions, or for the MoE family
     ``"depth_scaled"`` (:func:`moe.depth_scale_`)
+  * ``loss(params, batch)`` — scalar LM loss (train; MoE: plus the
+    router's weighted aux loss)
   * ``forward(params, tokens, embeds=None)`` — full-sequence logits (MoE:
     ``(logits, aux)``, as the reference returns them)
   * ``prefill(params, tokens, max_len, embeds=None)`` — (last-token
@@ -17,18 +19,13 @@ encoder-decoder: SeamlessM4T; hybrid: RecurrentGemma; SSM: Mamba-2):
 Frontend ``embeds`` [B, frontend_tokens, D] (``models.frontend``) are the
 VLM backbone's prepended patches and the encoder-decoder's frames, which
 it needs (a ``ValueError`` without them); the other families take none.
-``loss`` belongs to training (ROADMAP Queue A item 4) and raises.
 """
 from __future__ import annotations
 
 from ..configs.base import ModelConfig
 from . import mamba2, moe, rglru, transformer
 
-__all__ = ["Model", "build", "n_params", "LOSS_NOT_PORTED", "INIT_SCHEMES"]
-
-LOSS_NOT_PORTED = (
-    "Model.loss is not ported to repro_torch yet (ROADMAP Queue A item 4: "
-    "the losses come with the training substrate)")
+__all__ = ["Model", "build", "n_params", "INIT_SCHEMES"]
 
 #: The draws ``Model.init`` makes: the reference's distributions, and
 #: ``"depth_scaled"`` (MoE family only; :func:`moe.depth_scale_`).
@@ -104,7 +101,14 @@ class Model:
             raise ValueError(f"family {fam!r} takes no frontend embeddings")
 
     def loss(self, params, batch):
-        raise NotImplementedError(LOSS_NOT_PORTED)
+        """Scalar loss of ``batch`` (``tokens``, ``labels``, optional
+        ``mask``; ``embeds`` for the VLM backbone and the
+        encoder-decoder's frames), differentiable in ``params``."""
+        cfg = self.cfg
+        self._check_embeds(batch.get("embeds"))
+        if cfg.family == "encdec":
+            return transformer.encdec_loss(cfg, params, batch)
+        return self._m.loss_fn(cfg, params, batch)
 
     def forward(self, params, tokens=None, embeds=None):
         cfg = self.cfg

@@ -20,7 +20,8 @@ The router computes in f32 on an f32 weight (``layers.FP32_AT_USE`` keeps
 stacked ``[E, d_model, d_expert]`` / ``[E, d_expert, d_model]``; the
 products are plain ``torch.einsum``s, as the reference leaves them to XLA
 (it has no kernel here). Attention, the KV cache and the kernel branches
-are the dense family's (``layers.attention_apply``).
+are the dense family's (``layers.attention_apply``). Training
+(``loss_fn``) re-computes each block in the backward under ``cfg.remat``.
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ from . import layers as L
 from .transformer import _init_params, _logits
 
 __all__ = ["MoEFFN", "MoEBlock", "MoEParams", "init", "depth_scale_",
-           "moe_apply", "moe_block_apply", "forward", "prefill",
+           "moe_apply", "moe_block_apply", "forward", "loss_fn", "prefill",
            "decode_step"]
 
 # ---------------------------------------------------------------------------
@@ -83,6 +84,10 @@ class MoEBlock(nn.Module):
 class MoEParams(nn.Module):
     """``embed``, ``layers`` (one :class:`MoEBlock` per layer), ``ln_f``
     and ``head`` (the family's unembedding is never tied)."""
+
+    #: The module lists whose blocks the reference stacks on a leading
+    #: axis (one leaf ``[n, ...]`` per parameter name).
+    STACKED = ("layers",)
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -249,9 +254,18 @@ def forward(cfg: ModelConfig, params: MoEParams, tokens):
     positions = torch.arange(S, device=x.device).expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params.layers:
-        x, a = moe_block_apply(cfg, lp, x, positions)
+        x, a = L.remat(cfg, lambda x, lp=lp: moe_block_apply(cfg, lp, x,
+                                                             positions), x)
         aux = aux + a
     return _logits(cfg, params, x), aux / cfg.n_layers
+
+
+def loss_fn(cfg: ModelConfig, params: MoEParams, batch: Dict):
+    """The cross-entropy of ``batch`` plus ``router_aux_weight`` times the
+    mean load-balancing aux loss, as the reference adds them."""
+    logits, aux = forward(cfg, params, batch["tokens"])
+    return (L.softmax_xent(logits, batch["labels"], batch.get("mask"))
+            + cfg.router_aux_weight * aux)
 
 
 def prefill(cfg: ModelConfig, params: MoEParams, tokens, max_len: int = 0):

@@ -14,7 +14,10 @@ of per-block dicts.
     else through the plain doubling scan;
   * local attention over a full sequence goes through the banded attention
     kernel under the same switch; decode uses a ring-buffer KV cache of
-    ``window`` slots.
+    ``window`` slots;
+  * training (``loss_fn``) re-computes each super-block in the backward
+    under ``cfg.remat`` (the trailing layers are not, as in the
+    reference, where they sit outside the scanned body).
 """
 from __future__ import annotations
 
@@ -33,8 +36,8 @@ from . import layers as L
 
 __all__ = ["rglru_scan_ref", "rglru_decode", "RecBlock", "MLPBlock",
            "SuperBlock", "HybridParams", "rec_apply", "attn_apply_local",
-           "sblock_apply", "init", "forward", "init_cache", "prefill",
-           "decode_step"]
+           "sblock_apply", "init", "forward", "loss_fn", "init_cache",
+           "prefill", "decode_step"]
 
 _C = 8.0  # RG-LRU "c" constant
 
@@ -115,6 +118,10 @@ class HybridParams(nn.Module):
     """The whole model's parameters: ``embed``, ``blocks`` (one
     :class:`SuperBlock` per super-block), ``ln_f`` and the trailing
     ``tail_rec{i}`` / ``tail_mlp{i}``."""
+
+    #: The module lists whose blocks the reference stacks on a leading
+    #: axis (one leaf ``[n, ...]`` per parameter name).
+    STACKED = ("blocks",)
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -322,13 +329,21 @@ def forward(cfg: ModelConfig, params: HybridParams, tokens):
     B, S, _ = x.shape
     positions = _positions(B, S, x.device)
     for bp in params.blocks:
-        x, _ = sblock_apply(cfg, bp, x, positions, use_kernel=True)
+        x = L.remat(cfg, lambda x, bp=bp: sblock_apply(
+            cfg, bp, x, positions, use_kernel=True)[0], x)
     for i in range(params.n_tail):
         rec, mlp = params.tail(i)
         x, _ = rec_apply(cfg, rec, x, use_kernel=True)
         x = _mlp_res(cfg, mlp, x)
     x = L.rmsnorm(params.ln_f, x, cfg.norm_eps)
     return L.unembed(params.embed, x)
+
+
+def loss_fn(cfg: ModelConfig, params: HybridParams, batch: Dict):
+    """Mean next-token cross-entropy of ``batch`` (``tokens``, ``labels``,
+    optional ``mask``)."""
+    logits = forward(cfg, params, batch["tokens"])
+    return L.softmax_xent(logits, batch["labels"], batch.get("mask"))
 
 
 def init_cache(cfg: ModelConfig, batch: int, dtype, device=None) -> Dict:

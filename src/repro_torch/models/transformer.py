@@ -28,6 +28,11 @@ states. Its prefill cache carries those states as ``"enc"``; the decoder's
 self-attention takes the kernel branches as the dense family does, and
 the cross-attention the plain ``_sdpa`` (the reference takes its attention
 kernel for causal self-attention only).
+
+Training (``loss_fn``, ``encdec_loss``): the full-sequence forwards run
+each block under ``layers.remat`` (``cfg.remat``) when autograd records,
+and the loss is ``layers.softmax_xent`` over the logits, or
+``softmax_xent_chunked`` over the final hidden (``cfg.chunked_xent``).
 """
 from __future__ import annotations
 
@@ -41,9 +46,9 @@ from ..device import resolve_device
 from . import layers as L
 
 __all__ = ["DenseBlock", "DenseParams", "EncDecBlock", "EncDecParams", "init",
-           "block_apply", "forward", "prefill", "decode_step",
-           "encdec_init", "encode", "encdec_forward", "encdec_prefill",
-           "encdec_decode_step"]
+           "block_apply", "forward", "loss_fn", "prefill", "decode_step",
+           "encdec_init", "encode", "encdec_forward", "encdec_loss",
+           "encdec_prefill", "encdec_decode_step"]
 
 
 # ---------------------------------------------------------------------------
@@ -68,6 +73,10 @@ class DenseParams(nn.Module):
     """The whole model's parameters: ``embed``, ``layers`` (one
     :class:`DenseBlock` per layer), ``ln_f`` and, when the unembedding is
     not tied, ``head``."""
+
+    #: The module lists whose blocks the reference stacks on a leading
+    #: axis (one leaf ``[n, ...]`` per parameter name).
+    STACKED = ("layers",)
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -96,6 +105,10 @@ class EncDecBlock(DenseBlock):
 class EncDecParams(nn.Module):
     """``embed``, ``enc_layers`` (dense blocks), ``enc_ln``, ``layers``
     (:class:`EncDecBlock`), ``ln_f`` and ``head``."""
+
+    #: The module lists whose blocks the reference stacks on a leading
+    #: axis (one leaf ``[n, ...]`` per parameter name).
+    STACKED = ("enc_layers", "layers")
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -189,15 +202,38 @@ def _embed_inputs(cfg: ModelConfig, params, tokens, embeds, dtype):
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
-def forward(cfg: ModelConfig, params: DenseParams, tokens=None, embeds=None):
+def forward(cfg: ModelConfig, params: DenseParams, tokens=None, embeds=None,
+            return_hidden: bool = False):
     """Full-sequence causal logits [B, S, vocab] in the activation dtype
-    (S counts the ``embeds`` rows prepended to the tokens)."""
+    (S counts the ``embeds`` rows prepended to the tokens); with
+    ``return_hidden`` the final hidden after ``ln_f`` [B, S, D] instead."""
     x = _embed_inputs(cfg, params, tokens, embeds, L.compute_dtype(cfg))
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     for lp in params.layers:
-        x = block_apply(cfg, lp, x, positions)
+        x = L.remat(cfg, lambda x, lp=lp: block_apply(cfg, lp, x, positions),
+                    x)
+    if return_hidden:
+        return L.rmsnorm(params.ln_f, x, cfg.norm_eps)
     return _logits(cfg, params, x)
+
+
+def loss_fn(cfg: ModelConfig, params: DenseParams, batch: Dict):
+    """Mean next-token cross-entropy of ``batch`` (``tokens``, ``labels``,
+    optional ``embeds`` and ``mask``); the frontend rows carry no labels,
+    so the loss reads the last ``labels.shape[1]`` positions."""
+    labels = batch["labels"]
+    n = labels.shape[1]
+    if cfg.chunked_xent:
+        h = forward(cfg, params, batch.get("tokens"), batch.get("embeds"),
+                    return_hidden=True)[:, -n:]
+        if cfg.tie_embeddings:
+            return L.softmax_xent_chunked(h, params.embed.table, labels,
+                                          batch.get("mask"))
+        return L.softmax_xent_chunked(h, params.head.w, labels,
+                                      batch.get("mask"), transpose_table=True)
+    logits = forward(cfg, params, batch.get("tokens"), batch.get("embeds"))
+    return L.softmax_xent(logits[:, -n:], labels, batch.get("mask"))
 
 
 def prefill(cfg: ModelConfig, params: DenseParams, tokens,
@@ -247,7 +283,8 @@ def encode(cfg: ModelConfig, params: EncDecParams, frames):
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     for lp in params.enc_layers:
-        x = block_apply(cfg, lp, x, positions, causal=False)
+        x = L.remat(cfg, lambda x, lp=lp: block_apply(cfg, lp, x, positions,
+                                                      causal=False), x)
     return L.rmsnorm(params.enc_ln, x, cfg.norm_eps)
 
 
@@ -255,16 +292,33 @@ def _encdec_logits(cfg: ModelConfig, params: EncDecParams, x):
     return L.linear(params.head, L.rmsnorm(params.ln_f, x, cfg.norm_eps))
 
 
-def encdec_forward(cfg: ModelConfig, params: EncDecParams, tokens, frames):
+def encdec_forward(cfg: ModelConfig, params: EncDecParams, tokens, frames,
+                   return_hidden: bool = False):
     """Decoder logits [B, S, vocab] over ``tokens``, cross-attending to
-    the encoding of ``frames``."""
+    the encoding of ``frames``; with ``return_hidden`` the final hidden
+    after ``ln_f`` instead."""
     enc = encode(cfg, params, frames)
     x = L.embed(params.embed, tokens, L.compute_dtype(cfg))
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     for lp in params.layers:
-        x = block_apply(cfg, lp, x, positions, enc=enc)
+        x = L.remat(cfg, lambda x, lp=lp: block_apply(cfg, lp, x, positions,
+                                                      enc=enc), x)
+    if return_hidden:
+        return L.rmsnorm(params.ln_f, x, cfg.norm_eps)
     return _encdec_logits(cfg, params, x)
+
+
+def encdec_loss(cfg: ModelConfig, params: EncDecParams, batch: Dict):
+    """Mean cross-entropy of the decoder over ``batch`` (``tokens``,
+    ``embeds`` the frames, ``labels``, optional ``mask``)."""
+    if cfg.chunked_xent:
+        h = encdec_forward(cfg, params, batch["tokens"], batch["embeds"],
+                           return_hidden=True)
+        return L.softmax_xent_chunked(h, params.head.w, batch["labels"],
+                                      batch.get("mask"), transpose_table=True)
+    logits = encdec_forward(cfg, params, batch["tokens"], batch["embeds"])
+    return L.softmax_xent(logits, batch["labels"], batch.get("mask"))
 
 
 def encdec_prefill(cfg: ModelConfig, params: EncDecParams, tokens,

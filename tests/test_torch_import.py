@@ -32,6 +32,13 @@ def test_imports_with_jax_blocked():
         "import repro_torch.serving.apptable, repro_torch.serving.cluster_sim\n"
         "import repro_torch.serving.cluster_vector\n"
         "import repro_torch.runtime, repro_torch.runtime.straggler\n"
+        "import repro_torch.runtime.fault_tolerance\n"
+        "import repro_torch.training.optimizer, repro_torch.training.data\n"
+        "import repro_torch.training.checkpoint\n"
+        "import repro_torch.training.train_loop\n"
+        "import repro_torch.launch.steps, repro_torch.launch.train\n"
+        "import repro_torch.launch.serve, repro_torch.serving.scheduler\n"
+        "import repro_torch.core.dataset_export\n"
         "assert not [m for m in sys.modules if m.startswith('jax')"
         " and sys.modules[m] is not None]\n"
         "print('ok')\n")

@@ -166,12 +166,13 @@ def test_configs_and_param_counts_match_reference(ref, arch):
     assert configs.SUBQUADRATIC == ref.configs.SUBQUADRATIC
 
 
-def test_other_families_raise_naming_the_roadmap_item(ref):
-    """Every family is ported now: every arch of ``configs.ARCHS`` builds,
-    its analytic parameter count equals the reference's, and what is left
-    of the model interface, the loss (ROADMAP Queue A item 4, with the
-    training substrate), raises naming that item."""
+def test_every_family_counts_params_and_takes_a_loss(ref):
+    """Every family is ported: every arch of ``configs.ARCHS`` builds, its
+    analytic parameter count equals the reference's, and at reduced size
+    ``Model.loss`` returns a finite scalar (the loss is held to the
+    reference's in ``tests/test_torch_training.py``)."""
     assert set(configs.ARCHS) == set(ref.configs.ARCHS)
+    rng = np.random.default_rng(0)
     for arch, cfg in configs.ARCHS.items():
         m = Model(cfg)
         want = ref.build(ref.configs.get(arch))
@@ -179,8 +180,16 @@ def test_other_families_raise_naming_the_roadmap_item(ref):
             assert m.n_params(active) == n_params(cfg, active) \
                 == want.n_params(active_only=active), arch
         assert build(cfg).cfg is cfg
-        with pytest.raises(NotImplementedError, match="Queue A item 4"):
-            m.loss(None, {})
+        small = configs.reduced(cfg)
+        S = 16
+        batch = {k: torch.from_numpy(rng.integers(0, small.vocab, (2, S)))
+                 for k in ("tokens", "labels")}
+        if small.frontend != "none" or small.family == "encdec":
+            batch["embeds"] = torch.from_numpy(rng.normal(
+                0, 0.02, (2, small.frontend_tokens, small.d_model)
+            ).astype(np.float32))
+        loss = Model(small).loss(Model(small).init(0, "cpu"), batch)
+        assert loss.shape == () and torch.isfinite(loss), arch
 
 
 def test_init_follows_the_reference_distributions(ref):
