@@ -95,6 +95,9 @@ Exits non-zero without a result where there is no CUDA device or no
 """
 from __future__ import annotations
 
+import atexit
+import contextlib
+import io
 import json
 import math
 import os
@@ -166,6 +169,24 @@ FORECAST_FLEET = dict(n_apps=60, days=3.0, seed=5, max_events=16)
 FORECAST_WORKERS = 4
 CLUSTER_COUNTERS = ("cold_starts", "warm_starts", "prewarms", "unloads",
                     "evictions", "budget_overflows", "bytes_moved")
+# The float32 "reference" engine (phase reference_engine): gate (a) holds
+# the card to the CPU on the scale trace's first REFERENCE_SLICE apps; gate
+# (b) lets fewer than REFERENCE_MAX_COLD_SHARE of the apps differ from the
+# float64 kernel engine in their cold count (float32 rebased time moved 4 of
+# 1M in PR 12; many would mean a broken engine).
+REFERENCE_SLICE = 20_000
+REFERENCE_MAX_COLD_SHARE = 1e-3
+# The example twins (phase examples) at the reference scripts' defaults;
+# the quickstart's and the explorer's CPU runs (minutes of plain scans) run
+# in worker processes from the start, and the phase waits for them at most
+# CPU_EXAMPLES_TIMEOUT seconds. The training twin crashes at step 120 of
+# 200 (checkpoints every 50 steps: it resumes from step 100).
+# The scale-out phase times each devices setting this many times, in
+# turns, at each point (the scale point's replay is host-bound and spreads).
+SCALEOUT_REPEATS = {"scale_point": 5, "fleet": 2}
+CPU_EXAMPLES = ("quickstart", "policy_explorer")
+CPU_EXAMPLES_TIMEOUT = 600
+EXAMPLE_CRASH_AT = 120
 
 # The serving path: RecurrentGemma-2B's attention (B=2 prompts of 4,096
 # tokens, 10 q heads, 1 KV head, head dim 256, window 2,048) and RG-LRU
@@ -2151,6 +2172,367 @@ def fleet_point(device):
 
 
 # ---------------------------------------------------------------------------
+# The float32 "reference" engine, the app-axis scale-out, the examples
+# ---------------------------------------------------------------------------
+
+
+def rows_differing(a, b) -> dict:
+    """Apps whose cold count, final windows or waste differ between two
+    runs; waste also beyond the float32 engines' tolerance (rtol 1e-5,
+    atol 1e-3: tests/test_engine_conformance.py)."""
+    windows = (a.final_prewarm != b.final_prewarm) \
+        | (a.final_keep_alive != b.final_keep_alive)
+    beyond = ~np.isclose(a.wasted_minutes, b.wasted_minutes, rtol=1e-5,
+                         atol=1e-3)
+    return dict(cold=int((a.cold != b.cold).sum()),
+                windows=int(windows.sum()),
+                waste=int((a.wasted_minutes != b.wasted_minutes).sum()),
+                waste_beyond_f32_tolerance=int(beyond.sum()))
+
+
+def reference_engine(trace, device):
+    """``run(scale trace, HybridSpec(use_arima=False), engine="reference")``
+    on the card: the reference's pre-sweep float32 engine (per-bucket
+    rebasing, a full cumsum per step) in plain PyTorch, no kernel. Gates:
+    (a) on a 20,000-app slice the card equals the same engine on the CPU
+    bit for bit; (b) fewer than 0.1% of the apps differ from the ``kernel``
+    engine (float64 time) in their cold count. Returns the failed gates."""
+    import torch
+    from repro_torch.core.experiment import EngineOptions, HybridSpec, run
+    from repro_torch.interop import trace_from_numpy
+    from repro_torch.kernels import histogram as H
+
+    spec = HybridSpec(use_arima=False)
+    opts = EngineOptions(app_chunk=SCALE_APPS, device=device)
+
+    def timed(engine, tr=trace, options=opts):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run(tr, spec, engine=engine, options=options)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    with uncounted(H):
+        kernel, kernel_s = timed("kernel")
+    torch.cuda.reset_peak_memory_stats()
+    ref, ref_s = timed("reference")
+    peak = torch.cuda.max_memory_allocated()
+    diff = rows_differing(ref, kernel)
+
+    times, counts = trace.to_padded()
+    sl = trace_from_numpy(np.ascontiguousarray(times[:REFERENCE_SLICE]),
+                          counts[:REFERENCE_SLICE].copy(),
+                          duration_minutes=trace.duration_minutes)
+    card, card_s = timed("reference", sl)
+    t0 = time.perf_counter()
+    cpu = run(sl, spec, engine="reference", options=EngineOptions(
+        device="cpu"))
+    cpu_s = time.perf_counter() - t0
+    slice_diff = rows_differing(card, cpu)
+    failed = []
+    if any(slice_diff.values()):
+        failed.append(f"reference_engine (a): the card differs from the CPU "
+                      f"on the {REFERENCE_SLICE}-app slice: {slice_diff}")
+    if diff["cold"] >= REFERENCE_MAX_COLD_SHARE * SCALE_APPS:
+        failed.append(f"reference_engine (b): {diff['cold']} apps differ "
+                      f"from the kernel engine in their cold count")
+    emit("reference_engine", n_apps=SCALE_APPS, days=14.0,
+         seconds=ref_s, kernel_seconds=kernel_s, peak_device_bytes=peak,
+         differ_from_kernel=diff, pr12_float32_step_differed=dict(
+             cold=4, windows=22, waste_beyond_f32_tolerance=67),
+         gate_a=dict(apps=REFERENCE_SLICE, card_seconds=card_s,
+                     cpu_seconds=cpu_s, differing=slice_diff),
+         gate_b_cold_share=diff["cold"] / SCALE_APPS,
+         gates_failed=failed)
+    return failed
+
+
+def scaleout(trace, device):
+    """``devices=1`` and ``devices="auto"`` against ``devices=None`` on the
+    card: the scale point (``kernel`` engine) and fleet (a). Gate: every
+    output equal bit for bit. Counts the scan and step launches of each
+    run (one scan launch per chunk, band and shard; one step launch per
+    event column of each chunk and shard), and checks that asking for more
+    cards than the machine has raises ``RuntimeError``. Returns (scan
+    launches, step launches, failed gates)."""
+    import torch
+    from repro_torch.core.experiment import EngineOptions, HybridSpec, run
+    from repro_torch.core.simulator import DEFAULT_APP_CHUNK, _chunked_buckets
+    from repro_torch.core.workload_spec import azure_like
+    from repro_torch.kernels import histogram as H
+    from repro_torch.serving import AppTable, ClusterSpec
+
+    spec = HybridSpec(use_arima=False)
+    times, counts = trace.to_padded()
+    chunks = sum(1 for _ in _chunked_buckets(times, counts, SCALE_APPS))
+    t0 = time.perf_counter()
+    table = AppTable.from_spec(azure_like(**FLEET))
+    table_s = time.perf_counter() - t0
+    columns = sum(sub.shape[1] for _, sub in _chunked_buckets(
+        table.times, table.counts.astype(np.int64), DEFAULT_APP_CHUNK))
+    cluster = ClusterSpec(n_workers=FLEET_WORKERS, hbm_budget_bytes=float(
+        "inf"))
+    n_cards = torch.cuda.device_count()
+    failed, points = [], {}
+    scan_launches = step_launches = 0
+    for point in ("scale_point", "fleet"):
+        rows = {}
+        # interleaved repeats (host-bound replays spread between runs);
+        # the first repeat's launches are the path's, the rest timing
+        for rep in range(SCALEOUT_REPEATS[point]):
+            for devices in (None, 1, "auto"):
+                shards = {None: 1, 1: 1, "auto": n_cards}[devices]
+                opts = EngineOptions(
+                    app_chunk=SCALE_APPS if point == "scale_point" else None,
+                    device=device, devices=devices)
+                reset_counts(H)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if point == "scale_point":
+                    res = run(trace, spec, engine="kernel", options=opts)
+                else:
+                    res = run(table, spec, cluster=cluster, options=opts)
+                torch.cuda.synchronize()
+                sec = time.perf_counter() - t0
+                if rep:
+                    rows[str(devices)]["seconds"].append(sec)
+                    continue
+                scan, step = H.SCAN_LAUNCHES, H.LAUNCHES
+                want = (chunks * shards, 0) if point == "scale_point" \
+                    else (0, columns * shards)
+                if devices is not None:
+                    scan_launches += scan
+                    step_launches += step
+                rows[str(devices)] = dict(seconds=[sec], scan_launches=scan,
+                                          step_launches=step, shards=shards,
+                                          expected_launches=want)
+                # phase B steps each column of each chunk and shard at
+                # least once; the scale point scans each chunk and shard
+                # once
+                ok = (scan, step) == want if point == "scale_point" \
+                    else scan == 0 and step >= want[1]
+                if not ok:
+                    failed.append(f"scaleout {point} devices={devices}: "
+                                  f"{scan} scan and {step} step launches, "
+                                  f"expected {want}")
+                if devices is None:
+                    base = res
+                    continue
+                try:
+                    if point == "scale_point":
+                        assert_rows_equal(res, base, f"scaleout {point} "
+                                          f"devices={devices}")
+                    else:
+                        assert_cluster_equal(res, base, f"scaleout {point} "
+                                             f"devices={devices}")
+                except AssertionError as e:
+                    failed.append(str(e))
+        for row in rows.values():
+            row["median_seconds"] = float(np.median(row["seconds"]))
+        rows["overhead_devices_1"] = rows["1"]["median_seconds"] \
+            / rows["None"]["median_seconds"] - 1.0
+        points[point] = rows
+    too_many = n_cards + 1
+    try:
+        run(trace, spec, engine="kernel", options=EngineOptions(
+            device=device, devices=too_many))
+        failed.append(f"scaleout: devices={too_many} on {n_cards} card(s) "
+                      f"did not raise")
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    emit("scaleout", cards=n_cards, chunks=chunks, fleet_config=dict(
+        FLEET, workers=FLEET_WORKERS, columns=columns,
+        table_seconds=table_s), **points,
+         too_many_devices=dict(devices=too_many, raised=raised),
+         scan_launches=scan_launches, step_launches=step_launches,
+         gates_failed=failed)
+    return scan_launches, step_launches, failed
+
+
+def example_numbers(name: str, device):
+    """The quickstart's or the policy explorer's printed numbers at their
+    defaults on ``device``, as JSON round-trips them (each ``PolicyPoint``
+    as its fields in order; repr round-trips floats)."""
+    import dataclasses
+    from repro_torch.examples import policy_explorer, quickstart
+    row = lambda p: list(dataclasses.astuple(p))
+    if name == "quickstart":
+        n_apps, n_inv, points = quickstart.headline(device=device)
+        res = dict(headline=[n_apps, n_inv, [row(p) for p in points]],
+                   regimes=quickstart.regimes(device=device))
+    else:
+        res = [[title, [row(p) for p in pts]]
+               for title, pts in policy_explorer.explore(device=device)]
+    return json.loads(json.dumps(res))
+
+
+def cpu_example(name: str, out: str) -> None:
+    """:func:`example_numbers` on the CPU (``fused``), written to ``out``:
+    what ``examples`` holds the card's run to. Runs in a worker process,
+    one intra-op thread."""
+    import torch
+    torch.set_num_threads(1)
+    res = example_numbers(name, "cpu")
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
+def start_cpu_examples():
+    """Start the CPU runs of the quickstart and policy explorer twins in
+    worker processes (minutes of plain-PyTorch scans on one core each) so
+    that they overlap the card's phases. Returns {name: (process, path)}."""
+    out_dir = os.path.join(ROOT, "src", "repro_torch", "kernels", "build",
+                           "examples")
+    os.makedirs(out_dir, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
+            f"chip_smoke.cpu_example(sys.argv[1], sys.argv[2])")
+    jobs = {}
+    for name in CPU_EXAMPLES:
+        path = os.path.join(out_dir, f"{name}_cpu.json")
+        if os.path.exists(path):
+            os.remove(path)
+        jobs[name] = (subprocess.Popen([sys.executable, "-c", code, name,
+                                        path], env=env, cwd=ROOT), path)
+    return jobs
+
+
+def stop_cpu_examples(jobs) -> None:
+    for proc, _ in jobs.values():
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+
+
+def examples(device, jobs):
+    """The five example twins at the reference scripts' defaults on the
+    card. Gates: the quickstart's and the explorer's policy numbers equal
+    the same functions on the CPU (``fused``, the worker processes of
+    :func:`start_cpu_examples`); the serving twin's cold, pre-warm and
+    GB-minute lines equal its CPU run's; the training twin's final loss
+    after a crash at step 120 equals the uninterrupted run's bit for bit;
+    the exported files equal the CPU run's byte for byte. Returns (scan
+    launches, step launches, failed gates)."""
+    import filecmp
+    import shutil
+    import torch
+    from repro_torch.examples import (export_dataset, quickstart,
+                                      serve_serverless, train_smollm)
+    from repro_torch.core.metrics import PolicyPoint, pareto_frontier
+    from repro_torch.kernels import histogram as H
+
+    t_phase = time.perf_counter()
+    failed, out = [], {}
+    reset_counts(H)
+    timed = {}
+
+    def clock(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        timed[key] = time.perf_counter() - t0
+        return res
+
+    card = {name: clock(name, lambda: example_numbers(name, device))
+            for name in CPU_EXAMPLES}
+    scan_launches, step_launches = H.SCAN_LAUNCHES, H.LAUNCHES
+    wait_s = time.perf_counter()
+    cpu = {}
+    for name, (proc, path) in jobs.items():
+        rc = proc.wait(timeout=CPU_EXAMPLES_TIMEOUT)
+        if rc != 0:
+            failed.append(f"examples: the CPU {name} worker exited {rc}")
+            continue
+        with open(path) as f:
+            cpu[name] = json.load(f)
+    wait_s = time.perf_counter() - wait_s
+    equal = {name: cpu.get(name) == card[name] for name in CPU_EXAMPLES}
+    failed += [f"examples: {name}'s policy numbers differ between the card "
+               f"and the CPU" for name, same in equal.items() if not same]
+    n_apps, n_inv, points = card["quickstart"]["headline"]
+    points = [PolicyPoint(*p) for p in points]
+    out["quickstart"] = dict(
+        lines=quickstart.headline_lines(n_apps, n_inv, points)
+        + quickstart.regime_lines(card["quickstart"]["regimes"]),
+        equal_to_cpu=equal["quickstart"])
+    out["policy_explorer"] = dict(
+        frontiers={t: [p.name for p in pareto_frontier(
+            [PolicyPoint(*v) for v in pts])]
+            for t, pts in card["policy_explorer"]},
+        equal_to_cpu=equal["policy_explorer"])
+
+    registry, trace = serve_serverless.build()
+    serve = {}
+    for spec in (serve_serverless.HybridSpec(use_arima=False,
+                                             label="hybrid"),
+                 serve_serverless.FixedSpec(10.0)):
+        got = clock(f"serve_{spec.name}", lambda: serve_serverless.drive(
+            spec, trace, registry, device=device))
+        want = serve_serverless.drive(spec, trace, registry, device="cpu")
+        lines = serve_serverless.drive_lines(spec.name, *got)
+        if lines[0] != serve_serverless.drive_lines(spec.name, *want)[0]:
+            failed.append(f"examples: serve_serverless [{spec.name}] "
+                          f"differs from the CPU run: {lines[0]}")
+        serve[spec.name] = dict(lines=lines, stats=got[0])
+    out["serve_serverless"] = dict(
+        lines=[l for s in serve.values() for l in s["lines"]]
+        + [serve_serverless.saving_line(serve["hybrid"]["stats"],
+                                        serve["fixed-10m"]["stats"])])
+
+    ck = os.path.join(ROOT, "src", "repro_torch", "kernels", "build",
+                      "examples_ckpt")
+    shutil.rmtree(ck, ignore_errors=True)
+    try:
+        clean = clock("train_smollm", lambda: train_smollm.run(
+            crash_at=None, checkpoint_dir=os.path.join(ck, "clean"),
+            device=device, log=lambda _: None))
+        crashed = clock("train_smollm_crash", lambda: train_smollm.run(
+            crash_at=EXAMPLE_CRASH_AT, checkpoint_dir=os.path.join(
+                ck, "crash"), device=device, log=lambda _: None))
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    if crashed["final_loss"] != clean["final_loss"] \
+            or crashed["attempts"] != 2:
+        failed.append(f"examples: train_smollm with a crash at step "
+                      f"{EXAMPLE_CRASH_AT} ends at loss "
+                      f"{crashed['final_loss']!r} against "
+                      f"{clean['final_loss']!r} uninterrupted")
+    out["train_smollm"] = dict(
+        first_loss=clean["first_loss"], final_loss=clean["final_loss"],
+        crashed_final_loss=crashed["final_loss"],
+        resumed_from=crashed["resumed_from"], attempts=crashed["attempts"])
+
+    base = os.path.join(ROOT, "src", "repro_torch", "kernels", "build",
+                        "examples_export")
+    card_dir, cpu_dir = os.path.join(base, "card"), os.path.join(base, "cpu")
+    shutil.rmtree(base, ignore_errors=True)
+    printed = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(printed):
+            clock("export_dataset", lambda: export_dataset.main(
+                ["--out", card_dir, "--device", str(device)]))
+        _, cpu_paths = export_dataset.export_trace(out=cpu_dir)
+        files = [os.path.relpath(p, cpu_dir) for p in cpu_paths]
+        same = all(filecmp.cmp(os.path.join(card_dir, f), p, shallow=False)
+                   for f, p in zip(files, cpu_paths))
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    if not same:
+        failed.append("examples: export_dataset's files differ from the CPU "
+                      "run's")
+    out["export_dataset"] = dict(lines=printed.getvalue().splitlines(),
+                                 files=files, byte_identical_to_cpu=same)
+    emit("examples", seconds=time.perf_counter() - t_phase,
+         cpu_wait_seconds=wait_s, seconds_by_twin=timed,
+         scan_launches=scan_launches, step_launches=step_launches,
+         **out, gates_failed=failed)
+    return scan_launches, step_launches, failed
+
+
+# ---------------------------------------------------------------------------
 # Times
 # ---------------------------------------------------------------------------
 
@@ -3082,6 +3464,9 @@ def main() -> int:
     ptxas = {stem: build.ptxas_summary(b["log"]) for stem, b in built.items()}
     emit("build", **{stem: {"seconds": b["seconds"], "kernels": ptxas[stem]}
                      for stem, b in built.items()})
+    # the example twins' CPU runs, in worker processes from here on
+    jobs = start_cpu_examples()
+    atexit.register(stop_cpu_examples, jobs)
     for stem, names in NO_SPILL_KERNELS.items():
         for name in names:
             got = ptxas[stem].get(name)
@@ -3110,7 +3495,18 @@ def main() -> int:
     t_fleet = time.perf_counter()
     fleet_step_launches = fleet_point(device)
     fleet_s = time.perf_counter() - t_fleet
-    failed = []                 # the serving and training phases' gates
+    failed = []                 # the later phases' gates
+    t_phase = time.perf_counter()
+    failed += reference_engine(trace, device)
+    reference_s = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    scaleout_scan, scaleout_step, f = scaleout(trace, device)
+    scaleout_s = time.perf_counter() - t_phase
+    failed += f
+    t_phase = time.perf_counter()
+    examples_scan, examples_step, f = examples(device, jobs)
+    examples_s = time.perf_counter() - t_phase
+    failed += f
     t_cli = time.perf_counter()
     cli_step_launches, f = launch_serve(device)
     launch_serve_s = time.perf_counter() - t_cli
@@ -3189,7 +3585,11 @@ def main() -> int:
         "source": csrc + "hybrid_sweep_step.cu",
         "replaces": "src/repro/kernels/histogram.py:245",
         "train_launches": train_launches["histogram.SCAN_LAUNCHES"],
-        "launches": launches, "launches_by_form": launches_by_form,
+        "launches": launches + scaleout_scan + examples_scan,
+        "launches_by_path": {"scale_point": launches,
+                             "scaleout": scaleout_scan,
+                             "examples": examples_scan},
+        "launches_by_form": launches_by_form,
         "max_abs_err": max_err, "ms": scan["kernel_ms"],
         "plain_ms": scan["plain_ms"], "bound_ms": scan["bound_ms"],
         "bound_by": scan["bound_by"], "library_ms": None,
@@ -3197,9 +3597,11 @@ def main() -> int:
         # simulation's phase B, once per column of each chunk
         "step": {"name": "fused_hybrid_sweep_step",
                  "launches": arima_step_launches + fleet_step_launches
-                 + cli_step_launches,
+                 + scaleout_step + examples_step + cli_step_launches,
                  "launches_by_path": {"arima_point": arima_step_launches,
                                       "fleet_point": fleet_step_launches,
+                                      "scaleout": scaleout_step,
+                                      "examples": examples_step,
                                       "launch_serve": cli_step_launches},
                  "ms": step["kernel_ms"], "plain_ms": step["plain_ms"],
                  "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
@@ -3291,6 +3693,8 @@ def main() -> int:
          serve_seamless_requests=n_seamless, policy_update_seconds=policy_s,
          arima_point_phase_seconds=arima_s, spes_point_seconds=spes_s,
          fleet_point_phase_seconds=fleet_s,
+         reference_engine_seconds=reference_s, scaleout_seconds=scaleout_s,
+         examples_seconds=examples_s,
          launch_serve_seconds=launch_serve_s, train_smollm_seconds=train_s)
     if failed:
         # every phase ran and printed its line; a failed gate fails the run

@@ -1,16 +1,14 @@
 """The policy simulator: policy math, workloads, engines and the front door
 (:mod:`repro_torch.core.experiment`).
 
-The package re-exports the names of the reference's ``repro.core`` that
-the port has, so ``from repro_torch.core import run, HybridSpec,
-WorkloadSpec`` works as it does there. Not here yet: ``HistogramState``
-and ``init_state``, the vectorised histogram helpers of ROADMAP Queue A
-item 5. The SPES family (``SpesSpec``, ``SpesConfig``, ``SpesPolicy``) is
-in ``experiment`` and ``policy``, as in the reference, which does not
+The package re-exports the names of the reference's ``repro.core``, so
+``from repro_torch.core import run, HybridSpec, WorkloadSpec`` works as it
+does there. The SPES family (``SpesSpec``, ``SpesConfig``, ``SpesPolicy``)
+is in ``experiment`` and ``policy``, as in the reference, which does not
 re-export it here either.
 """
 from . import policy_math
-from .histogram import AppHistogram, HistogramConfig
+from .histogram import AppHistogram, HistogramConfig, HistogramState, init_state
 from .policy import (FixedKeepAlivePolicy, HybridConfig, HybridHistogramPolicy,
                      NoUnloadingPolicy, Policy, PolicyWindows, is_warm,
                      loaded_idle_time)
@@ -26,7 +24,7 @@ from .metrics import PolicyPoint, evaluate, normalize_waste, pareto_frontier
 
 __all__ = [
     "policy_math",
-    "AppHistogram", "HistogramConfig",
+    "AppHistogram", "HistogramConfig", "HistogramState", "init_state",
     "FixedKeepAlivePolicy", "HybridConfig", "HybridHistogramPolicy",
     "NoUnloadingPolicy", "Policy", "PolicyWindows", "is_warm",
     "loaded_idle_time", "SimResult", "simulate_scalar",

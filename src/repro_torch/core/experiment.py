@@ -15,7 +15,11 @@ Engines (``engine=`` on both ``run`` and ``sweep``):
     the reference's ``"fused"``);
   * ``"kernel"`` — the CUDA sweep-step kernel (the twin of the reference's
     ``"pallas"``), in float64 time like ``"fused"``; on the CPU the
-    kernel's plain version runs.
+    kernel's plain version runs;
+  * ``"reference"`` — the reference's pre-sweep float32 engine (per-bucket
+    time rebasing, a full cumsum per step, one config at a time) in plain
+    PyTorch: it reproduces the reference's float32 numbers, which differ
+    from the float64 engines' on a few apps of long traces.
 
 The fixed/no-unload and SPES families have no histogram state and run
 their float64 loops under every engine. A ``HybridSpec`` with
@@ -26,6 +30,9 @@ bit-identical on cold counts, invocations and final windows to
 single-config ``run()`` and to the scalar oracle. Everything runs on
 ``EngineOptions.device`` (``"cuda"`` by default), the scalar engine's
 ARIMA fits included; pass ``device="cpu"`` to run on the CPU.
+``EngineOptions(devices=)`` splits the app axis of the fused and kernel
+engines (and of the cluster engine's phase B) across devices, bit for bit
+(:mod:`repro_torch.distributed.scaleout`).
 """
 from __future__ import annotations
 
@@ -36,12 +43,14 @@ import numpy as np
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..distributed.scaleout import mesh_for
 from .histogram import HistogramConfig
 from .policy import (FixedKeepAlivePolicy, HybridConfig,
                      HybridHistogramPolicy, NoUnloadingPolicy, SpesConfig,
                      SpesPolicy)
 from .simulator import (SimResult, _run_fixed_sweep, _run_hybrid_sweep,
-                        _run_spes_sweep, simulate_scalar)
+                        _run_spes_sweep, _simulate_hybrid_batch_reference,
+                        simulate_scalar)
 from .workload import Trace
 from .workload_spec import WorkloadSpec
 
@@ -51,7 +60,7 @@ __all__ = [
     "as_trace", "run", "sweep",
 ]
 
-ENGINES = ("auto", "scalar", "fused", "kernel")
+ENGINES = ("auto", "scalar", "fused", "kernel", "reference")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,15 +218,32 @@ def as_spec(obj) -> PolicySpec:
 
 @dataclasses.dataclass(frozen=True)
 class EngineOptions:
-    """Execution knobs shared by ``run`` and ``sweep``."""
+    """Execution knobs shared by ``run`` and ``sweep``: every field of the
+    reference's, with its defaults, and the port's ``device``."""
     include_trailing: bool = True     # account waste after the last event
     app_chunk: Optional[int] = None   # apps per device chunk (None: auto,
     #                                   scaled down by the config count)
-    device: Union[str, torch.device] = DEFAULT_DEVICE   # "cuda" or "cpu"
+    tile_apps: int = 512              # the TPU kernel's app tile: accepted,
+    #                                   no effect (the CUDA kernels choose
+    #                                   their own blocks)
+    interpret: Optional[bool] = None  # the TPU kernel's interpret mode:
+    #                                   accepted, no effect (off the card
+    #                                   the kernels' plain versions run)
+    devices: Union[None, int, str] = None   # split the app axis: None
+    #                                   (off), an int device count (1 takes
+    #                                   the sharded path on one device; on
+    #                                   the CPU, that many shards in turn),
+    #                                   or "auto" (every card). Bit-identical
+    #                                   results (distributed.scaleout).
+    #                                   Applies to the vectorized sweeps
+    #                                   and the cluster policy-window scan;
+    #                                   "scalar" and the "reference"
+    #                                   engine's hybrid configs ignore it.
     max_eviction_rounds: Optional[int] = None   # cluster cells only: cap
     #                                   the HBM-eviction fixed point; past
     #                                   it the cell falls back to the
     #                                   scalar oracle with a warning
+    device: Union[str, torch.device] = DEFAULT_DEVICE   # "cuda" or "cpu"
 
 
 @dataclasses.dataclass
@@ -328,20 +354,30 @@ def _sweep_one(trace: Trace, specs: Sequence, eng: str,
                   if isinstance(sp, HybridSpec)]
     spes_idx = [s for s, sp in enumerate(specs) if isinstance(sp, SpesSpec)]
     padded = trace.to_padded()     # once for every family and config
+    mesh = mesh_for(opts.devices, device)   # "reference"'s hybrid ignores it
     if window_idx:
+        # no histogram state: the float64 sweep is oracle-exact, so
+        # "reference" aliases it
         fill(window_idx, _run_fixed_sweep(
             trace, [specs[s].keep_alive for s in window_idx],
-            opts.include_trailing, padded=padded, device=device))
+            opts.include_trailing, padded=padded, device=device, mesh=mesh))
     if hybrid_idx:
-        fill(hybrid_idx, _run_hybrid_sweep(
-            trace, [specs[s].to_config() for s in hybrid_idx],
-            opts.include_trailing, app_chunk=opts.app_chunk,
-            use_kernel=(eng == "kernel"), padded=padded, device=device))
+        cfgs = [specs[s].to_config() for s in hybrid_idx]
+        if eng == "reference":
+            for s, cfg in zip(hybrid_idx, cfgs):
+                fill([s], _simulate_hybrid_batch_reference(
+                    trace, cfg, opts.include_trailing, padded=padded,
+                    device=device))
+        else:
+            fill(hybrid_idx, _run_hybrid_sweep(
+                trace, cfgs, opts.include_trailing, app_chunk=opts.app_chunk,
+                use_kernel=(eng == "kernel"), padded=padded, device=device,
+                mesh=mesh))
     if spes_idx:
         fill(spes_idx, _run_spes_sweep(
             trace, [specs[s].to_config() for s in spes_idx],
             opts.include_trailing, app_chunk=opts.app_chunk, padded=padded,
-            device=device))
+            device=device, mesh=mesh))
     return SweepResult(specs, eng, cold, inv, waste, pre, keep)
 
 
@@ -349,6 +385,7 @@ def _cluster_options(options: Optional[EngineOptions]) -> dict:
     """The keyword arguments of the fleet engine taken from ``options``."""
     opts = options or EngineOptions()
     return dict(app_chunk=opts.app_chunk, device=opts.device,
+                devices=opts.devices,
                 max_eviction_rounds=opts.max_eviction_rounds)
 
 

@@ -34,6 +34,7 @@ __all__ = [
     "PCT_SCALE",
     "MAX_SCALED_COUNT",
     "pct_numer",
+    "scale_raw_threshold",
     "margin_factors",
     "window_bounds",
     "warm_from_bounds",
@@ -47,6 +48,7 @@ __all__ = [
     "percentile_threshold_scaled",
     "percentile_threshold_scaled_numer",
     "first_bin_ge_scaled",
+    "first_bin_ge_scaled_grouped",
     "window_values",
     "window_values_from_factors",
     "standard_window_bounds",
@@ -379,6 +381,50 @@ def first_bin_ge_scaled(cum, thr_scaled, *, gather: bool):
     return hi
 
 
+def scale_raw_threshold(threshold):
+    """Lift a raw *count* threshold into the scaled domain of
+    :func:`first_bin_ge_scaled`: ``threshold * PCT_SCALE``, in the int32
+    the scaled compare runs in (callers guard widths with
+    :data:`MAX_SCALED_COUNT`, so this never overflows)."""
+    if not _is_t(threshold):
+        # repro-lint: ignore[single-source-decision-math] -- the port's single
+        # source of this math, held equal to repro/core/policy_math.py by
+        # tests/test_torch_core_rest.py
+        return np.int64(threshold) * PCT_SCALE
+    # repro-lint: ignore[single-source-decision-math] -- as above: the port's
+    # single source, tested against the reference
+    return threshold.to(torch.int32) * PCT_SCALE
+
+
+def first_bin_ge_scaled_grouped(gcum, group, thr_scaled):
+    """Per-variant percentile search over *grouped* cumulative rows.
+
+    ``gcum`` is [G, n_apps, n_bins] (one histogram state per distinct
+    histogram shape); ``group`` [W] maps each window variant to its group;
+    ``thr_scaled`` is [W, n_apps]. Returns the bins of
+    ``first_bin_ge_scaled(gcum[group], thr_scaled, gather=True)`` without
+    materialising the [W, n_apps, n_bins] gather: each binary-search probe
+    reads one [W, n_apps] slice straight out of the group state."""
+    n_bins = gcum.shape[-1]
+    dev = gcum.device
+    thr = _like(thr_scaled, gcum, torch.int32)
+    cols = torch.arange(thr.shape[-1], device=dev)[None, :]
+    g = _like(group, gcum, torch.int64)[:, None]
+    lo = torch.zeros(thr.shape, dtype=torch.int32, device=dev)
+    hi = torch.full(thr.shape, n_bins, dtype=torch.int32, device=dev)
+    for _ in range(int(np.ceil(np.log2(n_bins + 1)))):
+        mid = torch.div(lo + hi, 2, rounding_mode="floor")
+        v = gcum[g, cols, torch.clamp(mid, max=n_bins - 1).long()] \
+            .to(torch.int32)
+        # repro-lint: ignore[single-source-decision-math] -- the port's single
+        # source of this math, held equal to repro/core/policy_math.py by
+        # tests/test_torch_core_rest.py
+        ge = (v * PCT_SCALE >= thr) & (mid < n_bins)
+        hi = torch.where(ge, mid, hi)
+        lo = torch.where(ge, lo, torch.minimum(mid + 1, hi))
+    return hi
+
+
 def margin_factors(margin: float) -> Tuple[np.float32, np.float32]:
     """The float32 margin factors (``1 ± margin`` rounds once, in float64,
     before the float32 cast)."""
@@ -470,6 +516,69 @@ def use_histogram_gate_from_cv(total, oob, cv, min_samples, cv_threshold,
     seen = total + oob
     return (seen >= min_samples) & (cv >= _f32(cv_threshold)) \
         & (total > 0) & ~oob_heavy(total, oob, oob_fraction_threshold)
+
+
+# --------------------------------------------------------------------------
+# The reference's pre-sweep float32 engine, as XLA compiles it
+# --------------------------------------------------------------------------
+#
+# That engine (engine="reference") traces every knob as a compile-time
+# constant, and XLA's CPU compiler then rewrites a division by a constant
+# into a product with its float32 reciprocal, reassociates a product of
+# constants, and contracts a multiply-subtract into a fused multiply-add.
+# The helpers below spell those programs out, so that the port's
+# "reference" engine reproduces the reference's float32 numbers bit for bit
+# (a CV of exactly 2.0 there computes as 1.9999999). Each float32 operation
+# is its own rounded op; the fused multiply-add is computed in float64,
+# where the product of two float32 values is exact, and rounded once, so the
+# card and the CPU agree.
+
+
+def _recip32(c) -> np.float32:
+    """The float32 reciprocal a constant divisor becomes."""
+    return np.float32(1.0) / np.float32(c)
+
+
+def folded_idle_bins(it, active, bin_minutes, n_bins):
+    """:func:`classify_idle_time` with ``it / bin_minutes`` compiled as
+    ``it * (1 / bin_minutes)``."""
+    return classify_idle_time(it * _like(_recip32(bin_minutes), it), active,
+                              1.0, n_bins)
+
+
+def folded_bin_count_cv(cv_sum, cv_sum_sq, n_bins):
+    """:func:`bin_count_cv` (float32) with the divisions by ``n_bins``
+    compiled as products with its reciprocal ``r`` and the variance as
+    ``fma(sum_sq, r, -(mean * mean))``."""
+    f = torch.float32
+    r = _recip32(n_bins)
+    cvs, cvss = cv_sum.to(f), cv_sum_sq.to(f)
+    mean = cvs * _like(r, cvs)
+    mm = mean * mean
+    # repro-lint: ignore[single-source-decision-math] -- the port's single
+    # source of the reference engine's compiled CV, held equal to the
+    # reference's engine="reference" by tests/test_torch_reference_engine.py
+    var = (cvss.double() * float(r) - mm.double()).to(f)
+    var = torch.clamp(var, min=0.0)
+    floor = float(np.float32(1e-9))
+    return torch.where(mean > 0, _sqrt_rn(var) / torch.clamp(mean, min=floor),
+                       0.0)
+
+
+def folded_window_values(head_bin, tail_bin, bin_minutes: float,
+                         range_minutes: float, margin: float):
+    """:func:`window_values` with the head's constant product
+    reassociated: ``head * (bin * (1 - margin))``."""
+    lo, hi = margin_factors(margin)
+    bin_f32 = np.float32(bin_minutes)
+    f = torch.float32
+    head = head_bin.to(f)
+    tail = tail_bin.to(f)
+    load_at = head * _like(bin_f32 * lo, head)
+    unload_at = torch.minimum(tail * _like(bin_f32, tail),
+                              _like(np.float32(range_minutes), tail)) \
+        * _like(hi, tail)
+    return load_at, torch.maximum(unload_at, load_at)
 
 
 def arima_window(predicted_it: float, margin: float) -> Tuple[float, float]:

@@ -23,10 +23,23 @@ this module holds the engines, all deciding through
   * :func:`_run_spes_sweep` — S SPES predictor configs in one float64
     pass of plain PyTorch steps (no per-bin state; the reference has no
     kernel here either).
+  * :func:`_simulate_hybrid_batch_reference` — the reference's pre-sweep
+    float32 engine (``engine="reference"``): raw counts and a full
+    per-step cumsum, one config at a time, per-bucket time rebasing, plain
+    PyTorch on the engine's device.
 
-Every engine keeps time in float64, so none needs per-chunk rebasing: the
-TPU kernel's float32 rebased time is not exact on float32 minute stamps
-over two weeks (an idle time rounds across a bin edge; ROADMAP Queue C).
+Every other engine keeps time in float64, so none needs per-chunk
+rebasing: the TPU kernel's float32 rebased time is not exact on float32
+minute stamps over two weeks (an idle time rounds across a bin edge;
+ROADMAP Queue C). The ``"reference"`` engine keeps float32 on purpose, to
+reproduce the reference's float32 numbers.
+
+``devices`` (``EngineOptions(devices=)``, see
+:mod:`repro_torch.distributed.scaleout`) splits each chunk's app rows
+across devices in the fixed, SPES and hybrid sweeps: each shard is copied
+on its own device's copy stream and scanned there, the outputs
+concatenated in device order; results are bit-identical to the
+single-device run.
 
 The scan reads the times as ``[width, n]``, so each event column is
 contiguous (transposed on the device); on the card the next chunk is
@@ -41,7 +54,9 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..distributed.scaleout import pad_app_rows, shard_along_apps
 from . import policy_math
+from .histogram import HistogramConfig
 from .policy import (HybridConfig, Policy, is_warm, loaded_idle_time)
 from .workload import Trace
 
@@ -157,16 +172,27 @@ def _check_scan_width(width: int) -> None:
             f"events per app)")
 
 
+def _rebase_chunk(sub: np.ndarray):
+    """Per-chunk time rebasing for the float32 ``"reference"`` engine:
+    each app's timestamps shifted by its own first event, in float64 on the
+    host, BEFORE the cast to float32 (verdicts depend only on idle times).
+    Padding (+inf) is unaffected. Returns (rebased float64 array, per-app
+    offsets)."""
+    t0 = sub[:, 0].astype(np.float64)
+    return sub.astype(np.float64) - t0[:, None], t0
+
+
 def _absolute_results(waste, last_t, prewarm, unload_at, duration,
-                      include_trailing):
-    """Trailing waste from the last-event clock, and the final (prewarm,
+                      include_trailing, t0=0.0):
+    """Trailing waste from the last-event clock (``t0 + last_t``: ``t0``
+    the per-app offsets of a rebased scan), and the final (prewarm,
     keep-alive) windows, in float64. Works for [S, n] rows. Returns
     (waste64, prewarm64, keep64)."""
     pre = np.asarray(prewarm, np.float64)
     ub = np.asarray(unload_at, np.float64)
     waste = np.asarray(waste, np.float64)
     if include_trailing:
-        tail_gap = duration - np.asarray(last_t, np.float64)
+        tail_gap = duration - (t0 + np.asarray(last_t, np.float64))
         waste = waste + policy_math.idle_from_bounds(tail_gap, pre, ub)
     return waste, pre, ub - pre
 
@@ -197,24 +223,46 @@ def _columns_ready(rows: torch.Tensor, copy_stream) -> torch.Tensor:
     return cols.copy_(rows.t())
 
 
-def _chunk_stream(work, device):
+def _chunk_stream(work, device, mesh=None):
     """Yield (sel, float64 columns [width, n] on device) for each (sel,
     sub) of ``work``; the next chunk's host->device copy is in flight while
-    the current one runs."""
-    copy_stream = torch.cuda.Stream(device) if device.type == "cuda" \
-        else None
+    the current one runs.
+
+    With ``mesh`` (a device list, ``scaleout.mesh_for``) the chunk's rows
+    are padded with +inf rows to a multiple of the mesh and the columns
+    come as a list of each device's row slice, each copied on its own
+    device's copy stream (per-device double buffering)."""
+    targets = [device] if mesh is None else mesh
+    streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
+               for d in targets]
 
     def prep(sel_sub):
         sel, sub = sel_sub
-        return sel, _columns_to_device(sub, device, copy_stream)
+        parts = [sub] if mesh is None else \
+            np.split(pad_app_rows(sub, len(mesh)), len(mesh))
+        return sel, [_columns_to_device(p, d, st)
+                     for p, d, st in zip(parts, targets, streams)]
 
     pending = next(work, None)
     pending = None if pending is None else prep(pending)
     while pending is not None:
-        sel, cols = pending
+        sel, parts = pending
         nxt = next(work, None)
         pending = None if nxt is None else prep(nxt)
-        yield sel, _columns_ready(cols, copy_stream)
+        cols = [_columns_ready(c, st) for c, st in zip(parts, streams)]
+        yield sel, (cols[0] if mesh is None else cols)
+
+
+def _on_mesh(fn, mesh, in_axes):
+    """``fn`` as is on the single-device path, else split along the app
+    axis of ``mesh`` (outputs carry apps on their last axis)."""
+    return fn if mesh is None else shard_along_apps(fn, mesh, in_axes, -1)
+
+
+def _host_rows(outs, k: int):
+    """Each output tensor on the host as numpy, its first ``k`` apps (the
+    rest are a sharded run's +inf padding rows)."""
+    return tuple(x.cpu().numpy()[..., :k] for x in outs)
 
 
 # --------------------------------------------------------------------------
@@ -251,20 +299,22 @@ def _fixed_scan(cols: torch.Tensor, keep_alive: torch.Tensor,
 
 def _run_fixed_sweep(trace: Trace, keeps: Sequence[float],
                      include_trailing: bool = True, *, padded=None,
-                     device: torch.device) -> dict:
+                     device: torch.device, mesh=None) -> dict:
     """S fixed keep-alive configs (``inf`` == never unload) in one float64
     pass: float32 would flip verdicts at the keep-alive boundary on
-    multi-week clocks. ``padded`` is the trace's ``to_padded()`` pair."""
+    multi-week clocks. ``padded`` is the trace's ``to_padded()`` pair;
+    ``mesh`` splits the app rows across devices."""
     times, counts = padded if padded is not None else trace.to_padded()
     S, n = len(keeps), trace.n_apps
     cold = np.zeros((S, n), np.int64)
     waste = np.zeros((S, n), np.float64)
     ks = torch.tensor(np.asarray(keeps, np.float64)[:, None], device=device)
-    for sel, cols in _chunk_stream(_buckets(times, counts), device):
-        c, w = _fixed_scan(cols, ks, float(trace.duration_minutes),
-                           include_trailing)
-        cold[:, sel] = c.cpu().numpy()
-        waste[:, sel] = w.cpu().numpy()
+    duration = float(trace.duration_minutes)
+    scan = _on_mesh(lambda cols, k: _fixed_scan(cols, k, duration,
+                                                include_trailing),
+                    mesh, (1, None))
+    for sel, cols in _chunk_stream(_buckets(times, counts), device, mesh):
+        cold[:, sel], waste[:, sel] = _host_rows(scan(cols, ks), len(sel))
     keep = np.broadcast_to(np.asarray(keeps, np.float64)[:, None],
                            (S, n)).copy()
     return dict(cold=cold, invocations=counts.astype(np.int64),
@@ -332,11 +382,12 @@ def _spes_scan(cols: torch.Tensor, knobs: policy_math.SpesStepConfig):
 
 def _run_spes_sweep(trace: Trace, cfgs, include_trailing: bool = True, *,
                     app_chunk: Optional[int] = None, padded=None,
-                    device: torch.device) -> dict:
+                    device: torch.device, mesh=None) -> dict:
     """S SPES predictor configs over one bucketed/chunked float64 pass on
-    ``device``. The float32 decision state (``policy_math.spes_update``
-    rounds once from float64) makes it oracle-exact, waste included, so
-    every engine runs this one."""
+    ``device`` (``mesh`` splits the app rows across devices). The float32
+    decision state (``policy_math.spes_update`` rounds once from float64)
+    makes it oracle-exact, waste included, so every engine runs this
+    one."""
     times, counts = padded if padded is not None else trace.to_padded()
     S, n = len(cfgs), trace.n_apps
     knobs = _spes_knobs(cfgs, device)
@@ -352,9 +403,9 @@ def _run_spes_sweep(trace: Trace, cfgs, include_trailing: bool = True, *,
     else:
         chunk = int(app_chunk)
     work = _chunked_buckets(times, counts, chunk)
-    for sel, cols in _chunk_stream(work, device):
-        c, w, last_t, lo, ub = (x.cpu().numpy()
-                                for x in _spes_scan(cols, knobs))
+    scan = _on_mesh(_spes_scan, mesh, (1, None))
+    for sel, cols in _chunk_stream(work, device, mesh):
+        c, w, last_t, lo, ub = _host_rows(scan(cols, knobs), len(sel))
         cold[:, sel] = c
         waste[:, sel], pre[:, sel], keep[:, sel] = _absolute_results(
             w, last_t, lo, ub, duration, include_trailing)
@@ -431,15 +482,16 @@ def _run_hybrid_sweep(trace: Trace, hybrids: Sequence[HybridConfig],
                       include_trailing: bool = True, *,
                       app_chunk: Optional[int] = None,
                       use_kernel: bool, padded=None,
-                      device: torch.device) -> dict:
+                      device: torch.device, mesh=None) -> dict:
     """S hybrid configs over one bucketed/chunked trace pass.
 
     Configs are banded by bin count (no config pays for another's wider
     histogram); the trace preparation and each chunk's transfer are shared
     by every band. ``use_kernel`` scans each chunk through the scan kernel
-    (one launch a chunk and band on the card), otherwise through its plain
-    version; both in float64 time. Then the forecast post-pass of each
-    ``use_arima`` config."""
+    (one launch a chunk, band and shard on the card), otherwise through its
+    plain version; both in float64 time. ``mesh`` splits each chunk's app
+    rows across devices. Then the forecast post-pass of each ``use_arima``
+    config, on ``device``."""
     S = len(hybrids)
     times, counts = padded if padded is not None else trace.to_padded()
     n = trace.n_apps
@@ -474,12 +526,15 @@ def _run_hybrid_sweep(trace: Trace, hybrids: Sequence[HybridConfig],
                                      fused_hybrid_sweep_scan_plain)
     scan = fused_hybrid_sweep_scan if use_kernel \
         else fused_hybrid_sweep_scan_plain
+    band_scan = _on_mesh(
+        lambda cols, ci, cf, bm, n_bins: _hybrid_sweep_scan(
+            cols, ci, cf, bm, n_bins, scan),
+        mesh, (1, None, None, None, None))
     work = _chunked_buckets(times, counts, chunk)
-    for sel, cols in _chunk_stream(work, device):
+    for sel, cols in _chunk_stream(work, device, mesh):
         for idx, ci, cf, bm, n_bins in bands:
-            c, w, flag, last_t, pw, ub = (
-                x.cpu().numpy()
-                for x in _hybrid_sweep_scan(cols, ci, cf, bm, n_bins, scan))
+            c, w, flag, last_t, pw, ub = _host_rows(
+                band_scan(cols, ci, cf, bm, n_bins), len(sel))
             at = np.ix_(idx, sel)
             cold[at] = c
             consulted[at] = flag
@@ -507,3 +562,146 @@ def _run_hybrid_sweep(trace: Trace, hybrids: Sequence[HybridConfig],
     return dict(cold=cold, invocations=counts.astype(np.int64),
                 wasted_minutes=waste, final_prewarm=pre,
                 final_keep_alive=keep)
+
+
+# --------------------------------------------------------------------------
+# The pre-sweep float32 engine (engine="reference")
+# --------------------------------------------------------------------------
+
+
+def _hybrid_step_reference(cfg: HistogramConfig, hybrid: HybridConfig, carry,
+                           t_now: torch.Tensor):
+    """The reference's pre-sweep step: raw counts and a full [n_apps,
+    n_bins] cumsum and masked percentile search per step, in the carry's
+    float32 time. Decisions through the single-source helpers; where the
+    reference's compiled program folds its constants (the bin width and
+    count, the window factors) through the ``policy_math.folded_*``
+    helpers. Also returns the per-row "forecaster consulted" flag after
+    this event (enough samples AND OOB-heavy,
+    ``HybridHistogramPolicy._decide``'s guard)."""
+    (prev_t, counts, total, oob, cv_sum, cv_sum_sq, prewarm, unload_at,
+     cold, waste) = carry
+    valid = torch.isfinite(t_now)
+    first = ~torch.isfinite(prev_t)
+    it = t_now - prev_t
+
+    warm = policy_math.warm_from_bounds(it, prewarm, unload_at)
+    is_cold = valid & (first | ~warm)
+    gap_waste = torch.where(valid & ~first,
+                            policy_math.idle_from_bounds(it, prewarm,
+                                                         unload_at), 0.0)
+
+    rec = valid & ~first
+    safe, in_b, oob_hit = policy_math.folded_idle_bins(
+        it, rec, cfg.bin_minutes, cfg.n_bins)
+    flat = torch.arange(counts.shape[0], device=counts.device) \
+        * cfg.n_bins + safe.long()
+    old = counts.view(-1)[flat]
+    counts.view(-1)[flat] = old + in_b.to(torch.int32)   # IN PLACE
+    total = total + in_b.to(torch.int32)
+    oob = oob + oob_hit.to(torch.int32)
+    cv_sum, cv_sum_sq = policy_math.welford_update(cv_sum, cv_sum_sq, in_b,
+                                                   old)
+
+    cum = torch.cumsum(counts, dim=-1, dtype=torch.int32)
+    head_bin = policy_math.first_bin_ge_scaled(
+        cum, policy_math.percentile_threshold_scaled(
+            total, cfg.head_percentile), gather=False)
+    tail_bin = policy_math.first_bin_ge_scaled(
+        cum, policy_math.percentile_threshold_scaled(
+            total, cfg.tail_percentile), gather=False) + 1
+    new_load, new_unload = policy_math.folded_window_values(
+        head_bin, tail_bin, cfg.bin_minutes, cfg.range_minutes, cfg.margin)
+    use_hist = policy_math.use_histogram_gate_from_cv(
+        total, oob, policy_math.folded_bin_count_cv(cv_sum, cv_sum_sq,
+                                                    cfg.n_bins),
+        hybrid.min_samples, hybrid.cv_threshold,
+        hybrid.oob_fraction_threshold)
+    std_load, std_unload = policy_math.standard_window_bounds(
+        hybrid.standard_keep_alive)
+    new_load = torch.where(use_hist, new_load, float(std_load))
+    new_unload = torch.where(use_hist, new_unload, float(std_unload))
+    consulted = valid & ((total + oob) >= hybrid.min_samples) \
+        & policy_math.oob_heavy(total, oob, hybrid.oob_fraction_threshold)
+
+    prewarm = torch.where(valid, new_load, prewarm)
+    unload_at = torch.where(valid, new_unload, unload_at)
+    prev_t = torch.where(valid, t_now, prev_t)
+    return (prev_t, counts, total, oob, cv_sum, cv_sum_sq, prewarm,
+            unload_at, cold + is_cold.to(torch.int32),
+            waste + gap_waste), consulted
+
+
+def _hybrid_scan_reference(cols: torch.Tensor, cfg: HistogramConfig,
+                           hybrid: HybridConfig):
+    """Scan one bucket (``cols`` [width, n] float32, rebased) through
+    :func:`_hybrid_step_reference`. Returns (cold, waste, consulted,
+    last_t, prewarm, unload_at), each [n]; ``consulted`` is the OR over
+    the columns of the step's flag."""
+    n, dev = cols.shape[1], cols.device
+    f32, i32 = torch.float32, torch.int32
+    zeros = lambda dt: torch.zeros((n,), dtype=dt, device=dev)
+    carry = (
+        torch.full((n,), -np.inf, dtype=f32, device=dev),
+        torch.zeros((n, cfg.n_bins), dtype=i32, device=dev),
+        zeros(i32), zeros(i32), zeros(f32), zeros(f32),
+        zeros(f32),                                                  # prewarm
+        torch.full((n,), float(np.float32(hybrid.standard_keep_alive)),
+                   dtype=f32, device=dev),                           # unload
+        zeros(i32), zeros(f32),
+    )
+    consulted = zeros(torch.bool)
+    for t_now in cols:
+        carry, flag = _hybrid_step_reference(cfg, hybrid, carry, t_now)
+        consulted |= flag
+    (last_t, _, _, _, _, _, prewarm, unload_at, cold, waste) = carry
+    return cold, waste, consulted, last_t, prewarm, unload_at
+
+
+def _simulate_hybrid_batch_reference(trace: Trace, hybrid: HybridConfig,
+                                     include_trailing: bool = True,
+                                     padded=None, *,
+                                     device: torch.device) -> SimResult:
+    """The reference's pre-sweep batched hybrid engine on ``device``, in
+    plain PyTorch: float32 time rebased per bucket by each app's first
+    event (in float64 on the host), a per-step cumsum, one config.
+
+    It is float32 on purpose: it reproduces the reference's float32
+    numbers, including the apps where float32 rebased time differs from
+    the float64 engines (an idle time rounds across a bin edge; ROADMAP
+    Queue C). With ``use_arima`` the forecast post-pass takes the apps the
+    scan flags as consulting the forecaster at some event, not the
+    reference's final-state OOB-heavy apps: that selection misses apps
+    that consult it only mid-trace, a fault of the reference repaired in
+    the port only (ROADMAP Queue C)."""
+    times, counts = padded if padded is not None else trace.to_padded()
+    n = trace.n_apps
+    cold = np.zeros(n, np.int64)
+    waste = np.zeros(n, np.float64)
+    pre = np.zeros(n, np.float64)
+    keep = np.full(n, hybrid.standard_keep_alive, np.float64)
+    consulted = np.zeros(n, bool)
+    duration = float(trace.duration_minutes)
+    for sel, sub in _buckets(times, counts):
+        _check_scan_width(sub.shape[1])
+        sub, t0 = _rebase_chunk(sub)
+        cols = torch.from_numpy(np.ascontiguousarray(
+            sub.T, np.float32)).to(device)
+        c, w, flag, last_t, pw, ub = (
+            x.cpu().numpy() for x in _hybrid_scan_reference(
+                cols, hybrid.histogram, hybrid))
+        cold[sel] = c
+        consulted[sel] = flag
+        waste[sel], pre[sel], keep[sel] = _absolute_results(
+            w, last_t, pw, ub, duration, include_trailing, t0)
+    if hybrid.use_arima and consulted.any():
+        from ..forecast.replay import replay_oob_apps
+        aidx = np.where(consulted)[0]
+        out = replay_oob_apps(times, counts, duration, hybrid, aidx,
+                              include_trailing, device=device,
+                              use_kernel=False)
+        cold[aidx] = out["cold"]
+        waste[aidx] = out["wasted_minutes"]
+        pre[aidx] = out["final_prewarm"]
+        keep[aidx] = out["final_keep_alive"]
+    return SimResult(cold, counts.astype(np.int64), waste, pre, keep)

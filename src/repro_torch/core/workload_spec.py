@@ -28,7 +28,7 @@ from .workload import MINUTES_PER_DAY, PATTERNS, AppSpec, Trace
 __all__ = [
     "Cohort", "WorkloadSpec", "SCENARIOS", "scenario", "azure_like",
     "diurnal", "bursty", "timer_heavy", "flash_crowd", "weekend_dip",
-    "population_columns",
+    "materialize_loop", "population_columns",
 ]
 
 GENERATORS = ("patterns", "uniform")
@@ -551,6 +551,45 @@ def _materialize(spec: WorkloadSpec, eager: bool) -> Trace:
     width = max(int(counts_all.max()), 1) if n else 1
     return Trace(specs=None, times=None, duration_minutes=duration,
                  _padded=(np.ascontiguousarray(padded[:, :width]), counts_all))
+
+
+def materialize_loop(spec: WorkloadSpec) -> Trace:
+    """The pre-spec architecture: one Python iteration per app (per-app
+    sampling, per-app pattern generators from :mod:`repro_torch.core.
+    workload`, per-event minute cap). The baseline of the vectorised
+    materialiser and a distributional cross-check of it — not a production
+    path. Implements the default (azure-like) diurnal modulation only;
+    scenario warp knobs are engine-only."""
+    spec.validate()
+    if spec.generator != "patterns":
+        raise ValueError("materialize_loop only implements the 'patterns' "
+                         "generator (the uniform path was never per-app)")
+    duration = spec.duration_minutes
+    max_ev = _resolved_max_events(spec, duration)
+    n = spec.n_apps
+    rng = np.random.default_rng([_RNG_TAG, spec.seed])
+    padded = np.full((n, max_ev), np.inf, np.float32)
+    counts = np.zeros(n, np.int32)
+    for ci, s_lo, s_hi in _cohort_segments(n, spec.cohorts):
+        cohort = spec.cohorts[ci]
+        for i in range(s_lo, s_hi):
+            pop = _sample_population(rng, 1, cohort)
+            period = float(max(pop["period"][0], duration / max_ev))
+            app = AppSpec(
+                app_id=f"app-{i:06d}", pattern=PATTERNS[int(pop["pattern"][0])],
+                rate_per_day=MINUTES_PER_DAY / period, period_minutes=period,
+                exec_time_s=float(pop["execs"][0]),
+                memory_mb=float(pop["memory"][0]),
+                n_functions=int(pop["nfunc"][0]),
+                triggers=_wl._TRIGGER_COMBOS[int(pop["trig"][0])])
+            t = _wl.generate_invocations(app, duration, rng)[:max_ev]
+            if len(t) == 0 and spec.min_events > 0:
+                t = np.asarray([rng.uniform(0.0, duration)])
+            padded[i, : len(t)] = t
+            counts[i] = len(t)
+    width = max(int(counts.max()), 1) if n else 1
+    return Trace(specs=None, times=None, duration_minutes=duration,
+                 _padded=(np.ascontiguousarray(padded[:, :width]), counts))
 
 
 # ---------------------------------------------------------------------------

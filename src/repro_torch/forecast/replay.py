@@ -74,12 +74,14 @@ def _branch_scan(cols: torch.Tensor, cfg_i32: torch.Tensor,
 
 def _scan_window_sequences(times2d: np.ndarray, counts: np.ndarray,
                            hybrid: HybridConfig, app_chunk: Optional[int],
-                           device: torch.device, use_kernel: bool
+                           device: torch.device, use_kernel: bool, mesh=None
                            ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Fused-step (load, unload) bounds and branch flags for every event,
-    host float64 / bool [n, M]."""
+    host float64 / bool [n, M]; ``mesh`` splits the app rows across
+    devices (``distributed.scaleout``)."""
     from ..core.simulator import (DEFAULT_APP_CHUNK, _build_cfg_blocks,
-                                  _chunk_stream, _chunked_buckets)
+                                  _chunk_stream, _chunked_buckets,
+                                  _host_rows, _on_mesh)
     from ..kernels.histogram import (fused_hybrid_sweep_step,
                                      fused_hybrid_sweep_step_plain)
     n, m_ev = times2d.shape
@@ -94,11 +96,13 @@ def _scan_window_sequences(times2d: np.ndarray, counts: np.ndarray,
         else fused_hybrid_sweep_step_plain
     chunk = DEFAULT_APP_CHUNK if app_chunk is None else int(app_chunk)
     work = _chunked_buckets(times2d, counts, chunk)
-    for sel, cols in _chunk_stream(work, device):
+    scan = _on_mesh(lambda cols, ci, cf, bm: _branch_scan(
+        cols, ci, cf, bm, hybrid.histogram.n_bins, step), mesh,
+        (1, None, None, None))
+    for sel, cols in _chunk_stream(work, device, mesh):
         l_seq, u_seq, b_seq = (
-            x.cpu().numpy().T for x in _branch_scan(
-                cols, ci, cf, bm, hybrid.histogram.n_bins, step))
-        width = cols.shape[0]
+            x.T for x in _host_rows(scan(cols, ci, cf, bm), len(sel)))
+        width = l_seq.shape[1]
         la[sel, :width] = l_seq
         ua[sel, :width] = u_seq
         branch[sel, :width] = b_seq

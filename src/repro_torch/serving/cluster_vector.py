@@ -65,10 +65,12 @@ import torch
 from ..core.experiment import (FixedSpec, HybridSpec, NoUnloadSpec,
                                PolicySpec, SpesSpec, as_spec)
 from ..core.simulator import (DEFAULT_APP_CHUNK, _chunk_stream,
-                              _chunked_buckets, _spes_knobs, _spes_states)
+                              _chunked_buckets, _host_rows, _on_mesh,
+                              _spes_knobs, _spes_states)
 from ..core.workload import Trace
 from ..core.workload_spec import WorkloadSpec
 from ..device import resolve_device
+from ..distributed.scaleout import mesh_for
 from ..runtime.straggler import HedgePolicy
 from .apptable import AppTable
 from .cluster_sim import MINUTE, ClusterConfig, ClusterResult, ClusterSim
@@ -140,44 +142,40 @@ def as_table(workload, *, exec_s=None, memory_mb=None,
                     f"got {type(workload).__name__}")
 
 
-def _check_devices(devices) -> None:
-    """``devices`` None or 1: one device. The reference's sharded phase B
-    (the app axis split across devices) is not ported yet."""
-    if devices is None or (isinstance(devices, int)
-                           and not isinstance(devices, bool)
-                           and devices == 1):
-        return
-    raise NotImplementedError(
-        f"devices={devices!r}: the multi-device cluster engine (the "
-        f"reference's distributed/scaleout.py, sharding phase B's app rows "
-        f"across devices) is not ported yet; pass devices=None or 1")
-
-
 # --------------------------------------------------------------------------
 # Phase B: per-gap policy windows from the end-time columns
 # --------------------------------------------------------------------------
 
 
+def _spes_bounds(cols: torch.Tensor, knobs):
+    """The SPES step's (load, unload) bounds after each event column of
+    ``cols`` [width, n], two [width, n] tensors."""
+    load = torch.empty_like(cols)
+    unload = torch.empty_like(cols)
+    for t, state in enumerate(_spes_states(cols, knobs)):
+        load[t], unload[t] = state[4][0], state[5][0]
+    return load, unload
+
+
 def _spes_windows(e_min2d: np.ndarray, counts: np.ndarray, cfg,
                   app_chunk: int, device: torch.device, la: np.ndarray,
-                  ua: np.ndarray) -> None:
+                  ua: np.ndarray, mesh=None) -> None:
     """The SPES step's bounds decided at each event, written into
-    ``la``/``ua`` [n, M] in place (float64)."""
+    ``la``/``ua`` [n, M] in place (float64); ``mesh`` splits the app rows
+    across devices."""
     knobs = _spes_knobs([cfg], device)
     work = _chunked_buckets(e_min2d, counts, app_chunk)
-    for sel, cols in _chunk_stream(work, device):
-        load = torch.empty_like(cols)
-        unload = torch.empty_like(cols)
-        for t, state in enumerate(_spes_states(cols, knobs)):
-            load[t], unload[t] = state[4][0], state[5][0]
-        width = cols.shape[0]
-        la[sel, :width] = load.cpu().numpy().T
-        ua[sel, :width] = unload.cpu().numpy().T
+    bounds = _on_mesh(_spes_bounds, mesh, (1, None))
+    for sel, cols in _chunk_stream(work, device, mesh):
+        load, unload = _host_rows(bounds(cols, knobs), len(sel))
+        width = load.shape[0]
+        la[sel, :width] = load.T
+        ua[sel, :width] = unload.T
 
 
 def _policy_windows(spec: PolicySpec, e_min2d: np.ndarray,
                     counts: np.ndarray, app_chunk: int,
-                    device: torch.device):
+                    device: torch.device, mesh=None):
     """(load_at, unload_at, keep_alive) bounds [n, M] decided after each
     event, float64 minutes past the execution end.
 
@@ -186,7 +184,8 @@ def _policy_windows(spec: PolicySpec, e_min2d: np.ndarray,
     window values widen exactly); ``keep_alive`` is what a pre-warm fire
     keeps the image for: their float64 difference, which is how
     ``AppHistogram.windows`` defines it, or the forecast's own keep-alive
-    where the forecaster decided the window.
+    where the forecaster decided the window. ``mesh`` splits the scans'
+    app rows across devices; the forecast fit runs on ``device``.
     """
     n, m_ev = e_min2d.shape
     la = np.zeros((n, m_ev))
@@ -200,7 +199,8 @@ def _policy_windows(spec: PolicySpec, e_min2d: np.ndarray,
     if isinstance(spec, SpesSpec):
         cfg = spec.to_config()
         ua[:] = cfg.standard_keep_alive    # zero-event rows: never read
-        _spes_windows(e_min2d, counts, cfg, app_chunk, device, la, ua)
+        _spes_windows(e_min2d, counts, cfg, app_chunk, device, la, ua,
+                      mesh)
         return la, ua, ua - la
     if not isinstance(spec, HybridSpec):
         raise TypeError(
@@ -217,7 +217,7 @@ def _policy_windows(spec: PolicySpec, e_min2d: np.ndarray,
                                    _scan_window_sequences)
     hybrid = spec.to_config()
     la, ua, branch = _scan_window_sequences(e_min2d, counts, hybrid,
-                                            app_chunk, device, True)
+                                            app_chunk, device, True, mesh)
     keep = ua - la
     if hybrid.use_arima:
         _apply_forecast_overrides(e_min2d, counts, hybrid, la, ua, branch,
@@ -434,7 +434,8 @@ def _evict_worker(j_idx, budget, *, rows, rank, t_by_rank, wb, tie, cold,
 
 def _run_vector(table: AppTable, spec: PolicySpec, cluster: ClusterSpec,
                 app_chunk: int, device: torch.device,
-                max_eviction_rounds: Optional[int] = None) -> ClusterResult:
+                max_eviction_rounds: Optional[int] = None,
+                mesh=None) -> ClusterResult:
     n = table.n_apps
     n_workers = cluster.n_workers
     counts = np.asarray(table.counts, np.int64)
@@ -475,7 +476,7 @@ def _run_vector(table: AppTable, spec: PolicySpec, cluster: ClusterSpec,
     e_min2d = np.full((n, m_ev), np.inf)
     e_min2d[rows, cols] = e_min_flat
     la2d, ua2d, ka2d = _policy_windows(spec, e_min2d, counts, app_chunk,
-                                       device)
+                                       device, mesh)
     la = la2d[rows, cols]
     ua = ua2d[rows, cols]
     ka_sec = ka2d[rows, cols] * MINUTE          # the policy's keep_alive
@@ -673,14 +674,17 @@ def run_cluster(workload, policy, cluster: Optional[ClusterSpec] = None, *,
     table. Phase B and the oracle's forecasters run on ``device`` (the
     card unless told otherwise; raises without one). ``max_eviction_rounds``
     (default unlimited) caps the total fixed-point resolutions; past it the
-    run falls back to the scalar oracle with a warning. ``devices`` may be
-    None or 1; the multi-device engine is not ported yet.
+    run falls back to the scalar oracle with a warning. ``devices``
+    (None, an int or ``"auto"``, as ``EngineOptions.devices``) splits
+    phase B's app rows across devices
+    (:mod:`repro_torch.distributed.scaleout`), bit for bit; the scalar
+    engine ignores it.
     """
     if engine not in CLUSTER_ENGINES:
         raise ValueError(f"unknown cluster engine {engine!r}; expected one "
                          f"of {CLUSTER_ENGINES}")
-    _check_devices(devices)
     dev = resolve_device(device)
+    mesh = mesh_for(devices, dev)
     cluster = cluster if cluster is not None else ClusterSpec()
     cluster.validate()
     spec = as_spec(policy)
@@ -693,7 +697,8 @@ def run_cluster(workload, policy, cluster: Optional[ClusterSpec] = None, *,
         try:
             return _run_vector(table, spec, cluster,
                                app_chunk or DEFAULT_APP_CHUNK, dev,
-                               max_eviction_rounds=max_eviction_rounds)
+                               max_eviction_rounds=max_eviction_rounds,
+                               mesh=mesh)
         except EvictionRoundsExceeded as e:
             warnings.warn(
                 f"{e}; falling back to engine='scalar' (raise "

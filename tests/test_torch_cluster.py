@@ -612,17 +612,26 @@ def test_apptable_padded_trace_needs_metadata():
 
 
 def test_run_cluster_rejects_unknown_engine_and_devices(azure_table):
+    """An unknown engine or device knob raises; the device counts the
+    scale-out takes (``distributed.scaleout``: on the CPU, that many
+    shards in turn) give the single-device result
+    (``tests/test_torch_scaleout.py`` holds every family to it)."""
     with pytest.raises(ValueError, match="unknown cluster engine"):
         run_cluster(azure_table, E.HybridSpec(), engine="warp", **CPU)
-    for devices in (2, "auto", 0):
-        with pytest.raises(NotImplementedError, match="multi-device"):
+    for devices in (0, -2, "all", True):
+        with pytest.raises(ValueError, match="devices"):
             run_cluster(azure_table, E.FixedSpec(), devices=devices, **CPU)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        sweep_cluster(azure_table, [E.FixedSpec()], devices=2, **CPU)
+    with pytest.raises(ValueError, match="devices"):
+        sweep_cluster(azure_table, [E.FixedSpec()], devices=0, **CPU)
     cl = ClusterSpec(n_workers=3, hbm_budget_bytes=INF)
+    want = run_cluster(azure_table, E.FixedSpec(), cl, **CPU)
+    for devices in (1, 2, "auto"):
+        _assert_results_equal(
+            run_cluster(azure_table, E.FixedSpec(), cl, devices=devices,
+                        **CPU), want)
     _assert_results_equal(
-        run_cluster(azure_table, E.FixedSpec(), cl, devices=1, **CPU),
-        run_cluster(azure_table, E.FixedSpec(), cl, **CPU))
+        sweep_cluster(azure_table, [E.FixedSpec()], [cl], devices=2,
+                      **CPU).row(0, 0), want)
 
 
 def test_sweep_cells_match_single_runs(azure_table):

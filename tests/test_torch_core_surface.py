@@ -1,7 +1,6 @@
 """``repro_torch.core`` re-exports what the reference's ``repro.core``
-exports, but for the names the port has not reached yet (each named with
-its ROADMAP Queue A item), so ``from repro_torch.core import run`` works as
-``from repro.core import run`` does."""
+exports, so ``from repro_torch.core import run`` works as ``from
+repro.core import run`` does."""
 import inspect
 import subprocess
 import sys
@@ -12,12 +11,9 @@ import pytest
 import repro_torch.core as port_core
 
 REPO = Path(__file__).resolve().parents[1]
-# ROADMAP Queue A item 5: the vectorised histogram helpers of core/histogram.py
-NOT_PORTED = {"HistogramState", "init_state"}
-# the factored sweep (ROADMAP performance list) and Queue A item 5's
-# grouped percentile helpers
-POLICY_MATH_NOT_PORTED = {"scale_raw_threshold", "first_bin_ge_scaled_grouped",
-                          "HybridSweepBlock", "SweepIdentities",
+NOT_PORTED = set()
+# the factored sweep: ROADMAP performance list, item P6
+POLICY_MATH_NOT_PORTED = {"HybridSweepBlock", "SweepIdentities",
                           "hybrid_sweep_decide",
                           "fused_hybrid_sweep_step_math"}
 
@@ -57,7 +53,8 @@ def test_each_exported_name_resolves_to_the_port(ref_core, name):
 
 @pytest.mark.parametrize("module", [
     "core.experiment", "core.policy", "core.policy_math", "forecast",
-    "forecast.forecaster", "forecast.replay"])
+    "forecast.forecaster", "forecast.replay", "core.welford",
+    "core.histogram", "core.workload_spec"])
 def test_module_surface_is_the_reference_surface(ref_core, module):
     """The modules this package shares with the reference export the
     reference's names (SpesSpec, SpesConfig, SpesPolicy and the
@@ -69,7 +66,7 @@ def test_module_surface_is_the_reference_surface(ref_core, module):
     want = list(theirs.__all__)
     if module == "core.policy_math":
         # the factored-sweep helpers are not ported (ROADMAP performance
-        # list); every other name is, SPES and arima_window among them
+        # list, P6); every other name is, SPES and arima_window among them
         want = [n for n in want if n not in POLICY_MATH_NOT_PORTED]
         assert set(want) <= set(mine.__all__)
     else:

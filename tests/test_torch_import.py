@@ -39,6 +39,13 @@ def test_imports_with_jax_blocked():
         "import repro_torch.launch.steps, repro_torch.launch.train\n"
         "import repro_torch.launch.serve, repro_torch.serving.scheduler\n"
         "import repro_torch.core.dataset_export\n"
+        "import repro_torch.core.welford, repro_torch.core.arima\n"
+        "import repro_torch.distributed.scaleout\n"
+        "import repro_torch.examples.quickstart\n"
+        "import repro_torch.examples.policy_explorer\n"
+        "import repro_torch.examples.serve_serverless\n"
+        "import repro_torch.examples.train_smollm\n"
+        "import repro_torch.examples.export_dataset\n"
         "assert not [m for m in sys.modules if m.startswith('jax')"
         " and sys.modules[m] is not None]\n"
         "print('ok')\n")
