@@ -81,6 +81,22 @@ port's main paths:
     step in bf16 against f32, a restart after a fault at step 10 that
     reproduces steps 11-20 bit for bit, and a kernel refusing autograd;
     no kernel of the port launches there, as in the reference.
+  * the multi-device layers (phase ``mesh_train``): a one-rank NCCL
+    process group and a (1, 1) ``("data", "model")`` ``DeviceMesh``;
+    full-width SmolLM-135M, 5 ZeRO steps of 8 x 4,096 tokens (masters
+    and moments as DTensors in ``opt_specs`` placements,
+    ``grad_shardings``) with cast_bf16 off and on, each bit-equal to the
+    unsharded steps in losses and masters; then ``save``,
+    ``resharded_restore`` onto a fresh mesh and
+    ``verify_roundtrip(atol=0)``. Phase ``dryrun`` runs on the host (a
+    worker process started after ``mesh_train`` and waited for before the
+    kernels are timed, ``CUDA_VISIBLE_DEVICES=""``):
+    ``repro_torch.launch.dryrun`` on the fake process group, Qwen2-7B
+    train_4k and decode_32k on 16 x 16 and decode_32k on 2 x 16 x 16, per
+    device bytes against the card's 80 GB. Phase ``dist_ranks`` asks gloo
+    whether it takes CUDA tensors for every collective of the distributed
+    decode and the pipeline, with two ranks on the card; it does not for
+    send/recv, so the phase's line says it was left out and why.
 
 Then it times each kernel at its path's shapes beside its bound, its plain
 version and, where one exists, the one PyTorch call computing the same
@@ -97,10 +113,13 @@ from __future__ import annotations
 
 import atexit
 import contextlib
+import dataclasses
 import io
 import json
 import math
 import os
+import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -362,6 +381,18 @@ TRAIN_F32_LOSS_RTOL, TRAIN_F32_GNORM_RTOL = 0.02, 0.05
 # launch_serve: the reference's example and a larger fleet, both policies
 SERVE_CLI_RUNS = ((40, 120), (2000, 240))
 SERVE_CLI_POLICIES = ("hybrid", "fixed")
+# mesh_train: full-width SmolLM-135M, the ZeRO step on a one-rank (1, 1)
+# mesh against the unsharded step, cast_bf16 off and on, at train_smollm's
+# step of 8 x 4,096 tokens
+MESH_TRAIN_STEPS = 5
+# dryrun (on the host): (mesh, arch, shape) cells on the fake process group
+DRYRUN_CELLS = ((False, "qwen2-7b", "train_4k"),
+                (False, "qwen2-7b", "decode_32k"),
+                (True, "qwen2-7b", "decode_32k"))
+DRYRUN_TIMEOUT = 600
+# dist_ranks: the collectives of the distributed decode and the pipeline,
+# tried on CUDA tensors with two gloo ranks on the one card
+GLOO_CUDA_COLLECTIVES = ("all_reduce_sum", "all_reduce_max", "send_recv")
 
 
 def emit(phase: str, **fields) -> None:
@@ -3412,6 +3443,263 @@ def train_smollm(device, kernel_mods):
     return launches, failed
 
 
+def start_dryrun():
+    """Start the dry-run's cells (``repro_torch.launch.dryrun``, on the
+    fake process group, on the host: ``CUDA_VISIBLE_DEVICES=""``) in one
+    worker process. It starts after the timed serve and train phases and
+    is waited for before the kernels are timed, so that its host work
+    overlaps no measurement. Returns (process, path of its JSONL
+    results)."""
+    out_dir = os.path.join(ROOT, "src", "repro_torch", "kernels", "build",
+                           "dryrun")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "cells.jsonl")
+    if os.path.exists(path):
+        os.remove(path)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2")
+    calls = [["--arch", a, "--shape", s, "--out", path]
+             + (["--multi-pod"] if multi else [])
+             for multi, a, s in DRYRUN_CELLS]
+    code = ("import sys, json; from repro_torch.launch import dryrun; "
+            "sys.exit(max(dryrun.main(a) for a in json.loads(sys.argv[1])))")
+    return subprocess.Popen([sys.executable, "-c", code, json.dumps(calls)],
+                            env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), path
+
+
+def dryrun_phase(job):
+    """The dry-run's cells: Qwen2-7B train_4k and decode_32k on the 16 x 16
+    mesh, decode_32k on 2 x 16 x 16; per device (rank 0 of the fake group)
+    the argument and peak bytes against the card's 80 GB, FLOPs, collective
+    bytes, and the host seconds. Runs on the host; the line says so. Fails
+    if a cell failed."""
+    proc, path = job
+    try:
+        out, _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise AssertionError(f"dryrun: not done in {DRYRUN_TIMEOUT} s")
+    lines = [ln for ln in out.splitlines()
+             if ln.startswith(("OK", "FAIL", "SKIP"))]
+    if proc.returncode != 0:
+        raise AssertionError(f"dryrun: exit {proc.returncode}: {lines} "
+                             f"{out[-2000:]}")
+    with open(path) as f:
+        cells = [json.loads(ln) for ln in f]
+    if len(cells) != len(DRYRUN_CELLS):
+        raise AssertionError(f"dryrun: {len(cells)} cells, want "
+                             f"{len(DRYRUN_CELLS)}: {lines}")
+    from repro_torch.launch.mesh import HBM_BYTES
+    emit("dryrun", runs_on="host (fake process group, FakeTensorMode; no "
+         "device memory)", card_hbm_bytes=HBM_BYTES, cells=[{
+             "mesh": c["mesh"], "arch": c["arch"], "shape": c["shape"],
+             "argument_bytes": c["argument_size"],
+             "peak_bytes": c["peak_bytes"],
+             "argument_share_of_hbm": c["argument_size"] / HBM_BYTES,
+             "peak_share_of_hbm": c["peak_share_of_hbm"],
+             "flops": c["flops"], "collective_bytes": c["collective_bytes"],
+             "collectives": c["collectives"],
+             "host_seconds": c["seconds"]} for c in cells], lines=lines)
+    return cells
+
+
+def mesh_train(device):
+    """The ZeRO train step on the card: a one-rank NCCL process group, a
+    (1, 1) ``("data", "model")`` ``DeviceMesh``, full-width SmolLM-135M,
+    ``MESH_TRAIN_STEPS`` steps with the masters and moments as DTensors in
+    ``opt_specs`` placements (``grad_shardings``), cast_bf16 off and on,
+    each against the same seed's unsharded steps. Gates: losses and final
+    masters bit-equal (nothing is split on one rank, so every local op is
+    the unsharded op), then ``save``, ``resharded_restore`` onto a fresh
+    (1, 1) mesh and ``verify_roundtrip(atol=0)`` with every leaf
+    ``torch.equal``. Returns the failed gates."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build
+    from repro_torch.runtime import elastic
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import data
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import to_device
+
+    cfg = configs.get(TRAIN_ARCH)
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=TRAIN_SEQ)
+    batches = [to_device(data.batch_at(i, cfg, shape,
+                                       batch_override=TRAIN_BATCH),
+                         device) for i in range(MESH_TRAIN_STEPS)]
+    ocfg = opt.OptConfig(lr=TRAIN_LR, total_steps=TRAIN_STEPS)
+    model = build(cfg)
+    rdzv = os.path.join(ROOT, "build", "mesh_train_rdzv")
+    os.makedirs(os.path.dirname(rdzv), exist_ok=True)
+    if os.path.exists(rdzv):
+        os.remove(rdzv)
+    ckdir = os.path.join(ROOT, "build", "mesh_train_ckpt")
+    failed, runs = [], {}
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method=f"file://{rdzv}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh(model_parallel=1)
+
+        def run(cast, sharded):
+            state = opt.init_state(model.init(0, device))
+            kw = {}
+            if sharded:
+                specs = shd.opt_specs(state.params, mesh, cfg)
+                state = shd.distribute_state(state, mesh, specs)
+                kw["grad_shardings"] = shd.named(specs, mesh)
+            step = make_train_step(model, ocfg, cast_bf16=cast, **kw)
+            losses, secs = [], []
+            torch.cuda.reset_peak_memory_stats()
+            for b in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, met = step(state, b)
+                loss = met["loss"]
+                losses.append(float(loss.full_tensor() if sharded else loss))
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            return state, losses, secs, torch.cuda.max_memory_allocated()
+
+        for cast in (False, True):
+            plain, pl, ps, p_peak = run(cast, False)
+            zero, zl, zs, z_peak = run(cast, True)
+            diffs = {n: float((shd.full(p.detach()) - q.detach()).abs().max())
+                     for (n, p), (_, q) in zip(
+                         zero.params.named_parameters(),
+                         plain.params.named_parameters())}
+            equal = all(torch.equal(shd.full(p.detach()), q.detach())
+                        for (_, p), (_, q) in zip(
+                            zero.params.named_parameters(),
+                            plain.params.named_parameters()))
+            runs[f"cast_bf16={cast}"] = {
+                "losses_zero": zl, "losses_plain": pl,
+                "losses_bit_equal": zl == pl, "masters_bit_equal": equal,
+                "max_master_diff": max(diffs.values()),
+                "step_seconds_zero": zs, "step_seconds_plain": ps,
+                "step_seconds_zero_median": statistics.median(zs[1:]),
+                "step_seconds_plain_median": statistics.median(ps[1:]),
+                "peak_bytes_zero": z_peak, "peak_bytes_plain": p_peak,
+                "placement": str(next(zero.params.parameters()).placements)}
+            if zl != pl or not equal:
+                failed.append(f"mesh_train cast_bf16={cast}: ZeRO losses "
+                              f"{zl} against {pl}, masters bit-equal "
+                              f"{equal} (max diff {max(diffs.values())})")
+            del plain
+        # save from the ZeRO state of the last run, restore onto a fresh mesh
+        shutil.rmtree(ckdir, ignore_errors=True)
+        t0 = time.perf_counter()
+        ckpt.save(ckdir, MESH_TRAIN_STEPS, zero)
+        save_s = time.perf_counter() - t0
+        fresh = make_host_mesh(model_parallel=1)
+        template = opt.init_state(model.init(1, device))
+        t0 = time.perf_counter()
+        restored = elastic.resharded_restore(ckdir, MESH_TRAIN_STEPS,
+                                             template, fresh, cfg)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        ok = elastic.verify_roundtrip(zero, restored, atol=0.0)
+        exact = all(torch.equal(shd.full(a), shd.full(b)) for a, b in zip(
+            [p.detach() for p in zero.params.parameters()]
+            + list(zero.m.values()) + list(zero.v.values()),
+            [p.detach() for p in restored.params.parameters()]
+            + list(restored.m.values()) + list(restored.v.values())))
+        if not (ok and exact and restored.step == MESH_TRAIN_STEPS):
+            failed.append(f"mesh_train: restore roundtrip {ok}, every leaf "
+                          f"equal {exact}, step {restored.step}")
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+        dist.destroy_process_group()
+        if os.path.exists(rdzv):
+            os.remove(rdzv)
+    emit("mesh_train", arch=TRAIN_ARCH, mesh="(1, 1) data x model, NCCL",
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=MESH_TRAIN_STEPS,
+         runs=runs, save_seconds=save_s, restore_seconds=restore_s,
+         roundtrip=ok, roundtrip_bit_equal=exact, gates_failed=failed)
+    return failed
+
+
+def _gloo_cuda_rank(rank, world, rdzv, out_dir):
+    """One gloo rank on the card: try each collective the distributed
+    decode and the pipeline issue on CUDA tensors; write what gloo said."""
+    import torch
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=f"file://{rdzv}", rank=rank,
+                            world_size=world)
+    said = {}
+    x = torch.ones(8, device="cuda")
+    path = os.path.join(out_dir, f"rank{rank}.json")
+    for name in GLOO_CUDA_COLLECTIVES:
+        # written before each try: gloo may abort the process inside one
+        said[name] = "started; the process ended inside it"
+        with open(path, "w") as f:
+            json.dump(said, f)
+        try:
+            if name == "all_reduce_sum":
+                dist.all_reduce(x, op=dist.ReduceOp.SUM)
+            elif name == "all_reduce_max":
+                dist.all_reduce(x, op=dist.ReduceOp.MAX)
+            else:
+                buf = torch.empty_like(x)
+                peer = 1 - rank
+                for req in dist.batch_isend_irecv(
+                        [dist.P2POp(dist.isend, x, peer),
+                         dist.P2POp(dist.irecv, buf, peer)]):
+                    req.wait()
+            torch.cuda.synchronize()
+            said[name] = "accepted"
+        except Exception as e:  # noqa: BLE001 — gloo's refusal is the result
+            said[name] = f"refused: {type(e).__name__}: {str(e)[:200]}"
+    with open(path, "w") as f:
+        json.dump(said, f)
+    dist.destroy_process_group()
+
+
+def dist_ranks():
+    """Two gloo ranks on the one card (NCCL refuses two ranks on one GPU):
+    the distributed decode and the pipeline run there only if gloo takes
+    CUDA tensors for every collective they issue (all-reduce SUM and MAX;
+    send/recv). Asks gloo, and leaves the phase out, with gloo's answers on
+    its line, where it refuses one (the port does not stage through the
+    host to make it run)."""
+    import multiprocessing as mp
+    out_dir = os.path.join(ROOT, "build", "gloo_cuda")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    rdzv = os.path.join(out_dir, "rdzv")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_gloo_cuda_rank, args=(r, 2, rdzv, out_dir))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=120)
+        if p.is_alive():
+            p.kill()
+            p.join()
+    said = {}
+    for r in range(2):
+        path = os.path.join(out_dir, f"rank{r}.json")
+        said[f"rank{r}"] = (json.load(open(path)) if os.path.exists(path)
+                            else "no answer")
+    refused = sorted({k for v in said.values() if isinstance(v, dict)
+                      for k, a in v.items() if a != "accepted"}
+                     | ({"all"} if any(not isinstance(v, dict)
+                                       for v in said.values()) else set()))
+    if not refused:
+        raise AssertionError("dist_ranks: gloo took CUDA tensors for every "
+                             "collective; the phase's comparisons belong "
+                             "here now")
+    emit("dist_ranks", ran=False, left_out="gloo refuses CUDA tensors for "
+         + ", ".join(refused), gloo_said=said)
+
+
 def release_host_memory():
     """Hand the pinned host memory of the serving phases that ended back to
     the system: PyTorch's pinned allocator keeps freed blocks cached, and
@@ -3558,6 +3846,28 @@ def main() -> int:
     train_s = time.perf_counter() - t_train
     failed += f
     release_host_memory()
+    # the multi-device layers: the ZeRO step on a one-rank mesh (no kernel
+    # of the port launches there, as in train_smollm), the dry-run's cells
+    # from the host, and whether gloo can carry two ranks on the card
+    reset_counts(H, FA, DA, R, SS)
+    t_phase = time.perf_counter()
+    failed += mesh_train(device)
+    mesh_train_s = time.perf_counter() - t_phase
+    mesh_launches = {f"{m.__name__.rsplit('.', 1)[-1]}.{k}": v
+                     for m in (H, FA, DA, R, SS) for k, v in vars(m).items()
+                     if k.endswith("LAUNCHES") and isinstance(v, int)}
+    if any(mesh_launches.values()):
+        failed.append(f"mesh_train launched kernels {mesh_launches}")
+    release_host_memory()
+    # the dry-run's host worker, while dist_ranks asks gloo (neither timed)
+    dry_job = start_dryrun()
+    atexit.register(stop_cpu_examples, {"dryrun": dry_job})
+    t_phase = time.perf_counter()
+    dist_ranks()
+    dist_ranks_s = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    dryrun_phase(dry_job)
+    dryrun_wait_s = time.perf_counter() - t_phase
     # time the step and the scan on the scale trace's columns, as the main
     # path ran them
     step = time_kernel(sweep_cols, device)
@@ -3695,7 +4005,9 @@ def main() -> int:
          fleet_point_phase_seconds=fleet_s,
          reference_engine_seconds=reference_s, scaleout_seconds=scaleout_s,
          examples_seconds=examples_s,
-         launch_serve_seconds=launch_serve_s, train_smollm_seconds=train_s)
+         launch_serve_seconds=launch_serve_s, train_smollm_seconds=train_s,
+         mesh_train_seconds=mesh_train_s, dryrun_wait_seconds=dryrun_wait_s,
+         dist_ranks_seconds=dist_ranks_s)
     if failed:
         # every phase ran and printed its line; a failed gate fails the run
         emit("failed", gates=failed)

@@ -1,3 +1,3 @@
-"""Entry points: the training and serving launchers and the step builders
-they share (the port of ``repro/launch``; the mesh and dry-run modules
-come with ROADMAP Queue A item 6)."""
+"""Entry points: the training and serving launchers, the step builders
+they share, the meshes and the multi-pod dry-run (the port of
+``repro/launch``)."""

@@ -26,9 +26,13 @@ compute in f32, and :func:`remat` re-computes a block in the backward
 (``cfg.remat``, as the reference wraps its scanned body in
 ``jax.checkpoint``).
 
-Left out (on no path): the distributed-decode branch of
-``attention_apply`` (``dist_decode.applicable`` is false on one device),
-and ``scan_blocks`` (the port loops over layers in Python).
+Under a mesh (``distributed.ctx``) the parameters and activations are
+DTensors and the layers run on them as they are; the attention is the one
+place that goes through ``compat.shard_map`` (:func:`_sdpa_sharded`: DTensor
+has no sharding rule for the ``[B, H]``-merged products of its einsums),
+and ``ctx.hint`` pins the reference's activation layouts. Without a mesh
+both are no-ops. Left out (on no path): ``scan_blocks`` (the port loops
+over layers in Python).
 """
 from __future__ import annotations
 
@@ -39,8 +43,12 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import zeros as dtensor_zeros
+
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..distributed import compat, ctx, dist_decode
 from ..kernels import ops as kops
 from ..kernels.flash_attention import sdpa
 
@@ -67,10 +75,59 @@ def fp32_at_use(name: str) -> bool:
     return any(name == e or name.endswith("." + e) for e in FP32_AT_USE)
 
 
-#: The reference's plain attention (``layers._sdpa``, with its query-blocked
-#: form from 8,192 query rows): the model's branch when the kernels are
-#: off, and the function the attention kernel computes.
-_sdpa = sdpa
+def _sdpa(q, k, v, *, causal: bool, window: int, q_offset=0, kv_len=None):
+    """The reference's plain attention (``layers._sdpa``, with its
+    query-blocked form from 8,192 query rows): the model's branch when the
+    kernels are off, and the function the attention kernel computes. On
+    DTensors (under a mesh) it runs per shard (:func:`_sdpa_sharded`)."""
+    if isinstance(q, DTensor):
+        return _sdpa_sharded(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset, kv_len=kv_len)
+    return sdpa(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                kv_len=kv_len)
+
+
+def _sdpa_sharded(q, k, v, *, causal: bool, window: int, q_offset: int = 0,
+                  kv_len=None):
+    """:func:`sdpa` of DTensors, one shard at a time (``compat.shard_map``):
+    the batch over the data axes, and over "model" the query heads when
+    they divide it, else the query sequence (the reference's sequence
+    parallelism; a rank's queries start at its offset), else nothing. Each
+    shard takes K/V whole along heads and sequence and picks the KV head of
+    each of its query heads (head h reads h // (Hq/Hkv)), so every row is
+    computed by the same ops as on one device. The two splits are the
+    layouts of the reference's hints on the logits (``layers.py:139-141``,
+    ``188-190``), which here fall inside the shard."""
+    mesh = q.device_mesh
+    Sq, Hq = q.shape[1], q.shape[2]
+    group = Hq // k.shape[2]
+    m = ctx.axis_size("model")
+    if m > 1 and Hq % m == 0:
+        mode, roles = "heads", ("data", None, "model", None)
+    elif m > 1 and Sq % m == 0:
+        mode, roles = "seq", ("data", "model", None, None)
+    else:
+        mode, roles = None, ("data", None, None, None)
+    qspec = ctx.spec(q.shape, *roles)
+    kvspec = ctx.spec(k.shape, "data", None, None, None)
+
+    def body(ql, kl, vl):
+        r = compat.axis_index(mesh, "model") if mode else 0
+        off = q_offset
+        if mode == "heads":
+            idx = (torch.arange(ql.shape[2], device=ql.device)
+                   + r * ql.shape[2]) // group
+            kl, vl = kl[:, :, idx], vl[:, :, idx]
+        elif group > 1:
+            kl = kl.repeat_interleave(group, dim=2)
+            vl = vl.repeat_interleave(group, dim=2)
+        if mode == "seq":
+            off = q_offset + r * ql.shape[1]
+        return sdpa(ql, kl, vl, causal=causal, window=window, q_offset=off,
+                    kv_len=kv_len)
+
+    return compat.shard_map(body, mesh, (qspec, kvspec, kvspec), qspec)(
+        q, k, v)
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -153,8 +210,49 @@ class Embedding(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+def _gather_inner(x: torch.Tensor) -> torch.Tensor:
+    """``x`` [B, ..., D] as it is; a DTensor sharded on a dim between the
+    batch and the last (the sequence-sharded residual stream) gathered
+    there first: DTensor has no rule for a product over leading dims
+    sharded on two mesh axes (Megatron-SP's all-gather before a
+    column-parallel product)."""
+    if not isinstance(x, DTensor) or x.dim() <= 2:
+        return x
+    want = [Replicate() if isinstance(p, Shard) and 0 < p.dim < x.dim() - 1
+            else p for p in x.placements]
+    if want == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def _pin(y: torch.Tensor) -> torch.Tensor:
+    """``y``; a DTensor passed through a redistribution to its own
+    placements, which does nothing forward and brings its gradient back to
+    them (not sequence-sharded) before the product's backward."""
+    if not isinstance(y, DTensor):
+        return y
+    return y.redistribute(y.device_mesh, y.placements)
+
+
+def _heads(y: torch.Tensor, n_heads: int, hd: int) -> torch.Tensor:
+    """y [B, S, n_heads * hd] as [B, S, n_heads, hd]. A DTensor sharded on
+    its last dim over more ranks than divide the heads (Qwen2-7B's 28 heads
+    over 16) is gathered there first: a shard would cut a head, which
+    DTensor's view refuses (the reference's compiler reshards the same
+    way)."""
+    if isinstance(y, DTensor):
+        sizes = y.device_mesh.shape
+        want = [Replicate() if isinstance(p, Shard) and p.dim == y.dim() - 1
+                and n_heads % sizes[i] else p
+                for i, p in enumerate(y.placements)]
+        if want != list(y.placements):
+            y = y.redistribute(y.device_mesh, want)
+    return y.reshape(y.shape[0], y.shape[1], n_heads, hd)
+
+
 def linear(p: Linear, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p.w.to(x.dtype)
+    x = _gather_inner(x)
+    y = _pin(x @ p.w.to(x.dtype))
     if hasattr(p, "b"):
         y = y + p.b.to(x.dtype)
     return y
@@ -221,11 +319,11 @@ def attention_apply(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     ``kv_len = pos + 1``."""
     B, S, _ = x.shape
     hd = cfg.hd
-    q = linear(p.wq, x).reshape(B, S, cfg.n_heads, hd)
+    x = _gather_inner(x)           # once for the three projections
+    q = _heads(linear(p.wq, x), cfg.n_heads, hd)
     kv_in = x if kv_source is None else kv_source
-    S_kv = kv_in.shape[1]
-    k = linear(p.wk, kv_in).reshape(B, S_kv, cfg.n_kv_heads, hd)
-    v = linear(p.wv, kv_in).reshape(B, S_kv, cfg.n_kv_heads, hd)
+    k = _heads(linear(p.wk, kv_in), cfg.n_kv_heads, hd)
+    v = _heads(linear(p.wv, kv_in), cfg.n_kv_heads, hd)
     if kv_source is not None:
         out = _sdpa(q, k, v, causal=False, window=0, q_offset=0)
         return linear(p.wo, out.reshape(B, S, cfg.n_heads * hd))
@@ -244,10 +342,16 @@ def attention_apply(p: Attention, cfg: ModelConfig, x: torch.Tensor,
         if pos + S > ck.shape[1]:
             raise ValueError(f"KV cache of {ck.shape[1]} positions is full: "
                              f"{S} more at position {pos}")
-        ck[:, pos:pos + S] = k.to(ck.dtype)
-        cv[:, pos:pos + S] = v.to(cv.dtype)
+        sharded = dist_decode.applicable(ck.shape[1], S)
+        if not sharded:
+            ck[:, pos:pos + S] = k.to(ck.dtype)
+            cv[:, pos:pos + S] = v.to(cv.dtype)
         kernels = cfg.use_kernels and not window
-        if kernels and pos == 0 and flash_ok:
+        if sharded:
+            # sequence-sharded cache: the owning rank writes, every rank
+            # attends over its block, log-sum-exp merge (dist_decode)
+            out, _, _ = dist_decode.decode_attention(q, k, v, ck, cv, pos)
+        elif kernels and pos == 0 and flash_ok:
             out = kops.flash_attention(q, ck[:, :S], cv[:, :S])
         elif kernels and S == 1:
             out = kops.decode_attention(q, ck, cv, pos + 1)
@@ -260,25 +364,70 @@ def attention_apply(p: Attention, cfg: ModelConfig, x: torch.Tensor,
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
                dtype, device=None):
     """Zero KV cache of capacity ``max_len``: per layer ``k`` and ``v``
-    ``[batch, max_len, Hkv, hd]`` in ``dtype``; ``pos`` 0."""
+    ``[batch, max_len, Hkv, hd]`` in ``dtype``; ``pos`` 0. Under a mesh
+    each is a DTensor placed by ``sharding.cache_specs_tree``."""
     device = resolve_device(device)
     shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
-    z = lambda: torch.zeros(shape, dtype=dtype, device=device)
+    mesh = ctx.active_mesh()
+    if mesh is None:
+        z = lambda: torch.zeros(shape, dtype=dtype, device=device)
+        return {"k": [z() for _ in range(n_layers)],
+                "v": [z() for _ in range(n_layers)], "pos": 0}
+    # under a mesh: DTensors in the serving layout (the reference's prefill
+    # out_shardings), each rank making only its shard
+    from ..distributed.sharding import cache_specs_tree, placements
+    spec = cache_specs_tree(cfg, {"k": [torch.empty(shape, device="meta")]},
+                            mesh)["k"][0]
+    z = lambda: dtensor_zeros(shape, dtype=dtype, device_mesh=mesh,
+                              placements=placements(spec, mesh))
     return {"k": [z() for _ in range(n_layers)],
             "v": [z() for _ in range(n_layers)], "pos": 0}
 
 
 def mlp_apply(p: MLP, x: torch.Tensor) -> torch.Tensor:
+    x = _gather_inner(x)           # once for both input projections
     return linear(p.wo, F.silu(linear(p.wg, x)) * linear(p.wi, x))
 
 
 def embed(p: Embedding, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    return p.table.to(dtype)[tokens]
+    """The rows of ``tokens``. Under a mesh the lookup runs per shard
+    (:func:`_embed_sharded`) and leaves in the residual stream's layout
+    (batch over data, sequence over model), which the reference's layer
+    scan gives its carry from the first block on."""
+    table = p.table.to(dtype)
+    if not isinstance(table, DTensor):
+        return table[tokens]
+    return ctx.hint(_embed_sharded(table, tokens), "data", "model", None)
+
+
+def _embed_sharded(table, tokens):
+    """``table[tokens]`` with the vocabulary rows over "model" (the table's
+    TP spec) and the tokens' batch over data, per shard: each model rank
+    looks up the tokens in its rows, zeroes the others, and the ranks' rows
+    are summed (Megatron's vocabulary-parallel embedding). DTensor's own
+    rule for the lookup's backward (``index_put``) fails in some PyTorch
+    releases; on one rank along "model" this is the plain lookup."""
+    mesh = table.device_mesh
+    ts = ctx.spec(table.shape, "model", None)
+    xs = ctx.spec(tokens.shape, "data", *(None,) * (tokens.dim() - 1))
+
+    def body(tab, tok):
+        if ts[0] is None:
+            return tab[tok]
+        lo = compat.axis_index(mesh, "model") * tab.shape[0]
+        local = tok - lo
+        mine = (local >= 0) & (local < tab.shape[0])
+        rows = tab[torch.where(mine, local, 0)] * mine[..., None].to(tab.dtype)
+        return compat.psum_replicated(rows, mesh, "model")
+
+    return compat.shard_map(body, mesh, (ts, xs),
+                            ctx.spec(tuple(tokens.shape) + (1,), "data"))(
+        table, tokens)
 
 
 def unembed(p: Embedding, x: torch.Tensor) -> torch.Tensor:
     """Tied unembedding; logits in the activation dtype."""
-    return x @ p.table.to(x.dtype).T
+    return _pin(_gather_inner(x) @ p.table.to(x.dtype).T)
 
 
 # ---------------------------------------------------------------------------
@@ -300,12 +449,44 @@ def remat(cfg: ModelConfig, fn, *args):
 def _token_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Per-token ``logsumexp - label logit`` in f32; the label logit taken
     by an index compare and a masked sum, as the reference does (no gather
-    across the vocabulary)."""
+    across the vocabulary). Under a mesh per shard, the vocabulary over
+    "model" (:func:`_token_xent_sharded`)."""
+    if isinstance(logits, DTensor):
+        return _token_xent_sharded(logits, labels)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     vocab = torch.arange(logits.shape[-1], device=logits.device)
     ll = torch.where(vocab == labels[..., None], logits, 0.0).sum(dim=-1)
     return logz - ll
+
+
+def _token_xent_sharded(logits, labels):
+    """:func:`_token_xent` of DTensor logits laid out as the reference's
+    hint puts them (batch over data, vocabulary over "model"), per shard:
+    the masked reduce partitions cleanly, as the reference's comment says —
+    each rank's partial exp-sum (under the max over the ranks) and label
+    logit, summed over "model" (vocabulary-parallel cross-entropy). DTensor's
+    own rules for the backward gather the batch or the vocabulary (tens of
+    GB a device at train_4k). On one rank along "model" this is the plain
+    function."""
+    mesh = logits.device_mesh
+    ls = ctx.spec(logits.shape, "data", *(None,) * (logits.dim() - 2),
+                  "model")
+    ys = ctx.spec(labels.shape, "data", *(None,) * (labels.dim() - 1))
+
+    def body(lg, lab):
+        if ls[-1] is None:
+            return _token_xent(lg, lab)
+        lg = lg.float()
+        m = compat.pmax(lg.detach().amax(dim=-1), mesh, "model")
+        e = torch.exp(lg - m[..., None]).sum(dim=-1)
+        logz = m + torch.log(compat.psum_replicated(e, mesh, "model"))
+        v0 = compat.axis_index(mesh, "model") * lg.shape[-1]
+        vocab = v0 + torch.arange(lg.shape[-1], device=lg.device)
+        ll = torch.where(vocab == lab[..., None], lg, 0.0).sum(dim=-1)
+        return logz - compat.psum_replicated(ll, mesh, "model")
+
+    return compat.shard_map(body, mesh, (ls, ys), ys)(logits, labels)
 
 
 def _mean_loss(loss: torch.Tensor, mask) -> torch.Tensor:
@@ -341,8 +522,9 @@ def softmax_xent_chunked(x: torch.Tensor, table: torch.Tensor,
         chunk -= 1
 
     def body(xc, lc):
+        xc = _gather_inner(xc)
         w = table.to(xc.dtype)
-        return _token_xent(xc @ w if transpose_table else xc @ w.T, lc)
+        return _token_xent(_pin(xc @ w if transpose_table else xc @ w.T), lc)
 
     parts = []
     for i in range(0, S, chunk):

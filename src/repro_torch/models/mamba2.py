@@ -27,6 +27,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..distributed import compat, ctx
 from ..kernels import ops as kops
 from ..kernels.ssd_scan import ssd_scan_plain
 from . import layers as L
@@ -131,6 +132,22 @@ def _split_proj(cfg: ModelConfig, proj):
         proj[..., 2 * DI + 2 * N:]
 
 
+def _ssd_plain(cfg: ModelConfig, xs, dts, A, Bm, Cm):
+    """``ssd_scan_plain``; under a mesh per shard (batch over data, heads
+    over model: the scan has no cross-head term, and DTensor no rule for
+    its merged-dim products)."""
+    if ctx.active_mesh() is None:
+        return ssd_scan_plain(xs, dts, A, Bm, Cm, cfg.ssm_chunk)
+    hs = ctx.spec(xs.shape, "data", None, "model", None)
+    ss = ctx.spec(dts.shape, "data", None, "model")
+    bs = ctx.spec(Bm.shape, "data", None, None)
+    return compat.per_shard(
+        lambda *a: ssd_scan_plain(*a, cfg.ssm_chunk),
+        (hs, ss, ctx.spec(A.shape, "model"), bs, bs),
+        (hs, ctx.spec((xs.shape[0], xs.shape[2]), "data", "model", None,
+                      None)), xs, dts, A, Bm, Cm)
+
+
 def block_apply(cfg: ModelConfig, p: Mamba2Block, x, state=None,
                 use_kernel: bool = False):
     """One layer with its residual. ``state`` None runs the full sequence
@@ -154,7 +171,7 @@ def block_apply(cfg: ModelConfig, p: Mamba2Block, x, state=None,
         if use_kernel and cfg.use_kernels and Lq % cfg.ssm_chunk == 0:
             y, S_fin = kops.ssd_scan(xs, dts, A, Bm, Cm, chunk=cfg.ssm_chunk)
         else:
-            y, S_fin = ssd_scan_plain(xs, dts, A, Bm, Cm, cfg.ssm_chunk)
+            y, S_fin = _ssd_plain(cfg, xs, dts, A, Bm, Cm)
         y = y.to(x.dtype)
         W = cfg.conv_width
         # a copy, so the state does not hold the whole projection alive
@@ -178,7 +195,8 @@ def block_apply(cfg: ModelConfig, p: Mamba2Block, x, state=None,
     y = y + xs.reshape(B_, Lq, H, P) * p.D[None, None, :, None].to(x.dtype)
     y = y.reshape(B_, Lq, DI)
     y = L.rmsnorm(p.norm, y, cfg.norm_eps) * F.silu(z)
-    return x + L.linear(p.out_proj, y), new_state
+    return (ctx.hint(x + L.linear(p.out_proj, y), "data", "model", None),
+            new_state)
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,9 @@ encoder-decoder: SeamlessM4T; hybrid: RecurrentGemma; SSM: Mamba-2):
     logits, state)
   * ``decode_step(params, token, cache)`` — (logits, state)
   * ``n_params()`` — analytic parameter count
+  * ``input_specs(shape)``, ``cache_specs(batch, kv_len)`` — the dry-run's
+    stand-ins (:class:`TensorSpec` records, the port's cache layout), and
+    ``make_inputs(shape, seed=)`` — concrete random inputs matching them
 
 Frontend ``embeds`` [B, frontend_tokens, D] (``models.frontend``) are the
 VLM backbone's prepended patches and the encoder-decoder's frames, which
@@ -22,10 +25,35 @@ it needs (a ``ValueError`` without them); the other families take none.
 """
 from __future__ import annotations
 
-from ..configs.base import ModelConfig
+import dataclasses
+from typing import Any, Dict, NamedTuple, Tuple
+
+import torch
+
+from ..configs.base import ModelConfig, ShapeConfig
+from ..device import resolve_device
+from . import layers as L
 from . import mamba2, moe, rglru, transformer
 
-__all__ = ["Model", "build", "n_params", "INIT_SCHEMES"]
+__all__ = ["Model", "build", "n_params", "INIT_SCHEMES", "TensorSpec"]
+
+
+class TensorSpec(NamedTuple):
+    """Shape and dtype of a tensor the dry-run stands in for (the
+    reference's ``jax.ShapeDtypeStruct``)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def _as_specs(tree):
+    """Every tensor of a (dict / list) tree as a :class:`TensorSpec`."""
+    if isinstance(tree, dict):
+        return {k: _as_specs(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_as_specs(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return TensorSpec(tuple(tree.shape), tree.dtype)
+    return tree
 
 #: The draws ``Model.init`` makes: the reference's distributions, and
 #: ``"depth_scaled"`` (MoE family only; :func:`moe.depth_scale_`).
@@ -141,6 +169,85 @@ class Model:
 
     def n_params(self, active_only: bool = False) -> int:
         return n_params(self.cfg, active_only)
+
+    # -- dry-run stand-ins ----------------------------------------------------
+
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, Any]:
+        """:class:`TensorSpec` stand-ins for the step this shape runs.
+
+        train/prefill: the full batch. decode: one new token per sequence
+        and the cache (:meth:`cache_specs`). Modality frontends are STUBS —
+        ``embeds`` are precomputed frame/patch embeddings with the model's
+        d_model."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        f32, i32 = torch.float32, torch.int32
+        specs: Dict[str, Any] = {}
+        if shape.kind in ("train", "prefill"):
+            s_text = S - cfg.frontend_tokens if cfg.frontend == "vision" else S
+            specs["tokens"] = TensorSpec((B, s_text), i32)
+            if cfg.frontend == "vision" or cfg.family == "encdec":
+                specs["embeds"] = TensorSpec(
+                    (B, cfg.frontend_tokens, cfg.d_model), f32)
+            if shape.kind == "train":
+                specs["labels"] = TensorSpec((B, s_text), i32)
+        else:  # decode: one new token against a cache of length S
+            specs["token"] = TensorSpec((B,), i32)
+            specs["cache"] = self.cache_specs(B, S)
+        return specs
+
+    def cache_specs(self, batch: int, kv_len: int):
+        """The decode cache at a KV capacity of ``kv_len``, in the port's
+        layout (one entry per layer where the reference stacks them), each
+        tensor a :class:`TensorSpec`; ``pos`` 0, as the reference's zero
+        stand-in."""
+        cfg = self.cfg
+        dtype = L.compute_dtype(cfg)
+        if cfg.family == "ssm":
+            return _as_specs(mamba2.init_state(cfg, batch, dtype, "meta"))
+        if cfg.family == "hybrid":
+            return _as_specs(rglru.init_cache(cfg, batch, dtype, "meta"))
+        kv = TensorSpec((batch, kv_len, cfg.n_kv_heads, cfg.hd), dtype)
+        cache = {"k": [kv] * cfg.n_layers, "v": [kv] * cfg.n_layers,
+                 "pos": 0}
+        if cfg.family == "encdec":
+            cache["enc"] = TensorSpec(
+                (batch, cfg.frontend_tokens, cfg.d_model), dtype)
+        return cache
+
+    def make_inputs(self, shape: ShapeConfig, seed: int = 0,
+                    concrete_batch=None, device=None) -> Dict[str, Any]:
+        """Concrete random inputs matching :meth:`input_specs` (of
+        ``concrete_batch`` sequences when given) on ``device`` (the card
+        unless ``"cpu"``), drawn from one ``torch.Generator`` seeded with
+        ``seed``: token ids uniform in the vocabulary, embeddings 0.02 x a
+        normal, the cache zero."""
+        dev = resolve_device(device)
+        if concrete_batch is not None:
+            shape = dataclasses.replace(shape, global_batch=concrete_batch)
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+
+        def zeros(tree):
+            if isinstance(tree, dict):
+                return {k: zeros(v) for k, v in tree.items()}
+            if isinstance(tree, list):
+                return [zeros(v) for v in tree]
+            if isinstance(tree, TensorSpec):
+                return torch.zeros(tree.shape, dtype=tree.dtype, device=dev)
+            return tree
+
+        out = {}
+        for name, spec in self.input_specs(shape).items():
+            if name == "cache":
+                out[name] = zeros(spec)
+            elif spec.dtype == torch.int32:
+                out[name] = torch.randint(0, self.cfg.vocab, spec.shape,
+                                          generator=gen, device=dev,
+                                          dtype=torch.int32)
+            else:
+                out[name] = 0.02 * torch.randn(spec.shape, generator=gen,
+                                               device=dev, dtype=spec.dtype)
+        return out
 
 
 def build(cfg: ModelConfig) -> Model:

@@ -26,13 +26,16 @@ are the dense family's (``layers.attention_apply``). Training
 from __future__ import annotations
 
 import math
+import types
 from typing import Dict
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig
+from ..distributed import compat, ctx
 from . import layers as L
 from .transformer import _init_params, _logits
 
@@ -132,14 +135,17 @@ def depth_scale_(cfg: ModelConfig, params: MoEParams) -> MoEParams:
 # ---------------------------------------------------------------------------
 
 
-def _route(cfg: ModelConfig, p: MoEFFN, xg: torch.Tensor):
+def _route(cfg: ModelConfig, p: MoEFFN, xg: torch.Tensor, mean=None):
     """Router and slot assignment for token groups ``xg`` [G, T, D]:
     (topi [G, T, k] int64, topv [G, T, k] f32 renormalised, positions
     [G, T, k] int64, keep [G, T, k] bool, C, the Switch aux loss).
 
     The top k are the first k columns of a stable descending sort, so that
     among equal gates the lower expert comes first, as ``jax.lax.top_k``
-    orders them (``torch.topk`` promises no order among ties)."""
+    orders them (``torch.topk`` promises no order among ties).
+
+    ``mean`` (the per-shard routing under a mesh) turns the aux loss's two
+    means over this shard's groups into means over every group."""
     G, T, _ = xg.shape
     E, k = cfg.n_experts, cfg.top_k
     C = max(int(cfg.moe_capacity_factor * k * T / E), 1)
@@ -168,7 +174,42 @@ def _route(cfg: ModelConfig, p: MoEFFN, xg: torch.Tensor):
     # load-balancing auxiliary loss (Switch): E * mean(frac tokens * prob)
     me = gates.mean(dim=(0, 1))
     ce = F.one_hot(topi[..., 0], E).float().mean(dim=(0, 1))
+    if mean is not None:
+        me, ce = mean(me), mean(ce)
     aux = E * torch.sum(me * ce)
+    return topi, topv, positions, keep, C, aux
+
+
+def _route_sharded(cfg: ModelConfig, p: MoEFFN, xg: torch.Tensor):
+    """:func:`_route`; under a mesh per shard of groups (over data: DTensor
+    has no rule for the backward of its sort and one-hot counts), with the
+    aux loss's two means taken over every group (summed over the data
+    axes)."""
+    if not isinstance(xg, DTensor):
+        return _route(cfg, p, xg)
+    mesh = xg.device_mesh
+    gs = ctx.spec(xg.shape, "data", None, None)
+    split = [a for a in mesh.mesh_dim_names
+             if any(a == ax or (isinstance(ax, tuple) and a in ax)
+                    for ax in gs if ax is not None)]
+
+    def over_groups(t):
+        for a in split:
+            t = compat.psum_replicated(t, mesh, a) / mesh.size(
+                mesh.mesh_dim_names.index(a))
+        return t
+
+    def body(xg, w):
+        local = types.SimpleNamespace(router=types.SimpleNamespace(w=w))
+        topi, topv, positions, keep, _, aux = _route(cfg, local, xg,
+                                                     over_groups)
+        return topi, topv, positions, keep, aux
+
+    topi, topv, positions, keep, aux = compat.shard_map(
+        body, mesh, (gs, ctx.spec(p.router.w.shape, None, None)),
+        (gs, gs, gs, gs, ctx.spec(())))(xg, p.router.w)
+    C = max(int(cfg.moe_capacity_factor * cfg.top_k * xg.shape[1]
+                / cfg.n_experts), 1)
     return topi, topv, positions, keep, C, aux
 
 
@@ -225,11 +266,44 @@ def moe_apply(cfg: ModelConfig, p: MoEFFN, x: torch.Tensor):
     B, S, D = x.shape
     T = min(cfg.moe_group_size, B * S)
     G = (B * S) // T
-    xg = x.reshape(G, T, D)
-    topi, topv, positions, keep, C, aux = _route(cfg, p, xg)
+    # groups of whole sequences: under a mesh the batch over data only
+    xg = ctx.hint(x, "data", None, None).reshape(G, T, D)
+    topi, topv, positions, keep, C, aux = _route_sharded(cfg, p, xg)
     fn = _moe_einsum if impl == "einsum" else _moe_gather
-    y = fn(cfg, p, xg, topi, topv, positions, keep, C)
-    return y.reshape(B, S, D), aux
+    y = _dispatch(fn, cfg, p, xg, topi, topv, positions, keep, C)
+    return ctx.hint(y.reshape(B, S, D), "data", None, None), aux
+
+
+def _dispatch(fn, cfg, p, xg, topi, topv, positions, keep, C):
+    """``fn`` (the einsum or gather dispatch) as it is without a mesh.
+    Under one it runs per shard (``compat.shard_map``; DTensor has no rule
+    for the dispatch's products and scatters): the groups over data, the
+    experts over model (EP) when they divide it. Each model rank dispatches
+    its groups' choices of its own experts (the others are dropped there)
+    and the partial outputs are summed over model: the layouts of the
+    reference's hints on dispatch, combine and the experts' inputs
+    (``moe.py:92-96``, ``115``), which here fall inside the shard."""
+    if not isinstance(xg, DTensor):
+        return fn(cfg, p, xg, topi, topv, positions, keep, C)
+    mesh = xg.device_mesh
+    gs = ctx.spec(topi.shape, "data", None, None)
+    es = ctx.spec(p.wi.shape, "model", None, None)
+    ep = es[0] is not None
+
+    def body(xg, topi, topv, positions, keep, wi, wg, wo):
+        e_loc = wi.shape[0]
+        e0 = compat.axis_index(mesh, "model") * e_loc if ep else 0
+        mine = (topi >= e0) & (topi < e0 + e_loc)
+        local = types.SimpleNamespace(wi=wi, wg=wg, wo=wo)
+        y = fn(cfg.with_(n_experts=e_loc), local, xg,
+               torch.where(mine, topi - e0, 0), topv, positions,
+               keep & mine, C)
+        return compat.psum_replicated(y, mesh, "model") if ep else y
+
+    xs = ctx.spec(xg.shape, "data", None, None)
+    return compat.shard_map(body, mesh, (xs, gs, gs, gs, gs, es, es, es),
+                            xs)(xg, topi, topv, positions, keep, p.wi, p.wg,
+                                p.wo)
 
 
 # ---------------------------------------------------------------------------
@@ -243,7 +317,7 @@ def moe_block_apply(cfg: ModelConfig, p: MoEBlock, x, positions, cache=None):
     x = x + L.attention_apply(p.attn, cfg, L.rmsnorm(p.ln1, x, cfg.norm_eps),
                               positions, cache=cache)
     h, aux = moe_apply(cfg, p.moe, L.rmsnorm(p.ln2, x, cfg.norm_eps))
-    return x + h, aux
+    return ctx.hint(x + h, "data", "model", None), aux
 
 
 def forward(cfg: ModelConfig, params: MoEParams, tokens):

@@ -30,6 +30,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..distributed import compat, ctx
 from ..kernels import ops as kops
 from ..kernels.rglru_scan import rglru_scan_plain
 from . import layers as L
@@ -199,8 +200,13 @@ def rec_apply(cfg: ModelConfig, p: RecBlock, x, state: Optional[Dict] = None,
         a, b_in = _rglru_gates(p, u)
         if use_kernel and cfg.use_kernels and x.shape[1] % 128 == 0:
             h, h_last = kops.rglru_scan(b_in, a)
-        else:
+        elif ctx.active_mesh() is None:
             h, h_last = rglru_scan_ref(b_in, a)
+        else:
+            cs = ctx.spec(a.shape, "data", None, "model")
+            h, h_last = compat.per_shard(
+                rglru_scan_ref, (cs, cs),
+                (cs, ctx.spec(a.shape[::2], "data", "model")), b_in, a)
         W = cfg.conv_width
         new_state = {"h": h_last, "conv": u_raw[:, u.shape[1] - (W - 1):, :]}
     else:
@@ -232,28 +238,41 @@ def attn_apply_local(cfg: ModelConfig, p: L.Attention, x, positions, window,
                                  window=window), None
     B, S, _ = x.shape
     hd = cfg.hd
-    q = L.linear(p.wq, x).reshape(B, S, cfg.n_heads, hd)
-    k = L.linear(p.wk, x).reshape(B, S, cfg.n_kv_heads, hd)
-    v = L.linear(p.wv, x).reshape(B, S, cfg.n_kv_heads, hd)
+    q = L._heads(L.linear(p.wq, x), cfg.n_heads, hd)
+    k = L._heads(L.linear(p.wk, x), cfg.n_kv_heads, hd)
+    v = L._heads(L.linear(p.wv, x), cfg.n_kv_heads, hd)
     q = L.rope(q, positions, cfg.rope_theta)
     k = L.rope(k, positions, cfg.rope_theta)
 
     pos = int(ring["pos"])
     slot = pos % window
-    ck, cv = ring["k"].clone(), ring["v"].clone()
-    ck[:, slot:slot + S] = k.to(ck.dtype)
-    cv[:, slot:slot + S] = v.to(cv.dtype)
-    # absolute position held by each slot j after the write
-    j = torch.arange(window, device=x.device)
-    valid = (pos - torch.remainder(slot - j, window)) >= 0
-    qf = q.float() / math.sqrt(hd)
     group = cfg.n_heads // cfg.n_kv_heads
-    qf = qf.reshape(B, S, cfg.n_kv_heads, group, hd)
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", qf, ck.float())
-    logits = torch.where(valid, logits, -1e30)
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, cv.float())
-    out = out.reshape(B, S, cfg.n_heads, hd).to(x.dtype)
+
+    def ring_attend(q, k, v, ck, cv):
+        ck, cv = ck.clone(), cv.clone()
+        ck[:, slot:slot + S] = k.to(ck.dtype)
+        cv[:, slot:slot + S] = v.to(cv.dtype)
+        # absolute position held by each slot j after the write
+        j = torch.arange(window, device=q.device)
+        valid = (pos - torch.remainder(slot - j, window)) >= 0
+        qf = q.float() / math.sqrt(hd)
+        qf = qf.reshape(q.shape[0], S, cfg.n_kv_heads, group, hd)
+        logits = torch.einsum("bqhgd,bkhd->bhgqk", qf, ck.float())
+        logits = torch.where(valid, logits, -1e30)
+        probs = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", probs, cv.float())
+        return out.reshape(q.shape[0], S, cfg.n_heads, hd).to(q.dtype), ck, cv
+
+    if ctx.active_mesh() is None:
+        out, ck, cv = ring_attend(q, k, v, ring["k"], ring["v"])
+    else:
+        # per shard, batch over data (DTensor has no rule for the grouped
+        # einsum or the slot write)
+        bs = ctx.spec(q.shape, "data", None, None, None)
+        rs = ctx.spec(ring["k"].shape, "data", None, None, None)
+        out, ck, cv = compat.per_shard(ring_attend, (bs, bs, bs, rs, rs),
+                                       (bs, rs, rs), q, k, v, ring["k"],
+                                       ring["v"])
     y = L.linear(p.wo, out.reshape(B, S, cfg.n_heads * hd))
     return y, {"k": ck, "v": cv, "pos": pos + 1}
 
@@ -293,15 +312,23 @@ def sblock_apply(cfg: ModelConfig, p: SuperBlock, x, positions, state=None,
         tail_len = min(S, win)
         xt = xa[:, S - tail_len:]
         pt = positions[:, S - tail_len:]
-        kt = L.rope(L.linear(p.attn.wk, xt).reshape(
-            B, tail_len, cfg.n_kv_heads, hd), pt, cfg.rope_theta)
-        vt = L.linear(p.attn.wv, xt).reshape(B, tail_len, cfg.n_kv_heads, hd)
+        kt = L.rope(L._heads(L.linear(p.attn.wk, xt), cfg.n_kv_heads, hd),
+                    pt, cfg.rope_theta)
+        vt = L._heads(L.linear(p.attn.wv, xt), cfg.n_kv_heads, hd)
         slots = torch.arange(S - tail_len, S, device=x.device) % win
-        rk = torch.zeros((B, win, cfg.n_kv_heads, hd), dtype=x.dtype,
-                         device=x.device)
-        rv = torch.zeros_like(rk)
-        rk[:, slots] = kt
-        rv[:, slots] = vt
+
+        def fill(kt, vt):
+            rk = kt.new_zeros((kt.shape[0], win) + kt.shape[2:])
+            rv = torch.zeros_like(rk)
+            rk[:, slots] = kt
+            rv[:, slots] = vt
+            return rk, rv
+
+        if ctx.active_mesh() is None:
+            rk, rv = fill(kt, vt)
+        else:
+            rs = ctx.spec(kt.shape, "data", None, None, None)
+            rk, rv = compat.per_shard(fill, (rs, rs), (rs, rs), kt, vt)
     else:
         ring = {"k": st["ring_k"], "v": st["ring_v"], "pos": st["pos"]}
         h, nring = attn_apply_local(cfg, p.attn, xa, positions, win,
@@ -311,7 +338,7 @@ def sblock_apply(cfg: ModelConfig, p: SuperBlock, x, positions, state=None,
                  "conv2": s2["conv"], "ring_k": rk, "ring_v": rv}
     x = x + h
     x = _mlp_res(cfg, p.mlp3, x)
-    return x, new_state
+    return ctx.hint(x, "data", "model", None), new_state
 
 
 # ---------------------------------------------------------------------------

@@ -43,6 +43,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..distributed import ctx
 from . import layers as L
 
 __all__ = ["DenseBlock", "DenseParams", "EncDecBlock", "EncDecParams", "init",
@@ -173,14 +174,17 @@ def block_apply(cfg: ModelConfig, p: DenseBlock, x, positions, cache=None,
     """One block with its residuals; ``cache`` (one layer's ``k``, ``v``
     and ``pos``) is written in place. With ``enc`` (the encoder's states)
     the block is a decoder block of the encoder-decoder and adds the
-    cross-attention residual after the self-attention's."""
+    cross-attention residual after the self-attention's. Under a mesh the
+    residual stream leaves the block sequence-sharded over "model"
+    (Megatron-SP, the reference's hint after each scanned block)."""
     x = x + L.attention_apply(p.attn, cfg, L.rmsnorm(p.ln1, x, cfg.norm_eps),
                               positions, causal=causal, cache=cache)
     if enc is not None:
         x = x + L.attention_apply(p.xattn, cfg,
                                   L.rmsnorm(p.ln_x, x, cfg.norm_eps),
                                   positions, kv_source=enc, use_rope=False)
-    return x + L.mlp_apply(p.mlp, L.rmsnorm(p.ln2, x, cfg.norm_eps))
+    x = x + L.mlp_apply(p.mlp, L.rmsnorm(p.ln2, x, cfg.norm_eps))
+    return ctx.hint(x, "data", "model", None)
 
 
 def _logits(cfg: ModelConfig, params: DenseParams, x):
@@ -210,6 +214,19 @@ def forward(cfg: ModelConfig, params: DenseParams, tokens=None, embeds=None,
     x = _embed_inputs(cfg, params, tokens, embeds, L.compute_dtype(cfg))
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
+    if cfg.pipeline_stages > 1:
+        # GPipe over the "pod" axis (distributed.pipeline); as in the
+        # reference, this branch returns the logits
+        from ..distributed.pipeline import pipeline_scan
+
+        def block_fn(lp, h):
+            return L.remat(cfg, lambda h: block_apply(
+                cfg, lp, h, positions[: h.shape[0]]), h)
+
+        x = pipeline_scan(block_fn, list(params.layers), x,
+                          n_stages=cfg.pipeline_stages,
+                          n_microbatches=cfg.pipeline_microbatches)
+        return _logits(cfg, params, x)
     for lp in params.layers:
         x = L.remat(cfg, lambda x, lp=lp: block_apply(cfg, lp, x, positions),
                     x)

@@ -9,9 +9,15 @@
   * the manifest records each leaf's name, dtype and shape;
   * ``keep_last`` retention prunes old steps after a successful commit;
   * ``restore`` loads into the tensors of a template state (the same
-    model's ``init_state``), on the template's device. Re-sharding onto
-    another mesh (the reference's ``mesh=``/``specs=``) comes with the
-    multi-device layers (ROADMAP Queue A item 6) and raises here.
+    model's ``init_state``), on the template's device; with ``mesh=`` and
+    ``specs=`` it loads each leaf whole and distributes it to its spec's
+    placements on that ``DeviceMesh`` instead (the reference's
+    ``device_put`` with ``NamedSharding``s), whatever mesh it was saved
+    from;
+  * a state of DTensors (the ZeRO layout) is saved as full logical arrays,
+    one leaf at a time: every rank gathers the leaf (``full_tensor()``),
+    rank 0 writes it before the next is gathered, and the ranks meet at a
+    barrier before ``save`` returns.
 
 Leaf names join the dotted parameter name's parts with ``__`` under the
 state's field (``params__layers__0__attn__wq__w``, ``m__...``, ``v__...``),
@@ -26,6 +32,9 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch import nn
+from torch.distributed.tensor import DTensor
 
 from .optimizer import TrainState
 
@@ -34,38 +43,55 @@ __all__ = ["MANIFEST", "save", "latest_step", "restore"]
 MANIFEST = "manifest.json"
 
 
-def _leaves(state: TrainState) -> Iterator[Tuple[str, torch.Tensor]]:
+def _leaves(state: TrainState) -> Iterator[Tuple[str, str, torch.Tensor]]:
+    """(leaf name, parameter name, tensor) of every master and moment."""
     for name, p in state.params.named_parameters():
-        yield "params__" + name.replace(".", "__"), p
+        yield "params__" + name.replace(".", "__"), name, p
     for field in ("m", "v"):
         for name, t in getattr(state, field).items():
-            yield f"{field}__" + name.replace(".", "__"), t
+            yield f"{field}__" + name.replace(".", "__"), name, t
 
 
 def save(directory: str, step: int, state: TrainState,
          keep_last: int = 3) -> str:
-    """Atomically save ``state``; returns the committed path."""
-    os.makedirs(directory, exist_ok=True)
+    """Atomically save ``state``; returns the committed path. A state of
+    DTensors is saved by every rank of its mesh together (see above), one
+    leaf at a time: no rank holds more than one whole leaf at once."""
     final = os.path.join(directory, f"step_{step:08d}")
+    sharded = any(isinstance(t, DTensor) for _, _, t in _leaves(state))
+    writer = not sharded or dist.get_rank() == 0
     tmp = final + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
     manifest = {"step": step, "leaves": []}
-    leaves = [("step", np.asarray(state.step, np.int32))]
-    leaves += [(name, t.detach().cpu().numpy()) for name, t in _leaves(state)]
-    for name, arr in leaves:
-        np.save(os.path.join(tmp, name + ".npy"), arr)
-        manifest["leaves"].append({"name": name, "dtype": str(arr.dtype),
-                                   "shape": list(arr.shape)})
-    with open(os.path.join(tmp, MANIFEST), "w") as f:
-        json.dump(manifest, f)
-        f.flush()
-        os.fsync(f.fileno())
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)           # atomic commit
-    _retain(directory, keep_last)
+    if writer:
+        os.makedirs(directory, exist_ok=True)
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        np.save(os.path.join(tmp, "step.npy"), np.asarray(state.step,
+                                                           np.int32))
+        manifest["leaves"].append({"name": "step", "dtype": "int32",
+                                   "shape": []})
+    for name, _, t in _leaves(state):
+        if isinstance(t, DTensor):
+            t = t.full_tensor()         # a collective: every rank takes part
+        if writer:
+            arr = t.detach().cpu().numpy()
+            np.save(os.path.join(tmp, name + ".npy"), arr)
+            manifest["leaves"].append({"name": name, "dtype": str(arr.dtype),
+                                       "shape": list(arr.shape)})
+            del arr
+        del t
+    if writer:
+        with open(os.path.join(tmp, MANIFEST), "w") as f:
+            json.dump(manifest, f)
+            f.flush()
+            os.fsync(f.fileno())
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)           # atomic commit
+        _retain(directory, keep_last)
+    if sharded:
+        dist.barrier()
     return final
 
 
@@ -90,18 +116,44 @@ def restore(directory: str, step: int, template: TrainState, *, mesh=None,
             specs=None) -> TrainState:
     """The state saved at ``step``, loaded into ``template``'s tensors (in
     place, on their devices) and returned with the saved step. A leaf whose
-    shape or dtype differs from the template's raises ``ValueError``."""
-    if mesh is not None or specs is not None:
-        raise NotImplementedError(
-            "restore onto a mesh (mesh=, specs=) comes with the multi-device "
-            "layers, ROADMAP Queue A item 6")
+    shape or dtype differs from the template's raises ``ValueError``.
+
+    With ``mesh`` (a ``DeviceMesh``) and ``specs`` (``{parameter name:
+    sharding.P}``, the layout of the masters and of both moments, e.g.
+    ``sharding.opt_specs``): each leaf in turn is loaded whole on every
+    rank and distributed to its spec's placements (every rank keeps its
+    own shard) before the next one loads, and the returned state holds
+    those DTensors; ``template`` gives the names, shapes and dtypes only."""
+    from ..distributed.sharding import shard
+
+    if (mesh is None) != (specs is None):
+        raise ValueError("restore onto a mesh needs both mesh= and specs=")
     src = os.path.join(directory, f"step_{step:08d}")
-    for name, t in _leaves(template):
+    placed = {}
+    for name, pname, t in _leaves(template):
         arr = np.load(os.path.join(src, name + ".npy"))
         dtype = torch.empty((), dtype=t.dtype).numpy().dtype
         if arr.shape != tuple(t.shape) or arr.dtype != dtype:
             raise ValueError(f"{name}: saved {arr.dtype}{list(arr.shape)}, "
                              f"template {dtype}{list(t.shape)}")
-        t.copy_(torch.from_numpy(arr))
+        if mesh is None:
+            t.copy_(torch.from_numpy(arr))
+        else:                           # placed before the next leaf loads
+            placed[name] = shard(torch.from_numpy(arr), mesh, specs[pname])
+        del arr
     saved = int(np.load(os.path.join(src, "step.npy")))
-    return template._replace(step=saved)
+    if mesh is None:
+        return template._replace(step=saved)
+
+    def place(field: str, pname: str) -> torch.Tensor:
+        return placed.pop(f"{field}__" + pname.replace(".", "__"))
+
+    params = template.params
+    for pname, p in list(params.named_parameters()):
+        owner, _, leaf = pname.rpartition(".")
+        mod = params.get_submodule(owner) if owner else params
+        setattr(mod, leaf, nn.Parameter(place("params", pname),
+                                        requires_grad=p.requires_grad))
+    return TrainState(step=saved, params=params,
+                      m={n: place("m", n) for n in template.m},
+                      v={n: place("v", n) for n in template.v})

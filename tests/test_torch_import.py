@@ -41,6 +41,15 @@ def test_imports_with_jax_blocked():
         "import repro_torch.core.dataset_export\n"
         "import repro_torch.core.welford, repro_torch.core.arima\n"
         "import repro_torch.distributed.scaleout\n"
+        "import repro_torch.distributed.sharding, repro_torch.distributed.ctx\n"
+        "import repro_torch.distributed.compat\n"
+        "import repro_torch.distributed.compression\n"
+        "import repro_torch.distributed.dist_decode\n"
+        "import repro_torch.distributed.pipeline\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.dryrun\n"
+        "import repro_torch.runtime.elastic\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
         "import repro_torch.examples.quickstart\n"
         "import repro_torch.examples.policy_explorer\n"
         "import repro_torch.examples.serve_serverless\n"

@@ -418,9 +418,16 @@ def test_train_step_reduces_loss():
 
 
 def test_steps_reject_what_needs_a_mesh():
-    m = build(configs.reduced(configs.get("smollm-135m")))
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        make_train_step(m, opt.OptConfig(), grad_shardings={})
+    """The ZeRO layout (grad_shardings) needs a state of DTensors on a
+    mesh; an unsharded state is refused (tests/test_torch_distributed.py
+    runs the step on a mesh)."""
+    cfg = configs.reduced(configs.get("smollm-135m"))
+    m = build(cfg)
+    step = make_train_step(m, opt.OptConfig(), grad_shardings={})
+    state = opt.init_state(m.init(0, device="cpu"))
+    tok = torch.zeros(1, 8, dtype=torch.long)
+    with pytest.raises(ValueError, match="distribute_state"):
+        step(state, {"tokens": tok, "labels": tok})
 
 
 # the four model kernels and their inputs on the CPU (their plain versions)
