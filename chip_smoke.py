@@ -98,6 +98,12 @@ port's main paths:
     decode and the pipeline, with two ranks on the card; it does not for
     send/recv, so the phase's line says it was left out and why.
 
+Before the build, phase ``lint`` runs the port's invariant linter
+(``repro_torch.analysis``, standard library only) over ``src/repro_torch``
+in-process; a finding fails the run there. After the last phase, phase
+``tf32`` checks that no phase switched TF32 on: both ``allow_tf32``
+switches off and the float32 matmul precision ``"highest"``.
+
 Then it times each kernel at its path's shapes beside its bound, its plain
 version and, where one exists, the one PyTorch call computing the same
 function (the fleet tick per call and back to back, the RG-LRU scan by
@@ -3700,6 +3706,42 @@ def dist_ranks():
          + ", ".join(refused), gloo_said=said)
 
 
+def lint_phase() -> None:
+    """The port's invariant linter over ``src/repro_torch``, in-process.
+    Prints the files, findings, suppressed findings and seconds; raises on
+    any finding (the run then ends without a result)."""
+    from repro_torch.analysis import ALL_RULES, run_paths
+    t0 = time.perf_counter()
+    report = run_paths([os.path.join(ROOT, "src", "repro_torch")],
+                       ALL_RULES)
+    seconds = time.perf_counter() - t0
+    counts = report["counts"]
+    emit("lint", files=counts["files"], findings=counts["findings"],
+         suppressed=counts["suppressed"], seconds=seconds,
+         first_findings=[f.render() for f in report["findings"][:20]])
+    if report["findings"] or counts["files"] < 80:
+        raise AssertionError(
+            f"lint: {counts['findings']} finding(s) in {counts['files']} "
+            f"file(s) of src/repro_torch")
+
+
+def tf32_gates() -> list:
+    """The runtime side of the linter's TF32 rule: after every phase, no
+    float32 product may run in TF32. Returns the failed gates."""
+    import torch
+    state = {"matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+             "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+             "float32_matmul_precision":
+                 torch.get_float32_matmul_precision()}
+    emit("tf32", **state)
+    failed = [f"tf32: {k} is on" for k in ("matmul_allow_tf32",
+                                           "cudnn_allow_tf32") if state[k]]
+    if state["float32_matmul_precision"] != "highest":
+        failed.append("tf32: float32 matmul precision is "
+                      f"{state['float32_matmul_precision']!r}")
+    return failed
+
+
 def release_host_memory():
     """Hand the pinned host memory of the serving phases that ended back to
     the system: PyTorch's pinned allocator keeps freed blocks cached, and
@@ -3748,6 +3790,7 @@ def main() -> int:
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0),
          device_count=torch.cuda.device_count(), nvidia_smi=smi)
+    lint_phase()
     built = build.build_all()
     ptxas = {stem: build.ptxas_summary(b["log"]) for stem, b in built.items()}
     emit("build", **{stem: {"seconds": b["seconds"], "kernels": ptxas[stem]}
@@ -4008,6 +4051,7 @@ def main() -> int:
          launch_serve_seconds=launch_serve_s, train_smollm_seconds=train_s,
          mesh_train_seconds=mesh_train_s, dryrun_wait_seconds=dryrun_wait_s,
          dist_ranks_seconds=dist_ranks_s)
+    failed += tf32_gates()
     if failed:
         # every phase ran and printed its line; a failed gate fails the run
         emit("failed", gates=failed)

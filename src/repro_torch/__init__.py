@@ -10,6 +10,13 @@ on the card (:mod:`repro_torch.kernels.histogram`).
     from repro_torch.core.workload_spec import WorkloadSpec
     res = run(WorkloadSpec.uniform(1000, days=14.0), HybridSpec(use_arima=False))
 """
-from .device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    # Lazy, so that ``repro_torch.analysis`` (standard library only) runs
+    # where torch is not installed.
+    if name == "resolve_device":
+        from .device import resolve_device
+        return resolve_device
+    raise AttributeError(f"module 'repro_torch' has no attribute {name!r}")

@@ -71,7 +71,7 @@ def ssd_scan_plain(x, dt, A, B, C, chunk: int, initial_state=None):
     ``y_i = sum_{j<=i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j`` with
     ``cum`` the running sum of ``dt A``; across chunks a ``[h, n, p]``
     state is carried."""
-    x, dt, A, B, C = (t.float() for t in (x, dt, A, B, C))
+    x, dt, A, B, C = (v.float() for v in (x, dt, A, B, C))
     b, l, h, p = x.shape
     n = B.shape[-1]
     q = _effective_chunk(l, chunk)

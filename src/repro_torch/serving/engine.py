@@ -134,6 +134,9 @@ class ServeEngine:
         """Put the app's weights on the device (made from the endpoint's
         seed, drawn as its ``init`` says, into the host store first, at its
         first load); returns the wall seconds taken."""
+        # repro-lint: ignore[nondeterminism] -- load() measures the wall
+        # seconds of a cold load; they are returned, no weight or token
+        # depends on them
         t0 = time.perf_counter()
         ep = self.registry.get(app_id)
         if app_id not in self._weights:
@@ -144,6 +147,7 @@ class ServeEngine:
         self._loaded[app_id] = _placed(self._weights[app_id], self.device,
                                        compute_dtype(ep.cfg))
         self._sync()
+        # repro-lint: ignore[nondeterminism] -- end of the load measurement
         return time.perf_counter() - t0
 
     def unload(self, app_id: str) -> None:
@@ -177,6 +181,8 @@ class ServeEngine:
         each phase are left in ``last_times``.
 
         Requires the app to be loaded (the warm pool guarantees that)."""
+        # repro-lint: ignore[nondeterminism] -- generate() reports measured
+        # serving latency beside the (deterministic) tokens
         t0 = time.perf_counter()
         ep = self.registry.get(app_id)
         params = self._loaded[app_id]
@@ -188,12 +194,14 @@ class ServeEngine:
                                                                 tokens))
             outs = [torch.argmax(logits, dim=-1)[:, 0]]
             self._sync()
+            # repro-lint: ignore[nondeterminism] -- prefill/decode split
             t1 = time.perf_counter()
             for _ in range(max_new - 1):
                 logits, cache = model.decode_step(params, outs[-1], cache)
                 outs.append(torch.argmax(logits, dim=-1))
             result = torch.stack(outs, dim=1)
             self._sync()
+        # repro-lint: ignore[nondeterminism] -- end of the measurement
         t2 = time.perf_counter()
         self.last_times = {"prefill_s": t1 - t0, "decode_s": t2 - t1}
         return result, t2 - t0

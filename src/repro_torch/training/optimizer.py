@@ -71,8 +71,8 @@ def _schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
 
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares of every tensor, in f32."""
-    return torch.sqrt(sum(torch.sum(torch.square(t.float()))
-                          for t in tensors))
+    return torch.sqrt(sum(torch.sum(torch.square(v.float()))
+                          for v in tensors))
 
 
 def decays(params: nn.Module) -> Dict[str, bool]:

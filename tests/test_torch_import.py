@@ -48,6 +48,7 @@ def test_imports_with_jax_blocked():
         "import repro_torch.distributed.pipeline\n"
         "import repro_torch.launch.mesh, repro_torch.launch.dryrun\n"
         "import repro_torch.runtime.elastic\n"
+        "import repro_torch.analysis, repro_torch.analysis.passes\n"
         "import torch.distributed as dist\n"
         "assert not dist.is_initialized()\n"
         "import repro_torch.examples.quickstart\n"
@@ -80,6 +81,37 @@ def test_no_jax_or_reference_imports(path):
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), \
                 f"{path.name}:{node.lineno} imports {name}"
+
+
+def test_analysis_imports_with_torch_blocked():
+    """The linter is standard library only: it imports, and lints the
+    port, where neither torch nor jax can be imported, and importing
+    ``repro_torch`` alone loads no torch."""
+    code = (
+        "import sys\n"
+        "sys.modules['torch'] = sys.modules['jax'] = None\n"
+        "sys.modules['numpy'] = sys.modules['repro'] = None\n"
+        "import repro_torch, repro_torch.analysis\n"
+        "from repro_torch.analysis import ALL_RULES, run_paths\n"
+        "report = run_paths([sys.argv[1]], ALL_RULES)\n"
+        "assert report['counts']['findings'] == 0, report\n"
+        "print(report['counts']['files'])\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-c", code, str(REPO / "src" / "repro_torch")],
+        capture_output=True, text=True, env=env, cwd=str(REPO), timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert int(proc.stdout) >= 80
+
+
+def test_resolve_device_is_reexported_lazily():
+    import repro_torch
+    from repro_torch import device, resolve_device
+    assert repro_torch.resolve_device is device.resolve_device
+    assert resolve_device is device.resolve_device
+    assert "resolve_device" in repro_torch.__all__
+    with pytest.raises(AttributeError, match="no_such_name"):
+        repro_torch.no_such_name
 
 
 def test_resolve_device(monkeypatch):
