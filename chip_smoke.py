@@ -13,7 +13,10 @@ port's main paths:
     engine="kernel")`` (one launch of the sweep-scan kernel, no step
     launch), checked against the float64 engine and the scalar oracle,
     the scan kernel held to the step kernel iterated (``scan_parity``, in
-    every form), and the 34-config policy sweep;
+    every form), and the 34-config policy sweep, whose 32 hybrid configs
+    share one histogram group and take the scan's ``factored`` form (one
+    launch a chunk; ``factored_parity`` holds that form to the factored
+    plain scan and to the register form over one histogram per config);
   * serving: full-width RecurrentGemma-2B (``use_kernels=True``, bf16) in
     two endpoints behind a ``WarmPool`` driven by the hybrid policy, with a
     short periodic request stream of ``generate([2, 4096], max_new=16)``
@@ -107,7 +110,8 @@ switches off and the float32 matmul precision ``"highest"``.
 Then it times each kernel at its path's shapes beside its bound, its plain
 version and, where one exists, the one PyTorch call computing the same
 function (the fleet tick per call and back to back, the RG-LRU scan by
-CUDA-graph replay and with its host work). Each phase prints one JSON
+CUDA-graph replay and with its host work, the sweep scan's factored form
+at the sweep point beside its register form). Each phase prints one JSON
 line; any mismatch raises. The last lines are the kernel table, the
 card's name and power limit (``nvidia-smi``), and ``{"ok": true,
 "device": ...}``.
@@ -250,7 +254,10 @@ NO_SPILL_KERNELS = {
     "decode_attention": ("decode_attention_mma_kernel<128,1,3>",
                          "decode_attention_mma_kernel<64,1,3>"),
     "policy_update": ("policy_update_kernel<4>", "policy_update_kernel<1>"),
-    "rglru_scan": ("rglru_scan_kernel<4>", "rglru_scan_kernel<1>")}
+    "rglru_scan": ("rglru_scan_kernel<4>", "rglru_scan_kernel<1>"),
+    "hybrid_sweep_step": tuple(
+        f"hybrid_sweep_scan_factored_kernel<{bpl},{cpl}>"
+        for bpl in (2, 8) for cpl in (1, 2))}
 RGLRU_SHAPE = (SERVE_BATCH, SERVE_SEQ, 2560)
 # rglru_parity's shapes: the path's, L=384 (which the TPU kernel gets
 # wrong), a ragged L at a width that is not a multiple of the kernel's 32
@@ -1573,34 +1580,76 @@ def scale_point(device):
     return trace, launches, by_form, dict(seconds=seconds, app_steps=steps)
 
 
-def policy_sweep(device):
-    from repro_torch.core.experiment import (EngineOptions, FixedSpec,
-                                             HybridSpec, NoUnloadSpec, run,
-                                             sweep)
-    from repro_torch.core.workload_spec import WorkloadSpec
-
-    trace = WorkloadSpec.uniform(SWEEP_APPS, days=14.0, seed=3,
-                                 max_events=64, min_events=1).materialize()
-    grid = [HybridSpec(range_minutes=60.0, head_percentile=h,
-                       tail_percentile=t, cv_threshold=cv, margin=m,
-                       use_arima=False)
+def sweep_grid(E, range_minutes=60.0):
+    """The 32 hybrid configs of the reference's sweep benchmark (one
+    histogram group, 60 bins at its range: 8 window variants x 4 gates),
+    as specs of the experiment module ``E``."""
+    return [E.HybridSpec(range_minutes=range_minutes, head_percentile=h,
+                         tail_percentile=t, cv_threshold=cv, margin=m,
+                         use_arima=False)
             for m in (0.10, 0.20) for cv in (0.5, 1.0, 2.0, 4.0)
             for (h, t) in ((0.0, 100.0), (5.0, 99.0), (10.0, 95.0),
                            (15.0, 90.0))]
-    specs = grid + [FixedSpec(10.0), NoUnloadSpec()]
-    opts = EngineOptions(device=device)
+
+
+def policy_sweep(device):
+    """The 34-config sweep (the grid, a fixed keep-alive and no-unload)
+    through the kernel engine: every row equal to the fused engine's and
+    four to single runs; the grid's band must take the factored form.
+    Returns the trace, its scan launches by form and the chunk."""
+    from repro_torch.core import experiment as E
+    from repro_torch.core import simulator as sim
+    from repro_torch.core.workload_spec import WorkloadSpec
+    from repro_torch.kernels import histogram as H
+
+    trace = WorkloadSpec.uniform(SWEEP_APPS, days=14.0, seed=3,
+                                 max_events=64, min_events=1).materialize()
+    grid = sweep_grid(E)
+    specs = grid + [E.FixedSpec(10.0), E.NoUnloadSpec()]
+    opts = E.EngineOptions(device=device)
+    reset_counts(H)                      # count the sweep's launches
     t0 = time.perf_counter()
-    res = sweep(trace, specs, engine="kernel", options=opts)
+    res = E.sweep(trace, specs, engine="kernel", options=opts)
     seconds = time.perf_counter() - t0
-    fused = sweep(trace, specs, engine="fused", options=opts)
+    launches, by_form = H.SCAN_LAUNCHES, dict(H.SCAN_LAUNCHES_BY_FORM)
+    times, counts = trace.to_padded()
+    cfgs = [sp.to_config() for sp in grid]
+    blk = sim._sweep_block_host(cfgs)
+    n_bins = cfgs[0].histogram.n_bins
+    chunk = sim._auto_chunk([(blk, n_bins)])
+    chunks = sum(1 for _ in sim._chunked_buckets(times, counts, chunk))
+    if by_form != {"registers": 0, "columns": 0, "factored": chunks} \
+            or launches != chunks or H.LAUNCHES:
+        raise AssertionError(
+            f"sweep: {launches} scan launches {by_form}, {H.LAUNCHES} step "
+            f"launches; expected {chunks} factored (one per chunk)")
+    fused = E.sweep(trace, specs, engine="fused", options=opts)
     for s in range(len(specs)):
         assert_rows_equal(res.row(s), fused.row(s), f"sweep row {s} vs fused")
     singles = (0, 13, 31, 32)
     for s in singles:
-        one = run(trace, specs[s], engine="kernel", options=opts)
+        one = E.run(trace, specs[s], engine="kernel", options=opts)
         assert_rows_equal(res.row(s), one, f"sweep row {s} vs run()")
+    S, G = len(cfgs), len(blk.g_n_bins)
+    # the unfactored scan's chunk and state, as the port carried it before
+    # (a histogram per config, its chunk divided by the config count)
+    old_chunk = max(sim.DEFAULT_APP_CHUNK // S, sim._MIN_AUTO_CHUNK)
     emit("sweep", n_apps=SWEEP_APPS, configs=len(specs), seconds=seconds,
-         rows_equal_to_fused=len(specs), rows_equal_to_single_run=len(singles))
+         rows_equal_to_fused=len(specs), rows_equal_to_single_run=len(singles),
+         scan_launches=launches, launches_by_form=by_form, groups=G,
+         window_variants=len(blk.w_group), gate_variants=len(blk.t_group),
+         searches=len(set(zip(blk.w_head_numer[:, 0].tolist(),
+                              blk.w_tail_numer[:, 0].tolist()))),
+         chunk=chunk, chunks=chunks,
+         state_bytes_per_app=sim._state_bytes_per_app(S, G, n_bins),
+         state_bytes_per_chunk=chunk * sim._state_bytes_per_app(
+             S, G, n_bins),
+         unfactored_chunk=old_chunk,
+         unfactored_state_bytes_per_app=sim._state_bytes_per_app(
+             S, S, n_bins),
+         unfactored_state_bytes_per_chunk=old_chunk * sim._state_bytes_per_app(
+             S, S, n_bins))
+    return trace, launches, by_form
 
 
 # ---------------------------------------------------------------------------
@@ -1648,16 +1697,18 @@ def scan_flags(times, counts, hybrid, device):
     kernel's flags [n] and the seconds of the kernel scans."""
     import torch
     from repro_torch.core.simulator import (DEFAULT_APP_CHUNK,
-                                            _build_cfg_blocks, _chunk_stream,
-                                            _chunked_buckets,
-                                            _hybrid_sweep_scan)
+                                            _chunk_stream, _chunked_buckets,
+                                            _hybrid_sweep_scan,
+                                            _sweep_block_host,
+                                            _sweep_identities)
+    from repro_torch.interop import sweep_block_from_numpy
     from repro_torch.kernels import histogram as H
     dev = torch.device(device)
-    ci, cf = (torch.from_numpy(x).to(dev)
-              for x in _build_cfg_blocks([hybrid]))
-    bm = torch.tensor([float(hybrid.histogram.bin_minutes)],
-                      dtype=torch.float64, device=dev)
+    host = _sweep_block_host([hybrid])
+    ids = _sweep_identities(host)
     n_bins = hybrid.histogram.n_bins
+    plan = H.factored_scan_plan(host, ids, n_bins, dev)
+    blk = sweep_block_from_numpy(host, device=dev)
     flags = np.zeros(len(counts), bool)
     kernel_s = 0.0
     with uncounted(H):
@@ -1665,12 +1716,10 @@ def scan_flags(times, counts, hybrid, device):
                 times, counts, DEFAULT_APP_CHUNK), dev):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            got = _hybrid_sweep_scan(cols, ci, cf, bm, n_bins,
-                                     H.fused_hybrid_sweep_scan)
+            got = _hybrid_sweep_scan(cols, blk, plan, n_bins, ids, True)
             torch.cuda.synchronize()
             kernel_s += time.perf_counter() - t0
-            want = _hybrid_sweep_scan(cols, ci, cf, bm, n_bins,
-                                      H.fused_hybrid_sweep_scan_plain)
+            want = _hybrid_sweep_scan(cols, blk, plan, n_bins, ids, False)
             for name, g, w in zip(("cold", "waste", "consulted", "last_t",
                                    "prewarm", "unload_at"), got, want):
                 if not torch.equal(g, w):
@@ -2678,6 +2727,262 @@ def scan_parity(cols, device):
     return worst
 
 
+def random_factored_state(rng, blk, n, n_bins, device):
+    """A mid-trace state of a sweep block: nondecreasing group rows with
+    their Welford sums, OOB counts from none to heavy, a shared clock with
+    apps not yet started, per-config bounds and counters; with event
+    columns [16, n] from it (in-bounds, out-of-bounds and bin-edge gaps,
+    25% without an event)."""
+    import torch
+    G, S = len(blk.g_n_bins), len(blk.c_window)
+    counts = rng.integers(0, 3, (G, n, n_bins))
+    counts[rng.uniform(size=(G, n)) < 0.2] = 0
+    prev = rng.uniform(0.0, 500.0, n)
+    prev[rng.uniform(size=n) < 0.2] = -np.inf
+    load = np.where(rng.uniform(size=(S, n)) < 0.5, 0.0, rng.uniform(
+        0.0, 30.0, (S, n)).astype(np.float32)).astype(np.float64)
+    put = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a, dt)).to(
+        device)
+    state = [put(prev, np.float64), put(np.cumsum(counts, -1), np.int32),
+             put(rng.integers(0, 40, (G, n)), np.int32),
+             put(counts.sum(-1), np.float64),
+             put((counts ** 2).sum(-1), np.float64), put(load, np.float64),
+             put(load + rng.uniform(0.0, 90.0, (S, n)).astype(np.float32),
+                 np.float64),
+             put(rng.integers(0, 9, (S, n)), np.int32),
+             put(rng.uniform(0.0, 1e3, (S, n)), np.float64)]
+    gaps = np.where(rng.uniform(size=(16, n)) < 0.6,
+                    rng.integers(0, 2 * n_bins * 64, (16, n)) / 64.0,
+                    rng.uniform(0.0, 3.0 * n_bins, (16, n)))
+    cols = np.where(np.isfinite(prev), prev, 0.0) + np.cumsum(gaps, 0)
+    cols[rng.uniform(size=(16, n)) < 0.25] = np.inf
+    return state, put(cols, np.float64)
+
+
+FACTORED_NAMES = ("prev_t", "gcum", "goob", "gcv_sum", "gcv_sum_sq",
+                  "load_c", "unload_c", "cold", "waste", "consulted")
+
+
+def factored_parity(device):
+    """The factored scan kernel against the factored plain scan (on the
+    card) and against the unfactored scan kernel over one histogram per
+    config (registers form, the group state read through each config's
+    group), torch.equal on all ten outputs, from a random mid-trace state:
+    the sweep's 32-config grid at 60 bins (2 bins a lane, 1 config a lane),
+    the same grid at 240 bins (8 bins a lane), a band of two groups (range
+    60 at 1-minute bins with range 120 at 2-minute bins), a 70-config group
+    (split in two, 2 configs a lane) and a ragged app count. Launches here
+    do not count."""
+    import torch
+    from repro_torch.core import experiment as E
+    from repro_torch.core import simulator as sim
+    from repro_torch.interop import sweep_block_from_numpy
+    from repro_torch.kernels import histogram as H
+
+    def two_groups(E):
+        return [E.HybridSpec(range_minutes=r, bin_minutes=b,
+                             cv_threshold=cv, head_percentile=h,
+                             tail_percentile=t, min_samples=ms,
+                             use_arima=False)
+                for (r, b) in ((60.0, 1.0), (120.0, 2.0))
+                for cv in (1.0, 2.0) for (h, t) in ((0.0, 100.0),
+                                                   (5.0, 99.0))
+                for ms in (2, 5)]
+
+    def wide(E):
+        return [E.HybridSpec(range_minutes=60.0, cv_threshold=float(cv),
+                             margin=m, use_arima=False)
+                for cv in np.linspace(0.25, 3.0, 35) for m in (0.1, 0.2)]
+
+    cases = (("grid32", sweep_grid, 20_000, (2, 1, False)),
+             ("grid32_240", lambda E: sweep_grid(E, 240.0), 20_000,
+              (8, 1, False)),
+             ("two_groups", two_groups, 20_000, (2, 1, False)),
+             ("wide70", wide, 5_000, (2, 2, True)),
+             ("ragged", sweep_grid, 777, (2, 1, False)))
+    rng = np.random.default_rng(23)
+    out = []
+    with uncounted(H):
+        for name, make, n, (bpl, cpl, split) in cases:
+            cfgs = [sp.to_config() for sp in make(E)]
+            n_bins = cfgs[0].histogram.n_bins
+            host = sim._sweep_block_host(cfgs)
+            ids = sim._sweep_identities(host)
+            plan = H.factored_scan_plan(host, ids, n_bins, device)
+            blk = sweep_block_from_numpy(host, device=device)
+            got_form = (plan.form, plan.bins_per_lane, plan.configs_per_lane,
+                        plan.layout.k_group is not None)
+            if got_form != ("factored", bpl, cpl, split):
+                raise AssertionError(f"factored_parity {name}: plan "
+                                     f"{got_form}")
+            state, cols = random_factored_state(rng, blk, n, n_bins, device)
+            n = cols.shape[1]
+            before = H.SCAN_LAUNCHES_BY_FORM["factored"]
+            got = H.fused_hybrid_sweep_scan_factored(
+                cols, *[x.clone() for x in state], blk=blk, ids=ids,
+                plan=plan)
+            torch.cuda.synchronize()
+            if H.SCAN_LAUNCHES_BY_FORM["factored"] != before + 1:
+                raise AssertionError(f"factored_parity {name}: no factored "
+                                     f"launch")
+            want = H.fused_hybrid_sweep_scan_factored_plain(
+                cols, *[x.clone() for x in state], blk=blk, ids=ids)
+            for field, g, w in zip(FACTORED_NAMES, got, want):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"factored_parity {name}: {field} "
+                                         f"!= the factored plain scan's")
+            # the unfactored kernel, a histogram per config
+            c_group = blk.w_group.long()[blk.c_window.long()]
+            S = len(cfgs)
+            ci, cf = (torch.from_numpy(x).to(device)
+                      for x in sim._build_cfg_blocks(cfgs))
+            bm = torch.tensor([c.histogram.bin_minutes for c in cfgs],
+                              dtype=torch.float64, device=device)
+            per_cfg = [state[0].expand(S, n).contiguous()] + \
+                [x[c_group].contiguous() for x in state[1:5]] + \
+                [x.clone() for x in state[5:9]]
+            form = H.scan_form(n_bins)[0]
+            before = H.SCAN_LAUNCHES_BY_FORM[form]
+            flat = H.fused_hybrid_sweep_scan(cols, *per_cfg, ci, cf,
+                                             bin_minutes=bm)
+            torch.cuda.synchronize()
+            if H.SCAN_LAUNCHES_BY_FORM[form] != before + 1:
+                raise AssertionError(f"factored_parity {name}: no {form} "
+                                     f"launch")
+            for k, field in enumerate(FACTORED_NAMES):
+                g = got[k]
+                if field == "prev_t":
+                    g = g.expand(S, n)
+                elif k in (1, 2, 3, 4):
+                    g = g[c_group]
+                if not torch.equal(g, flat[k]):
+                    raise AssertionError(f"factored_parity {name}: {field} "
+                                         f"!= the {form} scan's per config")
+            out.append(dict(case=name, configs=S, groups=len(blk.g_n_bins),
+                            n=n, n_bins=n_bins, bins_per_lane=bpl,
+                            configs_per_lane=cpl, split=split,
+                            kernel_groups=len(plan.layout.grp_i32),
+                            searches=len(plan.layout.search_i32),
+                            consulted=int(got[9].sum()),
+                            cold=int(got[7].sum())))
+    emit("factored_parity", cases=out, outputs=len(FACTORED_NAMES),
+         torch_equal=True)
+
+
+def sweep_work(cols, bin_minutes, n_bins):
+    """From the data: the (app, column) pairs with an event, and the bins
+    their suffix adds write (idle times in bounds), over the columns."""
+    import torch
+    active = written = 0.0
+    prev = torch.full((cols.shape[1],), -np.inf, dtype=torch.float64,
+                      device=cols.device)
+    for t_now in cols.double():
+        valid = torch.isfinite(t_now)
+        rec = valid & torch.isfinite(prev)
+        q = torch.floor((t_now - prev) / bin_minutes)
+        inb = rec & (q < n_bins)
+        written += float(torch.where(inb, n_bins - q.clamp(0, n_bins - 1),
+                                     0.0).sum())
+        active += int(valid.sum())
+        prev = torch.where(valid, t_now, prev)
+    return active, written
+
+
+def time_scan_factored(trace, device):
+    """For ``times_scan``: the factored scan kernel's ms per replay of the
+    sweep trace (the 32-config grid's band, every app and column in one
+    launch from the initial carry; CUDA events, mean of 5), the factored
+    plain scan's, the unfactored register-form kernel over one histogram
+    per config (the same work as the port carried it before; beside it,
+    not a yardstick), and the bound from the data: the columns read once,
+    the group and per-config state read and written once, against the
+    least operations (per app and column with an event: each distinct
+    percentile search a binary search, about 15 operations per group for
+    its bin, counts and Welford sums, 8 per window variant for its float32
+    window, 9 per gate variant for the CV and the gate, 13 per config for
+    its verdict, waste and selection; one add per suffix bin written)."""
+    import torch
+    from repro_torch.core import experiment as E
+    from repro_torch.core import simulator as sim
+    from repro_torch.interop import sweep_block_from_numpy
+    from repro_torch.kernels import histogram as H
+
+    cfgs = [sp.to_config() for sp in sweep_grid(E)]
+    n_bins = cfgs[0].histogram.n_bins
+    host = sim._sweep_block_host(cfgs)
+    ids = sim._sweep_identities(host)
+    plan = H.factored_scan_plan(host, ids, n_bins, device)
+    blk = sweep_block_from_numpy(host, device=device)
+    cols = sweep_columns(trace, device)
+    width, n = cols.shape
+    S, G = len(cfgs), len(blk.g_n_bins)
+    W, T = len(blk.w_group), len(blk.t_group)
+    c_group = blk.w_group.long()[blk.c_window.long()]
+    ci, cf = (torch.from_numpy(x).to(device)
+              for x in sim._build_cfg_blocks(cfgs))
+    bm = torch.tensor([c.histogram.bin_minutes for c in cfgs],
+                      dtype=torch.float64, device=device)
+
+    def timed(call, fresh, reps):
+        ms = []
+        for _ in range(reps):
+            state = fresh()
+            torch.cuda.synchronize()
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            call(state)
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b))
+        return sum(ms) / len(ms)
+
+    fresh = lambda: sim._initial_sweep_carry(blk, n, n_bins, torch.float64)
+    kernel = lambda st: H.fused_hybrid_sweep_scan_factored(
+        cols, *st, blk=blk, ids=ids, plan=plan)
+    plain = lambda st: H.fused_hybrid_sweep_scan_factored_plain(
+        cols, *st, blk=blk, ids=ids)
+
+    def fresh_flat():
+        st = fresh()
+        return [st[0].expand(S, n).contiguous()] + \
+            [x[c_group].contiguous() for x in st[1:5]] + list(st[5:9])
+    flat = lambda st: H.fused_hybrid_sweep_scan(cols, *st, ci, cf,
+                                                bin_minutes=bm)
+    with uncounted(H):
+        timed(kernel, fresh, 1)                          # warm-up
+        kernel_ms = timed(kernel, fresh, 5)
+        timed(flat, fresh_flat, 1)
+        registers_ms = timed(flat, fresh_flat, 5)
+        for g, w in zip(kernel(fresh()), plain(fresh())):
+            if not torch.equal(g, w):
+                raise AssertionError("times_scan_factored: the timed kernel "
+                                     "replay != the plain replay")
+    plain_ms = timed(plain, fresh, 1)
+
+    active, written = sweep_work(cols, float(cfgs[0].histogram.bin_minutes),
+                                 n_bins)
+    searches = int(plan.layout.search_i32.shape[0])
+    ops = (searches * 2 * (math.ceil(math.log2(n_bins)) + 1) + 15 * G
+           + 8 * W + 9 * T + 13 * S) * active + written
+    nbytes = (8 * width * n + 2 * 8 * n
+              + 2 * G * n * (4 * n_bins + 4 + 8 + 8)
+              + 2 * S * n * (8 + 8 + 4 + 8) + S * n)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / SCALAR_OPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    return dict(configs=S, groups=G, window_variants=W, gate_variants=T,
+                searches=searches, n=n,
+                n_bins=n_bins, columns=width,
+                bins_per_lane=plan.bins_per_lane,
+                configs_per_lane=plan.configs_per_lane,
+                kernel_ms=kernel_ms, plain_ms=plain_ms,
+                registers_ms=registers_ms, bound_ms=bound_ms,
+                bound_by=bound_by, bytes=nbytes, bytes_bound_ms=bytes_ms,
+                operations=ops, ops_bound_ms=ops_ms,
+                active_app_columns=active)
+
+
 def time_kernel(cols, device):
     """Step kernel and plain-version ms per launch over the event columns
     ``cols`` [width, n] float64 (CUDA events), and the bound those columns
@@ -2722,23 +3027,12 @@ def time_kernel(cols, device):
     # windows, gate).
     tb = cols.element_size()
     per_state = S * n * (6 * tb + 2 * 4)
-    binm = float(cf[0, 2])
     search = 2 * (math.ceil(math.log2(n_bins)) + 1)
-    bytes_total = ops_total = 0.0
-    prev = torch.full((n,), -np.inf, dtype=torch.float64, device=device)
-    for t_now in cols.double():
-        valid = torch.isfinite(t_now)
-        rec = valid & torch.isfinite(prev)
-        q = torch.floor((t_now - prev) / binm)
-        inb = rec & (q < n_bins)
-        written = float(torch.where(inb, n_bins - q.clamp(0, n_bins - 1),
-                                    0.0).sum())
-        active = S * int(valid.sum())
-        bytes_total += (tb * n + 2 * per_state + 44 * S
-                        + 4 * n_bins * active + 4 * written)
-        ops_total += (search + 40) * active + written
-        prev = torch.where(valid, t_now, prev)
+    active, written = sweep_work(cols, float(cf[0, 2]), n_bins)
     launches = cols.shape[0]
+    bytes_total = (launches * (tb * n + 2 * per_state + 44 * S)
+                   + 4 * n_bins * S * active + 4 * S * written)
+    ops_total = S * ((search + 40) * active + written)
     bytes_ms = bytes_total / launches / HBM_BYTES_PER_S * 1e3
     ops_ms = ops_total / launches / SCALAR_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
@@ -2755,13 +3049,15 @@ def time_kernel(cols, device):
                 bound_by=bound_by, ops_total=ops_total, launches=launches)
 
 
-def time_scan(cols, device, step):
+def time_scan(cols, device, step, sweep_trace):
     """The scan kernel's ms per scale replay (one launch over every column,
     from the initial carry; CUDA events, mean of 5), the plain scan's, and
     the bound of the same work: the columns read once and the nine state
     tensors read once and written once (cum included) against the least
     operations of the steps, summed over the columns (``step`` is
-    time_kernel's)."""
+    time_kernel's); the factored kernel over the same one-config block
+    (:func:`time_scan_factored_single`); and the factored form at the
+    sweep point (:func:`time_scan_factored` over ``sweep_trace``)."""
     import torch
     from repro_torch.kernels import histogram as H
 
@@ -2792,8 +3088,10 @@ def time_scan(cols, device, step):
     ops_ms = step["ops_total"] / SCALAR_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    single = time_scan_factored_single(cols, device)
+    factored = time_scan_factored(sweep_trace, device)
     out = dict(kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-               bound_by=bound_by)
+               bound_by=bound_by, factored=factored)
     emit("times_scan", shape=[S, n, n_bins], columns=width,
          form=H.scan_form(n_bins)[0], kernel_ms_per_replay=kernel_ms,
          plain_ms_per_replay=plain_ms, bound_ms_per_replay=bound_ms,
@@ -2801,8 +3099,68 @@ def time_scan(cols, device, step):
          operations=step["ops_total"], ops_bound_ms=ops_ms,
          step_ms_per_replay=step["kernel_ms"] * width,
          step_launches_per_replay=width, library_ms=None,
-         library_note="no single PyTorch call computes this scan")
+         library_note="no single PyTorch call computes this scan",
+         factored_single=single, factored=factored)
     return out
+
+
+def time_scan_factored_single(cols, device):
+    """For ``times_scan``: the factored kernel over the scale point's
+    columns with the one-config block of the default policy (its plan made
+    with no identity flags, so the host picks ``factored`` where the
+    engine picks ``registers``), ms per replay (CUDA events, mean of 5,
+    after a warm-up), beside the ``registers`` replay timed in the same
+    loop; every output of the two must be equal."""
+    import torch
+    from repro_torch.core import policy_math as pm
+    from repro_torch.core import simulator as sim
+    from repro_torch.core.policy import HybridConfig
+    from repro_torch.interop import sweep_block_from_numpy
+    from repro_torch.kernels import histogram as H
+
+    host = sim._sweep_block_host([HybridConfig(use_arima=False)])
+    n_bins = int(host.g_n_bins[0, 0])
+    width, n = cols.shape
+    forced = H.factored_scan_plan(host, pm.SweepIdentities(), n_bins,
+                                  device)
+    ids = sim._sweep_identities(host)
+    engine = H.factored_scan_plan(host, ids, n_bins, device)
+    if (forced.form, engine.form) != ("factored", "registers"):
+        raise AssertionError(f"times_scan factored_single: plans "
+                             f"{forced.form}, {engine.form}")
+    blk = sweep_block_from_numpy(host, device=device)
+    fresh = lambda: sim._initial_sweep_carry(blk, n, n_bins, torch.float64,
+                                             ids)
+    run = lambda plan, st: H.fused_hybrid_sweep_scan_factored(
+        cols, *st, blk=blk, ids=ids, plan=plan)
+    ms = {"factored": [], "registers": []}
+    with uncounted(H):
+        outs = {form: run(plan, fresh()) for form, plan in
+                (("factored", forced), ("registers", engine))}
+        for field, g, w in zip(FACTORED_NAMES, outs["factored"],
+                               outs["registers"]):
+            if not torch.equal(g, w):
+                raise AssertionError(f"times_scan factored_single: {field} "
+                                     f"differs between the two forms")
+        del outs
+        for _ in range(5):
+            for form, plan in (("factored", forced), ("registers", engine)):
+                st = fresh()
+                torch.cuda.synchronize()
+                a, b = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+                a.record()
+                run(plan, st)
+                b.record()
+                b.synchronize()
+                ms[form].append(a.elapsed_time(b))
+    return dict(configs=1, n=n, n_bins=n_bins, columns=width,
+                bins_per_lane=forced.bins_per_lane,
+                configs_per_lane=forced.configs_per_lane,
+                kernel_ms=sum(ms["factored"]) / 5,
+                registers_ms=sum(ms["registers"]) / 5,
+                kernel_ms_each=ms["factored"],
+                registers_ms_each=ms["registers"])
 
 
 class uncounted:
@@ -3814,11 +4172,12 @@ def main() -> int:
     trace, launches, launches_by_form, e2e = scale_point(device)
     sweep_cols = sweep_columns(trace, device)
     max_err = max(max_err, scan_parity(sweep_cols, device))
+    factored_parity(device)
     t_policy = time.perf_counter()
     policy_launches, policy_err, policy_cols = policy_update_parity(
         trace, device)
     policy_s = time.perf_counter() - t_policy
-    policy_sweep(device)
+    sweep_trace, sweep_launches, sweep_by_form = policy_sweep(device)
     spes_s = spes_point(trace, device)
     t_arima = time.perf_counter()
     arima_step_launches = arima_point(device)
@@ -3914,7 +4273,8 @@ def main() -> int:
     # time the step and the scan on the scale trace's columns, as the main
     # path ran them
     step = time_kernel(sweep_cols, device)
-    scan = time_scan(sweep_cols, device, step)
+    scan = time_scan(sweep_cols, device, step, sweep_trace)
+    del sweep_trace
     del sweep_cols
     fa_rg = time_attention(device, ATTN_SHAPE, seed=30)
     fa_qw = time_attention(device, QWEN2_ATTN_SHAPE, seed=31)
@@ -3932,20 +4292,29 @@ def main() -> int:
     csrc = "src/repro_torch/kernels/csrc/"
     print(json.dumps({"kernels": [{
         # the main path runs the scan (one launch per chunk and band);
-        # ms, plain_ms and bound_ms per scale replay; the step, the
-        # per-column counterpart of the TPU kernel, beside it per launch
+        # ms, plain_ms and bound_ms per scale replay (the registers form);
+        # the factored form at the sweep point beside it; the step, the
+        # per-column counterpart of the TPU kernel, per launch
         "name": "fused_hybrid_sweep_scan", "route": "cuda",
         "source": csrc + "hybrid_sweep_step.cu",
         "replaces": "src/repro/kernels/histogram.py:245",
         "train_launches": train_launches["histogram.SCAN_LAUNCHES"],
-        "launches": launches + scaleout_scan + examples_scan,
+        "launches": launches + sweep_launches + scaleout_scan
+        + examples_scan,
         "launches_by_path": {"scale_point": launches,
+                             "sweep": sweep_launches,
                              "scaleout": scaleout_scan,
                              "examples": examples_scan},
-        "launches_by_form": launches_by_form,
+        "launches_by_form": {k: launches_by_form[k] + sweep_by_form[k]
+                             for k in sweep_by_form},
         "max_abs_err": max_err, "ms": scan["kernel_ms"],
         "plain_ms": scan["plain_ms"], "bound_ms": scan["bound_ms"],
         "bound_by": scan["bound_by"], "library_ms": None,
+        "factored": {"launches": sweep_by_form["factored"],
+                     **{k: scan["factored"][k] for k in (
+                         "kernel_ms", "plain_ms", "registers_ms",
+                         "bound_ms", "bound_by")},
+                     "library_ms": None},
         # the step runs on the ARIMA post-pass's rescan and on the fleet
         # simulation's phase B, once per column of each chunk
         "step": {"name": "fused_hybrid_sweep_step",

@@ -112,9 +112,10 @@ class LintConfig:
         r"(?:^|_)(?:t|ts|time|times|timestamp|timestamps)(?:64|_abs|_min)?$"
     # tracer-leak: a for/while loop in a function whose name matches is a
     # scan body, the port's counterpart of a lax.scan step (``_fixed_scan``,
-    # ``_spes_states``, ``fused_hybrid_sweep_scan_plain``, ``decode_step``).
+    # ``_spes_states``, ``fused_hybrid_sweep_scan_plain``,
+    # ``fused_hybrid_sweep_scan_factored_plain``, ``decode_step``).
     scan_function_pattern: str = \
-        r"(?:^|_)(?:scan|states|step)(?:_plain|_reference)?$"
+        r"(?:^|_)(?:scan|states|step)(?:_factored)?(?:_plain|_reference)?$"
     # determinism: packages whose outputs must be seed-deterministic.
     determinism_scopes: Tuple[str, ...] = (
         "repro_torch/core/", "repro_torch/serving/", "repro_torch/kernels/",

@@ -21,6 +21,12 @@ the scalar policy pays no tensor overhead) and ``torch.Tensor`` s on any
 device. Helpers with a row-wise lookup take a ``gather`` flag: ``True`` uses
 ``torch.gather`` (binary search for the percentile bin), ``False`` masked
 reductions; both give identical results.
+
+:func:`fused_hybrid_sweep_step_math` is the sweep step, factored as the
+reference's: the histogram state is carried once per distinct histogram
+shape (group layer), the percentile windows computed once per distinct
+window variant, the gate once per distinct gate variant, and each of the S
+configs selects its (window, gate) pair (:class:`HybridSweepBlock`).
 """
 from __future__ import annotations
 
@@ -41,7 +47,6 @@ __all__ = [
     "idle_from_bounds",
     "classify_idle_time",
     "suffix_add",
-    "suffix_add_",
     "raw_count_at",
     "welford_update",
     "bin_count_cv",
@@ -61,7 +66,13 @@ __all__ = [
     "spes_window_from_counts",
     "fused_spes_step_math",
     "HybridStepConfig",
+    "HybridSweepBlock",
+    "SweepIdentities",
     "fused_hybrid_step_math",
+    "hybrid_sweep_decide",
+    "fused_hybrid_sweep_step_math",
+    # the port's own: the in-place suffix add its steps use
+    "suffix_add_",
 ]
 
 # Percentiles are quantized to 1/100 of a percent and compared in exact
@@ -795,4 +806,170 @@ def fused_hybrid_step_math(t_now, prev_t, cum, oob, cv_sum, cv_sum_sq,
     unload_at = torch.where(valid, new_unload.to(wdtype), unload_at)
     prev_t = torch.where(valid, t_now, prev_t)
     return (prev_t, cum, oob, cv_sum, cv_sum_sq, prewarm, unload_at,
+            cold + is_cold.to(cold.dtype), waste + gap_waste)
+
+
+# --------------------------------------------------------------------------
+# The sweep step: S configurations over one trace column, factored
+# --------------------------------------------------------------------------
+
+
+class HybridSweepBlock(NamedTuple):
+    """A whole hybrid-policy grid, factored into its distinct layers (the
+    reference's block, leaf for leaf: the same names, shapes and dtypes).
+
+      * group layer ``[G, ...]`` — distinct (bin_minutes, n_bins): the
+        histogram state (cumulative counts, OOB count, Welford sums) is
+        carried and updated once per group;
+      * window layer ``[W, ...]`` — distinct (group, percentiles, margin,
+        range): the percentile searches and window values once per variant;
+      * gate layer ``[T, ...]`` — distinct (group, min_samples,
+        cv_threshold, oob_threshold): the gate once per variant;
+      * standard-keep layer ``[D, 1]`` — the fallback windows;
+      * config layer ``[S]`` — every config only selects its (window, gate,
+        standard-keep) rows; its own state is the carried bounds, the cold
+        count and the waste.
+
+    Index leaves are int32 ``[layer]`` tensors; knob leaves are ``[layer,
+    1]`` tensors (so they broadcast against ``[layer, n_apps]`` state) in
+    the dtypes of :class:`HybridStepConfig`."""
+    # group layer
+    g_bin_minutes: object   # [G, 1] time dtype
+    g_n_bins: object        # [G, 1] i32 (effective bins; allocation is max)
+    # window-variant layer
+    w_group: object         # [W] i32 — variant -> group row
+    w_head_numer: object    # [W, 1] i32
+    w_tail_numer: object    # [W, 1] i32
+    w_bin_f32: object       # [W, 1] f32
+    w_range_f32: object     # [W, 1] f32
+    w_margin_lo: object     # [W, 1] f32
+    w_margin_hi: object     # [W, 1] f32
+    # gate-variant layer
+    t_group: object         # [T] i32 — variant -> group row
+    t_min_samples: object   # [T, 1] i32
+    t_cv_threshold: object  # [T, 1] f32
+    t_oob_threshold: object  # [T, 1] f32
+    # standard-keep layer (fallback windows, one per distinct keep-alive)
+    d_standard_keep: object  # [D, 1] f32
+    # config layer
+    c_window: object        # [S] i32 — config -> window variant
+    c_gate: object          # [S] i32 — config -> gate variant
+    c_std: object           # [S] i32 — config -> standard-keep row
+
+
+class SweepIdentities(NamedTuple):
+    """Host-side structure flags of a :class:`HybridSweepBlock`: each says
+    that a selector is the identity map, so the layers skip that gather.
+    For a single config every selector is the identity. Results are the
+    same either way."""
+    w: bool = False        # window variant w reads group w
+    t: bool = False        # gate variant t reads group t
+    c_window: bool = False  # config s uses window variant s
+    c_gate: bool = False   # config s uses gate variant s
+    c_std: bool = False    # config s uses standard-keep row s
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` of ``x`` (a gather along the layer axis)."""
+    return x.index_select(0, idx)
+
+
+def _sweep_decision_layers(gcum, goob, gcv_sum, gcv_sum_sq,
+                           blk: HybridSweepBlock, ids: SweepIdentities):
+    """The shared decision layers from the current group state: the
+    window variants' float32 bounds ``(w_load, w_unload)`` ``[W, n]`` and
+    the per-config gate verdict ``use_c`` ``[S, n]`` (percentile searches
+    once per window variant, the CV once per group, the gate once per gate
+    variant, then a gather per config unless ``ids`` proves it the
+    identity)."""
+    gtotal = gcum[..., -1].to(torch.int32)
+    total_w = gtotal if ids.w else _take(gtotal, blk.w_group)
+    head_thr = percentile_threshold_scaled_numer(total_w, blk.w_head_numer)
+    tail_thr = percentile_threshold_scaled_numer(total_w, blk.w_tail_numer)
+    if ids.w:
+        head_bin = first_bin_ge_scaled(gcum, head_thr, gather=True)
+        tail_bin = first_bin_ge_scaled(gcum, tail_thr, gather=True) + 1
+    else:
+        head_bin = first_bin_ge_scaled_grouped(gcum, blk.w_group, head_thr)
+        tail_bin = first_bin_ge_scaled_grouped(gcum, blk.w_group,
+                                               tail_thr) + 1
+    w_load, w_unload = window_values_from_factors(
+        head_bin, tail_bin, blk.w_bin_f32, blk.w_range_f32, blk.w_margin_lo,
+        blk.w_margin_hi)
+
+    gcv = bin_count_cv(gcv_sum, gcv_sum_sq, blk.g_n_bins, np.float32)
+    sel_t = (lambda x: x) if ids.t else (lambda x: _take(x, blk.t_group))
+    use_hist = use_histogram_gate_from_cv(
+        sel_t(gtotal), sel_t(goob), sel_t(gcv),
+        blk.t_min_samples, blk.t_cv_threshold, blk.t_oob_threshold)
+    return w_load, w_unload, (use_hist if ids.c_gate
+                              else _take(use_hist, blk.c_gate))
+
+
+def hybrid_sweep_decide(gcum, goob, gcv_sum, gcv_sum_sq,
+                        blk: HybridSweepBlock,
+                        ids: SweepIdentities = SweepIdentities()):
+    """Per-config residency bounds from the current group state: float32
+    ``(load_at, unload_at)``, each ``[S, n_apps]``. The decision inputs
+    change only at an app's events, so the bounds an app carries between
+    events equal a fresh decide from the same state."""
+    w_load, w_unload, use_c = _sweep_decision_layers(
+        gcum, goob, gcv_sum, gcv_sum_sq, blk, ids)
+    std_load, std_unload = standard_window_bounds(
+        blk.d_standard_keep if ids.c_std
+        else _take(blk.d_standard_keep, blk.c_std))
+    load_c = torch.where(use_c, w_load if ids.c_window
+                         else _take(w_load, blk.c_window),
+                         _like(std_load, w_load))
+    unload_c = torch.where(use_c, w_unload if ids.c_window
+                           else _take(w_unload, blk.c_window), std_unload)
+    return load_c, unload_c
+
+
+def fused_hybrid_sweep_step_math(t_now, prev_t, gcum, goob, gcv_sum,
+                                 gcv_sum_sq, load_c, unload_c, cold,
+                                 waste, *, blk: HybridSweepBlock,
+                                 ids: SweepIdentities = SweepIdentities()):
+    """One sweep step: S configurations advance together over one trace
+    column, sharing the time layer and the per-group histogram update.
+
+    Shapes: ``t_now``/``prev_t`` ``[n]`` (the clock is shared by the whole
+    grid); group state ``gcum`` ``[G, n, n_bins]`` int32 (updated IN
+    PLACE and returned second, as in :func:`fused_hybrid_step_math`),
+    ``goob`` int32 and the Welford sums ``[G, n]``; per-config state
+    ``[S, n]``: the carried bounds ``(load_c, unload_c)`` in the time
+    dtype, ``cold`` int32 and ``waste``. The step verdicts the closing gap
+    under the carried bounds, updates the group state, then re-decides
+    from the post-update state (:func:`hybrid_sweep_decide`); apps without
+    an event keep their bounds. The initial carry must be decide(zero
+    state) = ``(0, standard_keep)``. Every value a config sees is the
+    primitive sequence the single-config step computes — the layers only
+    deduplicate and gather — so sweep rows equal single-config runs bit
+    for bit."""
+    wdtype = t_now.dtype
+    valid = torch.isfinite(t_now)        # [n] — shared across the grid
+    first = ~torch.isfinite(prev_t)
+    it = t_now - prev_t
+    account = valid & ~first             # gaps that actually closed
+
+    # Verdict for the gap that just closed, under the carried windows.
+    is_cold = valid & (first | ~warm_from_bounds(it, load_c, unload_c))
+    gap_waste = torch.where(account, idle_from_bounds(it, load_c, unload_c),
+                            0.0)
+
+    # Group layer: one histogram + CV update per distinct histogram shape.
+    safe, in_b, oob_hit = classify_idle_time(it, account, blk.g_bin_minutes,
+                                             blk.g_n_bins)
+    old = raw_count_at(gcum, safe, gather=True)
+    suffix_add_(gcum, safe, in_b)
+    goob = goob + oob_hit.to(torch.int32)
+    gcv_sum, gcv_sum_sq = welford_update(gcv_sum, gcv_sum_sq, in_b, old)
+
+    # Windows governing the next gap, from the post-update state.
+    new_load, new_unload = hybrid_sweep_decide(gcum, goob, gcv_sum,
+                                               gcv_sum_sq, blk, ids)
+    load_c = torch.where(valid, new_load.to(wdtype), load_c)
+    unload_c = torch.where(valid, new_unload.to(wdtype), unload_c)
+    prev_t = torch.where(valid, t_now, prev_t)
+    return (prev_t, gcum, goob, gcv_sum, gcv_sum_sq, load_c, unload_c,
             cold + is_cold.to(cold.dtype), waste + gap_waste)

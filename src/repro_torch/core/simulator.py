@@ -11,11 +11,14 @@ this module holds the engines, all deciding through
   * :func:`_run_hybrid_sweep` — S hybrid configs in one pass: apps are
     bucketed by event count, each bucket chunked over apps, and the fused
     step, once per event column, advances every config x app of the chunk.
-    With ``use_kernel`` the chunk's columns go through
-    :func:`repro_torch.kernels.histogram.fused_hybrid_sweep_scan` (one
-    launch of the CUDA scan kernel on the card); otherwise through its
-    plain version, the plain step per column. Per-config state is carried
-    unfactored, ``[S, n, n_bins]`` int32. A forecaster cannot run inside
+    The state is factored as the reference's (``_build_sweep_block``):
+    the histograms ``[G, n, n_bins]`` int32 once per distinct (bin width,
+    bin count) group, and only the bounds, cold counts and waste per
+    config, ``[S, n]``. With ``use_kernel`` the chunk's columns go through
+    :func:`repro_torch.kernels.histogram.fused_hybrid_sweep_scan_factored`
+    (one launch of the CUDA scan kernel on the card, in the form picked
+    from the block); otherwise through its plain version, the factored
+    plain step per column. A forecaster cannot run inside
     the scan: for each config with ``use_arima`` the apps whose scan
     flags a forecaster call at some event are replayed afterwards through
     :func:`repro_torch.forecast.replay.replay_oob_apps` on the same device
@@ -65,8 +68,9 @@ __all__ = ["SimResult", "simulate_scalar", "BUCKET_EDGES",
 
 BUCKET_EDGES = (64, 512, 4096, 1 << 62)
 
-# Apps per device-resident chunk of the hybrid scan: bounds the cumulative
-# count state ([S, chunk, n_bins]); sweeps divide it by the config count.
+# Apps per device-resident chunk of one config's scan; a hybrid sweep
+# divides it by how many times larger its state is (``_auto_chunk``), the
+# SPES sweep by its config count.
 DEFAULT_APP_CHUNK = 131072
 _MIN_AUTO_CHUNK = 4096
 
@@ -444,10 +448,10 @@ def _build_cfg_blocks(cfgs: Sequence[HybridConfig]):
 
 def _initial_carry(cfg_f32: torch.Tensor, n: int, n_bins: int,
                    tdt: torch.dtype) -> tuple:
-    """The hybrid step's state before a chunk's first column, for the S
-    configs of ``cfg_f32`` x n apps: ``prev=-inf``, zero histogram and
-    counters, bounds ``(0, standard_keep)`` — the decision of an empty
-    histogram."""
+    """The unfactored step's state (a histogram per config; the forecast
+    post-pass's rescan) before a chunk's first column, for the S configs
+    of ``cfg_f32`` x n apps: ``prev=-inf``, zero histogram and counters,
+    bounds ``(0, standard_keep)`` — the decision of an empty histogram."""
     S, dev = cfg_f32.shape[0], cfg_f32.device
     zeros = lambda dt: torch.zeros((S, n), dtype=dt, device=dev)
     return (
@@ -460,22 +464,160 @@ def _initial_carry(cfg_f32: torch.Tensor, n: int, n_bins: int,
     )
 
 
-def _hybrid_sweep_scan(cols: torch.Tensor, cfg_i32: torch.Tensor,
-                       cfg_f32: torch.Tensor, bin_minutes: torch.Tensor,
-                       n_bins: int, scan):
-    """One sweep over a chunk: ``cols`` [width, n] float64 through ``scan``
-    for all S configs — ``kernels.histogram.fused_hybrid_sweep_scan`` (one
-    launch of the CUDA kernel on the card) or its plain version (the plain
-    step once per column). Idle times are binned by the exact float64
-    ``bin_minutes`` [S], from :func:`_initial_carry`. Returns (cold, waste,
-    consulted, last_t, prewarm, unload_at); ``consulted`` flags the apps at
-    which the scalar policy consults the forecaster at some event."""
+def _sweep_block_host(
+        cfgs: Sequence[HybridConfig]) -> policy_math.HybridSweepBlock:
+    """Factor S hybrid configs into the group/window/gate/config layers on
+    the host, leaf for leaf the reference's block (numpy, float64 bin
+    widths).
+
+    All configs share ``n_bins`` (the sweep bands by it); within a band
+    the distinct (bin_minutes, n_bins) pairs become histogram groups, the
+    distinct window and gate knob tuples become variants, and each config
+    keeps only selector indices (``policy_math.HybridSweepBlock``)."""
+    base = [_step_config_for(c) for c in cfgs]
+    groups, g_of = {}, []
+    for c in base:
+        key = (float(c.bin_minutes), int(c.n_bins))
+        g_of.append(groups.setdefault(key, len(groups)))
+    wvars, w_of = {}, []
+    for gi, c in zip(g_of, base):
+        key = (gi, int(c.head_numer), int(c.tail_numer), float(c.bin_f32),
+               float(c.range_f32), float(c.margin_lo), float(c.margin_hi))
+        w_of.append(wvars.setdefault(key, len(wvars)))
+    tvars, t_of = {}, []
+    for gi, c in zip(g_of, base):
+        key = (gi, int(c.min_samples), float(c.cv_threshold),
+               float(c.oob_threshold))
+        t_of.append(tvars.setdefault(key, len(tvars)))
+    dvars, d_of = {}, []
+    for c in base:
+        d_of.append(dvars.setdefault(float(c.standard_keep), len(dvars)))
+    col = lambda vals, dt: np.asarray(vals, dt)[:, None]
+    gk, wk, tk = list(groups), list(wvars), list(tvars)
+    return policy_math.HybridSweepBlock(
+        g_bin_minutes=col([k[0] for k in gk], np.float64),
+        g_n_bins=col([k[1] for k in gk], np.int32),
+        w_group=np.asarray([k[0] for k in wk], np.int32),
+        w_head_numer=col([k[1] for k in wk], np.int32),
+        w_tail_numer=col([k[2] for k in wk], np.int32),
+        w_bin_f32=col([k[3] for k in wk], np.float32),
+        w_range_f32=col([k[4] for k in wk], np.float32),
+        w_margin_lo=col([k[5] for k in wk], np.float32),
+        w_margin_hi=col([k[6] for k in wk], np.float32),
+        t_group=np.asarray([k[0] for k in tk], np.int32),
+        t_min_samples=col([k[1] for k in tk], np.int32),
+        t_cv_threshold=col([k[2] for k in tk], np.float32),
+        t_oob_threshold=col([k[3] for k in tk], np.float32),
+        d_standard_keep=col(list(dvars), np.float32),
+        c_window=np.asarray(w_of, np.int32),
+        c_gate=np.asarray(t_of, np.int32),
+        c_std=np.asarray(d_of, np.int32),
+    )
+
+
+def _device_block(host: policy_math.HybridSweepBlock,
+                  device) -> policy_math.HybridSweepBlock:
+    """A host sweep block's leaves as tensors on ``device``."""
+    dev = torch.device(device)
+    return policy_math.HybridSweepBlock(
+        *(torch.from_numpy(leaf).to(dev) for leaf in host))
+
+
+def _build_sweep_block(cfgs: Sequence[HybridConfig],
+                       device) -> policy_math.HybridSweepBlock:
+    """:func:`_sweep_block_host` of ``cfgs`` as tensors on ``device``."""
+    return _device_block(_sweep_block_host(cfgs), device)
+
+
+def _sweep_identities(
+        blk: policy_math.HybridSweepBlock) -> policy_math.SweepIdentities:
+    """Which selectors of a host sweep block (numpy or CPU tensors) are the
+    identity (all of them for a single config) — see
+    ``policy_math.SweepIdentities``."""
+    ident = lambda idx, m: (idx.shape[0] == m
+                            and np.array_equal(np.asarray(idx), np.arange(m)))
+    G = blk.g_n_bins.shape[0]
+    W = blk.w_group.shape[0]
+    T = blk.t_group.shape[0]
+    D = blk.d_standard_keep.shape[0]
+    return policy_math.SweepIdentities(
+        w=ident(blk.w_group, G), t=ident(blk.t_group, G),
+        c_window=ident(blk.c_window, W), c_gate=ident(blk.c_gate, T),
+        c_std=ident(blk.c_std, D))
+
+
+def _initial_sweep_carry(blk: policy_math.HybridSweepBlock, n: int,
+                         n_bins: int, tdt: torch.dtype,
+                         ids: policy_math.SweepIdentities =
+                         policy_math.SweepIdentities()) -> tuple:
+    """The factored sweep's state before a chunk's first column: the
+    shared clock ``[n]`` at -inf, zero group state ``[G, n(, n_bins)]``,
+    and per config ``[S, n]`` the bounds decide(zero state) = ``(0,
+    standard_keep)``, zero cold counts and waste. The standard keep-alive
+    rows are gathered to the configs unless ``ids.c_std`` proves the
+    gather the identity."""
+    G, S = blk.g_n_bins.shape[0], blk.c_window.shape[0]
+    dev = blk.c_window.device
+    zeros = lambda rows, dt: torch.zeros((rows, n), dtype=dt, device=dev)
+    std = blk.d_standard_keep if ids.c_std else \
+        blk.d_standard_keep.index_select(0, blk.c_std)
+    return (
+        torch.full((n,), -np.inf, dtype=tdt, device=dev),  # shared clock
+        torch.zeros((G, n, n_bins), dtype=torch.int32, device=dev),
+        zeros(G, torch.int32), zeros(G, tdt), zeros(G, tdt),
+        zeros(S, tdt),                                     # load bound
+        std.to(tdt).repeat(1, n),                          # unload bound
+        zeros(S, torch.int32), zeros(S, tdt),
+    )
+
+
+def _hybrid_sweep_scan(cols: torch.Tensor,
+                       blk: policy_math.HybridSweepBlock, plan, n_bins: int,
+                       ids: policy_math.SweepIdentities, use_kernel: bool):
+    """One factored sweep over a chunk: ``cols`` [width, n] float64 for
+    all S configs of one band, through
+    ``kernels.histogram.fused_hybrid_sweep_scan_factored`` (on the card
+    one launch in the form ``plan`` picked) or its plain version. Returns
+    (cold, waste, consulted, last_t, prewarm, unload_at); ``consulted``
+    flags the apps at which the scalar policy consults the forecaster at
+    some event."""
+    from ..kernels import histogram as H
     _check_scan_width(cols.shape[0])
-    state = _initial_carry(cfg_f32, cols.shape[1], n_bins, cols.dtype)
-    prev_t, _, _, _, _, prewarm, unload_at, cold, waste, consulted = scan(
-        cols, *state, cfg_i32, cfg_f32, bin_minutes=bin_minutes)
-    # the clock is config-independent: any row of prev_t is the last event
-    return cold, waste, consulted, prev_t[0], prewarm, unload_at
+    state = _initial_sweep_carry(blk, cols.shape[1], n_bins, cols.dtype,
+                                 ids)
+    if use_kernel:
+        out = H.fused_hybrid_sweep_scan_factored(cols, *state, blk=blk,
+                                                 ids=ids, plan=plan)
+    else:
+        out = H.fused_hybrid_sweep_scan_factored_plain(cols, *state,
+                                                       blk=blk, ids=ids)
+    last_t, _, _, _, _, prewarm, unload_at, cold, waste, consulted = out
+    return cold, waste, consulted, last_t, prewarm, unload_at
+
+
+def _state_bytes_per_app(S: int, hists: int, n_bins: int) -> int:
+    """Scan state a chunk carries per app: the shared clock, ``hists``
+    histograms with their OOB count and Welford sums, and per config the
+    bounds, cold count, waste and consulted flag."""
+    return 8 + hists * (4 * n_bins + 4 + 16) + S * (8 + 8 + 4 + 8 + 1)
+
+
+def _auto_chunk(blocks) -> int:
+    """Apps per chunk when the caller sets none: ``DEFAULT_APP_CHUNK`` (the
+    chunk of a single config) divided by how many times a single config's
+    state the widest band's state is; ``blocks`` holds each band's (sweep
+    block, n_bins). A band carries one histogram per group, and its
+    per-config scalars; past the register form's width
+    (``kernels.histogram.scan_form``) the kernel engine expands a band to
+    one histogram per config, and the chunk allows for that."""
+    from ..kernels.histogram import scan_form
+    denom = 1
+    for blk, n_bins in blocks:
+        S, G = blk.c_window.shape[0], blk.g_n_bins.shape[0]
+        hists = S if scan_form(n_bins)[0] == "columns" else G
+        denom = max(denom, -(-_state_bytes_per_app(S, hists, n_bins)
+                             // _state_bytes_per_app(1, 1, n_bins)))
+    return max(DEFAULT_APP_CHUNK // denom, _MIN_AUTO_CHUNK)
 
 
 def _run_hybrid_sweep(trace: Trace, hybrids: Sequence[HybridConfig],
@@ -486,12 +628,16 @@ def _run_hybrid_sweep(trace: Trace, hybrids: Sequence[HybridConfig],
     """S hybrid configs over one bucketed/chunked trace pass.
 
     Configs are banded by bin count (no config pays for another's wider
-    histogram); the trace preparation and each chunk's transfer are shared
-    by every band. ``use_kernel`` scans each chunk through the scan kernel
-    (one launch a chunk, band and shard on the card), otherwise through its
-    plain version; both in float64 time. ``mesh`` splits each chunk's app
-    rows across devices. Then the forecast post-pass of each ``use_arima``
-    config, on ``device``."""
+    histogram), and each band is factored into one sweep block
+    (``_build_sweep_block``): within a band the histogram state is carried
+    once per group. The trace preparation and each chunk's transfer are
+    shared by every band. ``use_kernel`` scans each chunk through the scan
+    kernel (one launch a chunk, band and shard on the card, in the form
+    ``kernels.histogram.factored_scan_plan`` picks from the block),
+    otherwise through its plain version; both in float64 time. ``mesh``
+    splits each chunk's app rows across devices; the blocks replicate.
+    Then the forecast post-pass of each ``use_arima`` config, on
+    ``device``."""
     S = len(hybrids)
     times, counts = padded if padded is not None else trace.to_padded()
     n = trace.n_apps
@@ -504,37 +650,30 @@ def _run_hybrid_sweep(trace: Trace, hybrids: Sequence[HybridConfig],
         keep[s, :] = h.standard_keep_alive     # zero-event apps: never scanned
     duration = float(trace.duration_minutes)
 
+    from ..kernels.histogram import factored_scan_plan
     band_of = {}
     for s, h in enumerate(hybrids):
         band_of.setdefault(h.histogram.n_bins, []).append(s)
-    if app_chunk is None:
-        # per-config [S_band, chunk, n_bins] state: divide by the widest band
-        widest = max(len(idx) for idx in band_of.values())
-        chunk = max(DEFAULT_APP_CHUNK // widest, _MIN_AUTO_CHUNK)
-    else:
-        chunk = int(app_chunk)
     bands = []
     for n_bins, idx in sorted(band_of.items()):
-        cfgs = [hybrids[s] for s in idx]
-        ci, cf = _build_cfg_blocks(cfgs)
-        bm = torch.tensor([float(c.histogram.bin_minutes) for c in cfgs],
-                          dtype=torch.float64, device=device)
-        bands.append((np.asarray(idx), torch.from_numpy(ci).to(device),
-                      torch.from_numpy(cf).to(device), bm, n_bins))
+        host = _sweep_block_host([hybrids[s] for s in idx])
+        ids = _sweep_identities(host)
+        plan = factored_scan_plan(host, ids, n_bins, device) \
+            if use_kernel else None
+        bands.append((np.asarray(idx), _device_block(host, device), ids,
+                      plan, n_bins))
+    chunk = int(app_chunk) if app_chunk is not None else _auto_chunk(
+        [(blk, n_bins) for _, blk, _, _, n_bins in bands])
 
-    from ..kernels.histogram import (fused_hybrid_sweep_scan,
-                                     fused_hybrid_sweep_scan_plain)
-    scan = fused_hybrid_sweep_scan if use_kernel \
-        else fused_hybrid_sweep_scan_plain
     band_scan = _on_mesh(
-        lambda cols, ci, cf, bm, n_bins: _hybrid_sweep_scan(
-            cols, ci, cf, bm, n_bins, scan),
+        lambda cols, blk, ids, plan, n_bins: _hybrid_sweep_scan(
+            cols, blk, plan, n_bins, ids, use_kernel),
         mesh, (1, None, None, None, None))
     work = _chunked_buckets(times, counts, chunk)
     for sel, cols in _chunk_stream(work, device, mesh):
-        for idx, ci, cf, bm, n_bins in bands:
+        for idx, blk, ids, plan, n_bins in bands:
             c, w, flag, last_t, pw, ub = _host_rows(
-                band_scan(cols, ci, cf, bm, n_bins), len(sel))
+                band_scan(cols, blk, ids, plan, n_bins), len(sel))
             at = np.ix_(idx, sel)
             cold[at] = c
             consulted[at] = flag

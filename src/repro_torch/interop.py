@@ -15,11 +15,13 @@ import numpy as np
 import torch
 
 from .configs.base import ModelConfig
+from .core.policy_math import HybridSweepBlock
 from .core.workload import Trace
 from .device import resolve_device
 
 __all__ = ["trace_from_numpy", "step_state_from_numpy",
-           "cfg_blocks_from_numpy", "model_params_from_numpy",
+           "cfg_blocks_from_numpy", "sweep_block_from_numpy",
+           "model_params_from_numpy",
            "train_state_from_numpy"]
 
 _STEP_DTYPES = (torch.float32, torch.int32, torch.int32, torch.float32,
@@ -67,6 +69,15 @@ def cfg_blocks_from_numpy(cfg_i32, cfg_f32, *, device="cuda"
     return (torch.tensor(np.asarray(cfg_i32), dtype=torch.int32, device=dev),
             torch.tensor(np.asarray(cfg_f32), dtype=torch.float32,
                          device=dev))
+
+
+def sweep_block_from_numpy(blk, *, device="cuda") -> HybridSweepBlock:
+    """A reference ``HybridSweepBlock`` (``simulator._build_sweep_block``,
+    numpy leaves) as the port's block: each leaf a tensor of the same
+    shape and dtype on ``device``."""
+    dev = resolve_device(device)
+    return HybridSweepBlock(*(torch.from_numpy(np.array(leaf)).to(dev)
+                              for leaf in blk))
 
 
 def _flatten(tree: Dict, prefix: str = "") -> Iterator[Tuple[str, object]]:

@@ -10,9 +10,10 @@
 // into the cumulative counts cum[s, a, :], the Welford CV accumulators, the
 // head/tail percentile bins by the scaled int32 compare, the float32
 // windows with margins, and the CV / min-samples / out-of-bounds gate. The
-// scalar part of that (close_gap, decide) is one set of device functions
-// that every kernel here calls, as policy_math.py is the one source of it
-// in Python.
+// scalar part of that is one set of device functions that every kernel
+// here calls, as policy_math.py is the one source of it in Python: the
+// verdict and the bin (verdict, classify; close_gap is both), the group
+// part (welford, bin_cv), the window and the gate (decide is all three).
 //
 // The time layer (clock, residency bounds, Welford sums, waste) is float64,
 // where the TPU kernel carries float32 time rebased per chunk; the decision
@@ -38,10 +39,26 @@
 // more: whether the scalar policy's forecaster guard (enough samples, OOB
 // heavy) held after some event column, which selects the apps of the
 // ARIMA post-pass. One warp per row; the event times come 32 columns at a
-// time, one load a lane, and reach the warp by shuffles. The host picks
-// the form from n_bins (kernels/histogram.py::scan_form):
-//   * registers (n_bins <= 32 * BPL, BPL 2 or 8 bins a lane: the sweep
-//     point's 60 bins and the paper's 240): lane L holds bins
+// time, one load a lane, and reach the warp by shuffles. The simulator
+// carries a sweep's state factored (policy_math.HybridSweepBlock): one
+// histogram per group of configs that share a bin layout, and per config
+// only its bounds, cold count and waste. The host picks the form from the
+// block (kernels/histogram.py::factored_scan_plan, with scan_form):
+//   * factored (configs that share a layer, n_bins <= 256): one warp per
+//     (group, app), the group's bins in registers as in the register form
+//     below; the bin pass, the total and the Welford sums once per event
+//     for the whole group, one percentile search per distinct (head, tail)
+//     pair of the group, and lane L carrying the group's configs L and
+//     L + 32 (CPL 1 or 2): their verdicts, windows and gates in parallel.
+//     A group of more than 64 configs is split by the host into groups
+//     that each carry a copy of its histogram. Against the register form
+//     over the same configs, per app and event the bin pass and the
+//     scalar part run once per group instead of once per config, and a
+//     chunk moves one histogram per group instead of one per config;
+//   * registers (every selector of the block the identity, a single config
+//     among them: one histogram per config; n_bins <= 32 * BPL, BPL 2 or 8
+//     bins a lane: the sweep point's 60 bins and the paper's 240; the
+//     unfactored kernel over per-config rows): lane L holds bins
 //     [L*BPL, (L+1)*BPL) in registers. The raw counts at
 //     the bin and the one below come from shuffles (each lane's candidate
 //     picked by a tree of selects), the suffix add is per lane, each
@@ -55,8 +72,8 @@
 //     SM), and so did 32 rows a warp with the scalar part a lane each and
 //     the histograms in shared memory (its bin passes cost more than the
 //     scalar part they spare).
-//   * columns (wider rows): the host replays them through the step, one
-//     launch a column.
+//   * columns (wider rows): the host expands the block to one histogram
+//     per config and replays them through the step, one launch a column.
 // Every form bins an idle time with a power-of-two width (the paper's
 // 1-minute bins) by a multiply with its exact reciprocal, the same double
 // as the divide. Bound of a scan over W columns: the columns read once and
@@ -101,6 +118,18 @@ struct Cfg {
   bool pow2;       // bin_minutes a power of two: it * inv_bin == it / bin
 };
 
+// A power-of-two width (the paper's 1-minute bins) has an exact
+// reciprocal, and it * (1 / w) is then the same real number as it / w,
+// rounded once: the same double, for one multiply instead of a divide.
+// Sets pow2 and returns the reciprocal where it is set.
+__device__ __forceinline__ double bin_reciprocal(double bin_minutes,
+                                                 bool& pow2) {
+  const long long bits = __double_as_longlong(bin_minutes);
+  const int expo = (int)((bits >> 52) & 0x7ff);
+  pow2 = (bits & 0x000fffffffffffffll) == 0 && expo > 1 && expo < 0x7fe;
+  return pow2 ? __ddiv_rn(1.0, bin_minutes) : 0.0;
+}
+
 __device__ __forceinline__ Cfg load_cfg(const int* __restrict__ cfg_i32,
                                         const float* __restrict__ cfg_f32,
                                         const double* __restrict__ bin_min,
@@ -120,13 +149,7 @@ __device__ __forceinline__ Cfg load_cfg(const int* __restrict__ cfg_i32,
   c.oob_thr = cf[5];
   c.std_keep = cf[6];
   c.bin_minutes = bin_min[s];
-  // A power-of-two width (the paper's 1-minute bins) has an exact
-  // reciprocal, and it * (1 / w) is then the same real number as it / w,
-  // rounded once: the same double, for one multiply instead of a divide.
-  const long long bits = __double_as_longlong(c.bin_minutes);
-  const int expo = (int)((bits >> 52) & 0x7ff);
-  c.pow2 = (bits & 0x000fffffffffffffll) == 0 && expo > 1 && expo < 0x7fe;
-  c.inv_bin = c.pow2 ? __ddiv_rn(1.0, c.bin_minutes) : 0.0;
+  c.inv_bin = bin_reciprocal(c.bin_minutes, c.pow2);
   return c;
 }
 
@@ -177,27 +200,41 @@ struct Hit {
   int safe;   // the bin clipped to [0, nb - 1]
 };
 
+// The verdict for a gap of length it (+inf on an app's first event) under
+// carried bounds [pre, ub]: the cold count and the waste updated.
+__device__ __forceinline__ void verdict(double it, bool first, double pre,
+                                        double ub, int& cold,
+                                        double& waste) {
+  const bool warm = (it >= pre) && (it <= ub);
+  const bool is_cold = first || !warm;
+  const double gap = first ? 0.0 : fmax(__dsub_rn(fmin(it, ub), pre), 0.0);
+  cold += is_cold ? 1 : 0;
+  waste = __dadd_rn(waste, gap);
+}
+
+// The gap's bin (classify_idle_time) in nb bins of width bin_minutes
+// (inv_bin its reciprocal where pow2).
+__device__ __forceinline__ Hit classify(double it, bool first, int nb,
+                                        bool pow2, double inv_bin,
+                                        double bin_minutes) {
+  double q = floor(pow2 ? __dmul_rn(it, inv_bin)
+                        : __ddiv_rn(it, bin_minutes));
+  q = fmin(fmax(q, -1.0), (double)nb);
+  const int bin_idx = (int)q;
+  Hit h;
+  h.in_b = !first && bin_idx >= 0 && bin_idx < nb;
+  h.oob_hit = !first && bin_idx >= nb;
+  h.safe = min(max(bin_idx, 0), nb - 1);
+  return h;
+}
+
 // The verdict for the gap that closes at t (finite) under the row's carried
-// bounds (cold count and waste updated), and the gap's bin
-// (classify_idle_time).
+// bounds (cold count and waste updated), and the gap's bin.
 __device__ __forceinline__ Hit close_gap(Row& r, double t, const Cfg& c) {
   const bool first = !isfinite(r.p);
   const double it = __dsub_rn(t, r.p);   // +inf on an app's first event
-  const bool warm = (it >= r.pre) && (it <= r.ub);
-  const bool is_cold = first || !warm;
-  const double gap =
-      first ? 0.0 : fmax(__dsub_rn(fmin(it, r.ub), r.pre), 0.0);
-  double q = floor(c.pow2 ? __dmul_rn(it, c.inv_bin)
-                          : __ddiv_rn(it, c.bin_minutes));
-  q = fmin(fmax(q, -1.0), (double)c.nb);
-  const int bin_idx = (int)q;
-  Hit h;
-  h.in_b = !first && bin_idx >= 0 && bin_idx < c.nb;
-  h.oob_hit = !first && bin_idx >= c.nb;
-  h.safe = min(max(bin_idx, 0), c.nb - 1);
-  r.cold += is_cold ? 1 : 0;
-  r.waste = __dadd_rn(r.waste, gap);
-  return h;
+  verdict(it, first, r.pre, r.ub, r.cold, r.waste);
+  return classify(it, first, c.nb, c.pow2, c.inv_bin, c.bin_minutes);
 }
 
 // int32 product that wraps around as the reference's does
@@ -214,41 +251,66 @@ __device__ __forceinline__ bool reaches(int cum, int thr) {
   return wrap_mul(cum, kPctScale) >= thr;
 }
 
-// After the histogram pass: the Welford accumulators from the bin's
-// pre-update raw count, the out-of-bounds count, the float32 windows (left
-// to right) and the gate; the windows govern the row's next gap. Returns
-// whether the scalar policy consults the forecaster at this event: enough
-// samples and the OOB counter heavy (forecast/replay.py::_branch_scan).
+// After the histogram pass, the group part: the Welford accumulators from
+// the bin's pre-update raw count, and the out-of-bounds count.
+__device__ __forceinline__ void welford(double& cvs, double& cvss, int& oob,
+                                        const Hit& h, int raw_old) {
+  const double inb = h.in_b ? 1.0 : 0.0;
+  cvs = __dadd_rn(cvs, inb);
+  cvss = __dadd_rn(cvss, inb * __dadd_rn(2.0 * (double)raw_old, 1.0));
+  oob += h.oob_hit ? 1 : 0;
+}
+
+// The CV of the nb bin counts, float32 (bin_count_cv).
+__device__ __forceinline__ float bin_cv(double cvs, double cvss, int nb) {
+  const float nbf = (float)nb;
+  const float mean = __fdiv_rn((float)cvs, nbf);
+  const float var = fmaxf(
+      __fsub_rn(__fdiv_rn((float)cvss, nbf), __fmul_rn(mean, mean)), 0.0f);
+  return mean > 0.0f ? __fdiv_rn(__fsqrt_rn(var), fmaxf(mean, 1e-9f))
+                     : 0.0f;
+}
+
+// The window part: the float32 bounds of percentile bins head and tail,
+// products left to right (window_values_from_factors).
+__device__ __forceinline__ void window(int head, int tail, float bin_f,
+                                       float range, float margin_lo,
+                                       float margin_hi, float& load,
+                                       float& unload) {
+  load = __fmul_rn(__fmul_rn((float)head, bin_f), margin_lo);
+  unload = __fmul_rn(fminf(__fmul_rn((float)tail, bin_f), range), margin_hi);
+  unload = fmaxf(unload, load);
+}
+
+// The gate part: whether the histogram windows govern the next gap
+// (use_histogram_gate_from_cv), and in consult whether the scalar policy
+// consults the forecaster at this event: enough samples and the OOB counter
+// heavy (forecast/replay.py::_branch_scan).
+__device__ __forceinline__ bool gate(int total, int oob, float cv,
+                                     int min_samples, float cv_thr,
+                                     float oob_thr, bool& consult) {
+  const int seen = total + oob;
+  const bool heavy = (float)oob > __fmul_rn(oob_thr, (float)max(seen, 1));
+  consult = seen >= min_samples && heavy;
+  return seen >= min_samples && cv >= cv_thr && total > 0 && !heavy;
+}
+
+// After the histogram pass: the group part, then the window and the gate;
+// the windows govern the row's next gap. Returns the forecaster guard.
 __device__ __forceinline__ bool decide(Row& r, double t, const Hit& h,
                                        const Cfg& c, int total, int raw_old,
                                        int head, int tail) {
-  const double inb = h.in_b ? 1.0 : 0.0;
-  r.cvs = __dadd_rn(r.cvs, inb);
-  r.cvss = __dadd_rn(r.cvss, inb * __dadd_rn(2.0 * (double)raw_old, 1.0));
-  r.oob += h.oob_hit ? 1 : 0;
-
-  const float load =
-      __fmul_rn(__fmul_rn((float)head, c.bin_f), c.margin_lo);
-  float unload =
-      __fmul_rn(fminf(__fmul_rn((float)tail, c.bin_f), c.range), c.margin_hi);
-  unload = fmaxf(unload, load);
-
-  const float nbf = (float)c.nb;
-  const float mean = __fdiv_rn((float)r.cvs, nbf);
-  const float var = fmaxf(
-      __fsub_rn(__fdiv_rn((float)r.cvss, nbf), __fmul_rn(mean, mean)), 0.0f);
-  const float cv = mean > 0.0f
-      ? __fdiv_rn(__fsqrt_rn(var), fmaxf(mean, 1e-9f)) : 0.0f;
-  const int seen = total + r.oob;
-  const bool heavy =
-      (float)r.oob > __fmul_rn(c.oob_thr, (float)max(seen, 1));
-  const bool use_hist =
-      seen >= c.min_samples && cv >= c.cv_thr && total > 0 && !heavy;
-
+  welford(r.cvs, r.cvss, r.oob, h, raw_old);
+  float load, unload;
+  window(head, tail, c.bin_f, c.range, c.margin_lo, c.margin_hi, load,
+         unload);
+  bool consult;
+  const bool use_hist = gate(total, r.oob, bin_cv(r.cvs, r.cvss, c.nb),
+                             c.min_samples, c.cv_thr, c.oob_thr, consult);
   r.pre = (double)(use_hist ? load : 0.0f);
   r.ub = (double)(use_hist ? unload : c.std_keep);
   r.p = t;
-  return seen >= c.min_samples && heavy;
+  return consult;
 }
 
 // One pass of a warp over a row whose lane L owns the bins b = L mod 32:
@@ -419,6 +481,212 @@ hybrid_sweep_scan_reg_kernel(const double* __restrict__ cols, int width,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The factored scan: a group's configs in one warp, the histogram once
+// ---------------------------------------------------------------------------
+
+// Column layout of the factored form's blocks
+// (kernels/histogram.py::factored_scan_plan).
+constexpr int kGrpI = 5;    // n_bins, slot0, slot1, search0, search1
+constexpr int kSlotI = 3;   // config row, search, min_samples
+// slot f32 columns: the kCfgF layout of the config block
+
+// One config a lane carries: its knobs and its state.
+struct Slot {
+  bool live;
+  int row, search, min_samples;
+  float margin_lo, margin_hi, bin_f, range, cv_thr, oob_thr, std_keep;
+  double pre, ub, waste;
+  int cold;
+  bool consult;
+};
+
+struct FactoredIn {
+  const double *prev_t, *gcvs, *gcvss, *load, *unload, *waste;
+  const int *goob, *cold;
+  const int *grp_i32, *search_i32, *slot_i32;
+  const double* grp_f64;
+  const float* slot_f32;
+};
+
+struct FactoredOut {
+  double *prev_t, *gcvs, *gcvss, *load, *unload, *waste;
+  int *goob, *cold;
+  bool* consulted;
+};
+
+// One warp per (group k, app a): the group's histogram in registers, BPL
+// bins a lane as in the register form; lane L carries the group's configs
+// L and L + 32 (CPL of them). Per event column, once for the warp: the
+// verdicts' shared idle time, the bin, the raw counts by shuffles, the
+// suffix add, the total and the Welford sums; then one percentile search
+// per distinct (head, tail) numerator pair of the group (a uniform loop:
+// a first hit in each lane and two __reduce_min_sync), each lane keeping
+// the bins of its configs' pair; then each lane its configs' float32
+// windows, gates and bounds, in parallel. Rows of configs (S of them) are
+// read and written once, at the configs' own rows (slot_i32's row), so
+// the caller's order is kept.
+// (a minimum of one block an SM: ptxas's default register target for 256
+// threads spilled the <2, 1> instantiation at 80 registers)
+template <int BPL, int CPL>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, 1)
+hybrid_sweep_scan_factored_kernel(const double* __restrict__ cols, int width,
+                                  FactoredIn in, int* __restrict__ gcum,
+                                  FactoredOut o, int Gk, int n, int n_bins) {
+  const int lane = threadIdx.x & 31;
+  const int64_t row =
+      (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (row >= (int64_t)Gk * n) return;    // the whole warp leaves together
+  const int k = (int)(row / n);
+  const int a = (int)(row - (int64_t)k * n);
+  const int* gi = in.grp_i32 + (int64_t)k * kGrpI;
+  const int nb = gi[0], slot0 = gi[1], slot1 = gi[2];
+  const int search0 = gi[3], search1 = gi[4];
+  const double bin_minutes = in.grp_f64[k];
+  bool pow2;
+  const double inv_bin = bin_reciprocal(bin_minutes, pow2);
+
+  // the group's percentile numerators, lane L holding search0 + L (+ 32)
+  int head_numer[CPL], tail_numer[CPL];
+  Slot sl[CPL];
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) {
+    const int q = search0 + lane + 32 * j;
+    head_numer[j] = q < search1 ? in.search_i32[2 * q] : 0;
+    tail_numer[j] = q < search1 ? in.search_i32[2 * q + 1] : 0;
+    Slot& c = sl[j];
+    const int slot = slot0 + lane + 32 * j;
+    c.live = slot < slot1;
+    c.consult = false;
+    if (c.live) {
+      const int* si = in.slot_i32 + (int64_t)slot * kSlotI;
+      const float* sf = in.slot_f32 + (int64_t)slot * kCfgF;
+      c.row = si[0];
+      c.search = si[1];
+      c.min_samples = si[2];
+      c.margin_lo = sf[0];
+      c.margin_hi = sf[1];
+      c.bin_f = sf[2];
+      c.range = sf[3];
+      c.cv_thr = sf[4];
+      c.oob_thr = sf[5];
+      c.std_keep = sf[6];
+      const int64_t at = (int64_t)c.row * n + a;
+      c.pre = in.load[at];
+      c.ub = in.unload[at];
+      c.waste = in.waste[at];
+      c.cold = in.cold[at];
+    } else {
+      c.row = c.search = c.min_samples = c.cold = 0;
+      c.margin_lo = c.margin_hi = c.bin_f = c.range = 0.0f;
+      c.cv_thr = c.oob_thr = c.std_keep = 0.0f;
+      c.pre = c.ub = c.waste = 0.0;
+    }
+  }
+
+  double p = in.prev_t[a];
+  int oob = in.goob[row];
+  double cvs = in.gcvs[row], cvss = in.gcvss[row];
+  int* crow = gcum + row * (int64_t)n_bins;
+  const int b0 = lane * BPL;
+  int v[BPL];
+#pragma unroll
+  for (int kk = 0; kk < BPL; ++kk)
+    v[kk] = b0 + kk < n_bins ? crow[b0 + kk] : 0;
+  int last = __shfl_sync(kFull, pick<BPL>(v, n_bins - 1),
+                         (n_bins - 1) / BPL);
+
+  double block = 0.0;
+  for (int col = 0; col < width; ++col) {
+    const double t = column_time(cols, width, n, a, col, lane, block);
+    if (!isfinite(t)) continue;          // uniform across the warp
+    const bool first = !isfinite(p);
+    const double it = __dsub_rn(t, p);   // +inf on an app's first event
+#pragma unroll
+    for (int j = 0; j < CPL; ++j)
+      if (sl[j].live)
+        verdict(it, first, sl[j].pre, sl[j].ub, sl[j].cold, sl[j].waste);
+    const Hit h = classify(it, first, nb, pow2, inv_bin, bin_minutes);
+    const int at = __shfl_sync(kFull, pick<BPL>(v, h.safe), h.safe / BPL);
+    const int below = __shfl_sync(kFull, pick<BPL>(v, h.safe - 1),
+                                  max(h.safe - 1, 0) / BPL);
+    const int raw_old = at - (h.safe > 0 ? below : 0);
+    const int total = last + (h.in_b ? 1 : 0);
+    last = total;
+    const int from = h.in_b ? h.safe : 0x7fffffff;   // the suffix to add to
+#pragma unroll
+    for (int kk = 0; kk < BPL; ++kk) v[kk] += b0 + kk >= from ? 1 : 0;
+    welford(cvs, cvss, oob, h, raw_old);
+
+    int head[CPL], tail[CPL];
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) head[j] = tail[j] = n_bins;
+    for (int q = search0; q < search1; ++q) {        // uniform
+      const int src = (q - search0) & 31;
+      const int hn = __shfl_sync(kFull, (q - search0) < 32 ? head_numer[0]
+                                 : head_numer[CPL - 1], src);
+      const int tn = __shfl_sync(kFull, (q - search0) < 32 ? tail_numer[0]
+                                 : tail_numer[CPL - 1], src);
+      const int head_thr = pct_threshold(total, hn);
+      const int tail_thr = pct_threshold(total, tn);
+      int hb = n_bins, tb = n_bins;
+#pragma unroll
+      for (int kk = BPL - 1; kk >= 0; --kk) {   // descending: first hit wins
+        const int b = b0 + kk;
+        const bool live = b < n_bins;
+        if (live && reaches(v[kk], head_thr)) hb = b;
+        if (live && reaches(v[kk], tail_thr)) tb = b;
+      }
+      hb = __reduce_min_sync(kFull, hb);
+      tb = __reduce_min_sync(kFull, tb) + 1;
+#pragma unroll
+      for (int j = 0; j < CPL; ++j)
+        if (sl[j].search == q) {
+          head[j] = hb;
+          tail[j] = tb;
+        }
+    }
+
+    const float cv = bin_cv(cvs, cvss, nb);
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+      Slot& c = sl[j];
+      if (!c.live) continue;
+      float load, unload;
+      window(head[j], tail[j], c.bin_f, c.range, c.margin_lo, c.margin_hi,
+             load, unload);
+      bool consult;
+      const bool use_hist = gate(total, oob, cv, c.min_samples, c.cv_thr,
+                                 c.oob_thr, consult);
+      c.consult |= consult;
+      c.pre = (double)(use_hist ? load : 0.0f);
+      c.ub = (double)(use_hist ? unload : c.std_keep);
+    }
+    p = t;
+  }
+
+#pragma unroll
+  for (int kk = 0; kk < BPL; ++kk)
+    if (b0 + kk < n_bins) crow[b0 + kk] = v[kk];
+  if (lane == 0) {
+    o.goob[row] = oob;
+    o.gcvs[row] = cvs;
+    o.gcvss[row] = cvss;
+    if (k == 0) o.prev_t[a] = p;
+  }
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) {
+    const Slot& c = sl[j];
+    if (!c.live) continue;
+    const int64_t at = (int64_t)c.row * n + a;
+    o.load[at] = c.pre;
+    o.unload[at] = c.ub;
+    o.cold[at] = c.cold;
+    o.waste[at] = c.waste;
+    o.consulted[at] = c.consult;
+  }
+}
+
 State make_state(const void* prev_t, const void* oob, const void* cv_sum,
                  const void* cv_sum_sq, const void* prewarm,
                  const void* unload_at, const void* cold, const void* waste) {
@@ -458,6 +726,17 @@ void launch_reg(cudaStream_t stream, const double* cols, int width,
   hybrid_sweep_scan_reg_kernel<BPL><<<(unsigned)blocks, kWarpsPerBlock * 32,
                                       0, stream>>>(
       cols, width, st, cum, ci, cf, bm, o, consulted, S, n, n_bins);
+}
+
+template <int BPL, int CPL>
+void launch_factored(cudaStream_t stream, const double* cols, int width,
+                     const FactoredIn& in, int* gcum, const FactoredOut& o,
+                     int Gk, int n, int n_bins) {
+  const int64_t blocks =
+      ((int64_t)Gk * n + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  hybrid_sweep_scan_factored_kernel<BPL, CPL>
+      <<<(unsigned)blocks, kWarpsPerBlock * 32, 0, stream>>>(
+          cols, width, in, gcum, o, Gk, n, n_bins);
 }
 
 }  // namespace
@@ -526,9 +805,70 @@ int hybrid_sweep_scan(
   return (int)cudaGetLastError();
 }
 
+// Launch the factored scan of `width` columns (cols [width, n] float64) on
+// `stream`: Gk groups, each a warp per app (grp_i32 [Gk, 5]: n_bins, its
+// configs' slot range, its searches' range; grp_f64 [Gk]: bin width),
+// search_i32 [*, 2] (head, tail numerators), slot_i32 [S, 3] (config row,
+// search, min_samples), slot_f32 [S, 7] (the config block's float32
+// columns). State: prev_t [n], gcum [Gk, n, n_bins] int32 (in place),
+// goob/gcvs/gcvss [Gk, n]; per config load/unload/cold/waste [S, n]; out
+// the same and consulted [S, n]. `bpl` bins a lane (2 or 8; n_bins <= 32 *
+// bpl), `cpl` configs a lane (1 or 2; a group's configs <= 32 * cpl, which
+// the host guarantees). Returns 0, a CUDA error code or kErrForm.
+int hybrid_sweep_scan_factored(
+    const void* cols, int width, const void* prev_t, void* gcum,
+    const void* goob, const void* gcvs, const void* gcvss,
+    const void* load_c, const void* unload_c, const void* cold,
+    const void* waste, const void* grp_i32, const void* grp_f64,
+    const void* search_i32, const void* slot_i32, const void* slot_f32,
+    void* o_prev, void* o_goob, void* o_gcvs, void* o_gcvss, void* o_load,
+    void* o_unload, void* o_cold, void* o_waste, void* consulted, int Gk,
+    int n, int n_bins, int bpl, int cpl, void* stream) {
+  if (n_bins > 32 * bpl || (bpl != 2 && bpl != 8) || (cpl != 1 && cpl != 2))
+    return kErrForm;
+  if ((int64_t)Gk * n == 0) return 0;
+  FactoredIn in;
+  in.prev_t = (const double*)prev_t;
+  in.goob = (const int*)goob;
+  in.gcvs = (const double*)gcvs;
+  in.gcvss = (const double*)gcvss;
+  in.load = (const double*)load_c;
+  in.unload = (const double*)unload_c;
+  in.cold = (const int*)cold;
+  in.waste = (const double*)waste;
+  in.grp_i32 = (const int*)grp_i32;
+  in.grp_f64 = (const double*)grp_f64;
+  in.search_i32 = (const int*)search_i32;
+  in.slot_i32 = (const int*)slot_i32;
+  in.slot_f32 = (const float*)slot_f32;
+  FactoredOut o;
+  o.prev_t = (double*)o_prev;
+  o.goob = (int*)o_goob;
+  o.gcvs = (double*)o_gcvs;
+  o.gcvss = (double*)o_gcvss;
+  o.load = (double*)o_load;
+  o.unload = (double*)o_unload;
+  o.cold = (int*)o_cold;
+  o.waste = (double*)o_waste;
+  o.consulted = (bool*)consulted;
+  const double* c = (const double*)cols;
+  int* cm = (int*)gcum;
+  cudaStream_t sm = (cudaStream_t)stream;
+  if (bpl == 2 && cpl == 1)
+    launch_factored<2, 1>(sm, c, width, in, cm, o, Gk, n, n_bins);
+  else if (bpl == 2)
+    launch_factored<2, 2>(sm, c, width, in, cm, o, Gk, n, n_bins);
+  else if (cpl == 1)
+    launch_factored<8, 1>(sm, c, width, in, cm, o, Gk, n, n_bins);
+  else
+    launch_factored<8, 2>(sm, c, width, in, cm, o, Gk, n, n_bins);
+  return (int)cudaGetLastError();
+}
+
 const char* hybrid_error_string(int code) {
   if (code == kErrForm)
-    return "bad scan form (2 or 8 bins a lane, covering n_bins)";
+    return "bad scan form (2 or 8 bins a lane covering n_bins; 1 or 2 "
+           "configs a lane)";
   return cudaGetErrorString((cudaError_t)code);
 }
 

@@ -38,6 +38,7 @@ likewise updated in place and returned first.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -46,11 +47,14 @@ from ..core import policy_math
 
 __all__ = ["CFG_I32_COLS", "CFG_F32_COLS", "LAUNCHES",
            "POLICY_UPDATE_LAUNCHES", "SCAN_LAUNCHES", "SCAN_LAUNCHES_BY_FORM",
-           "SCAN_BINS_PER_LANE",
+           "SCAN_BINS_PER_LANE", "FACTORED_CONFIGS_PER_LANE", "ScanPlan",
+           "ExpandedLayout", "FactoredLayout",
            "fused_hybrid_sweep_step",
            "fused_hybrid_sweep_step_plain", "fused_hybrid_sweep_scan",
-           "fused_hybrid_sweep_scan_plain", "fused_hybrid_step",
-           "policy_update", "policy_update_plain", "scan_form"]
+           "fused_hybrid_sweep_scan_plain", "fused_hybrid_sweep_scan_factored",
+           "fused_hybrid_sweep_scan_factored_plain", "factored_scan_plan",
+           "fused_hybrid_step", "policy_update", "policy_update_plain",
+           "scan_form"]
 
 # Column layout of the per-config knob blocks (built by
 # ``repro_torch.core.simulator._build_cfg_blocks``).
@@ -65,14 +69,19 @@ LAUNCHES = 0
 POLICY_UPDATE_LAUNCHES = 0
 #: Sweep-scan calls that reached the card (one launch each, but for the
 #: ``columns`` form, which launches the step once a column), and the same
-#: by form (:func:`scan_form`).
+#: by form (:func:`scan_form`; ``factored``: :func:`factored_scan_plan`).
 SCAN_LAUNCHES = 0
-SCAN_LAUNCHES_BY_FORM = {"registers": 0, "columns": 0}
+SCAN_LAUNCHES_BY_FORM = {"registers": 0, "columns": 0, "factored": 0}
 
 #: Bins a lane of the scan's register form may hold (a warp a row): 2 for
 #: rows of up to 64 bins (the sweep point's 60), 8 for up to 256 (the
 #: paper's 240). ``csrc/hybrid_sweep_step.cu`` instantiates these two.
 SCAN_BINS_PER_LANE = (2, 8)
+
+#: Configs a lane of the factored form carries: a group of up to 32 x 2 =
+#: 64 configs a warp (``csrc/hybrid_sweep_step.cu`` instantiates both; a
+#: larger group is split by :func:`factored_scan_plan`).
+FACTORED_CONFIGS_PER_LANE = (1, 2)
 
 
 def _step_config(cfg_i32, cfg_f32, bin_minutes=None
@@ -236,16 +245,23 @@ def scan_form(n_bins: int) -> tuple:
     return "columns", 0
 
 
-def _consulted_after(t_now, state, cfg_i32, cfg_f32):
+def _consulted_after(t_now, total, oob, min_samples, oob_threshold):
     """Whether the scalar policy consults the forecaster after the event
-    column ``t_now`` ``[n]``, per row ``[S, n]``: an event, enough recorded
-    samples AND the OOB counter heavy (the guard of
+    column ``t_now`` ``[n]``, per row: an event, enough recorded samples
+    AND the OOB counter heavy (the guard of
     ``HybridHistogramPolicy._decide`` that ``forecast/replay.py::
-    _branch_scan`` evaluates), on the step's post-update ``state``."""
-    total, oob = state[1][..., -1], state[2]
-    heavy = policy_math.oob_heavy(total, oob, cfg_f32[:, 5:6])
-    return heavy & ((total + oob) >= cfg_i32[:, 3:4]) & \
+    _branch_scan`` evaluates), on the post-update in-bounds ``total`` and
+    ``oob`` counts, against ``[rows, 1]`` knobs."""
+    heavy = policy_math.oob_heavy(total, oob, oob_threshold)
+    return heavy & ((total + oob) >= min_samples) & \
         torch.isfinite(t_now)[None]
+
+
+def _consulted_after_step(t_now, state, cfg_i32, cfg_f32):
+    """:func:`_consulted_after` on the step's post-update ``state``, per
+    config ``[S, n]``."""
+    return _consulted_after(t_now, state[1][..., -1], state[2],
+                            cfg_i32[:, 3:4], cfg_f32[:, 5:6])
 
 
 def fused_hybrid_sweep_scan_plain(cols, prev_t, cum, oob, cv_sum, cv_sum_sq,
@@ -262,7 +278,7 @@ def fused_hybrid_sweep_scan_plain(cols, prev_t, cum, oob, cv_sum, cv_sum_sq,
         state = fused_hybrid_sweep_step_plain(t_now, *state, cfg_i32,
                                               cfg_f32,
                                               bin_minutes=bin_minutes)
-        consulted |= _consulted_after(t_now, state, cfg_i32, cfg_f32)
+        consulted |= _consulted_after_step(t_now, state, cfg_i32, cfg_f32)
     return (*state, consulted)
 
 
@@ -312,7 +328,8 @@ def _scan_launch(cols, args, bin_minutes):
         consulted = torch.zeros((S, n), dtype=torch.bool, device=cum.device)
         for t_now in cols:
             state = _launch((t_now, *state, *args[9:]), bin_minutes)
-            consulted |= _consulted_after(t_now, state, args[9], cfg_f32)
+            consulted |= _consulted_after_step(t_now, state, args[9],
+                                               cfg_f32)
         SCAN_LAUNCHES += 1
         SCAN_LAUNCHES_BY_FORM[form] += 1
         return (*state, consulted)
@@ -362,6 +379,302 @@ def fused_hybrid_sweep_scan(cols, prev_t, cum, oob, cv_sum, cv_sum_sq,
         return _scan_launch(cols, args, bin_minutes)
     raise ValueError(f"fused_hybrid_sweep_scan: no kernel for device "
                      f"{cols.device}")
+
+
+# ---------------------------------------------------------------------------
+# The factored scan: a sweep block's S configs over a chunk in one launch
+# ---------------------------------------------------------------------------
+
+
+def _consulted_after_factored(t_now, state, blk, ids):
+    """:func:`_consulted_after` per gate variant on the factored step's
+    post-update group ``state``, gathered to the configs: ``[S, n]``."""
+    sel_t = (lambda x: x) if ids.t else \
+        (lambda x: x.index_select(0, blk.t_group))
+    flag = _consulted_after(t_now, sel_t(state[1][..., -1]),
+                            sel_t(state[2]), blk.t_min_samples,
+                            blk.t_oob_threshold)
+    return flag if ids.c_gate else flag.index_select(0, blk.c_gate)
+
+
+def fused_hybrid_sweep_scan_factored_plain(
+        cols, prev_t, gcum, goob, gcv_sum, gcv_sum_sq, load_c, unload_c,
+        cold, waste, *, blk: policy_math.HybridSweepBlock,
+        ids: policy_math.SweepIdentities = policy_math.SweepIdentities()):
+    """``policy_math.fused_hybrid_sweep_step_math`` over the event columns
+    ``cols`` ``[width, n]`` in order, on any device and in any time dtype;
+    ``gcum`` is updated in place. Returns the factored step's nine outputs
+    (prev_t ``[n]``, the group state ``[G, n(, n_bins)]``, the per-config
+    bounds, cold counts and waste ``[S, n]``) and ``consulted`` ``[S, n]``
+    bool, the OR over the columns of the forecaster guard, evaluated per
+    gate variant and gathered to the configs."""
+    state = (prev_t, gcum, goob, gcv_sum, gcv_sum_sq, load_c, unload_c,
+             cold, waste)
+    consulted = torch.zeros(cold.shape, dtype=torch.bool, device=cold.device)
+    for t_now in cols:
+        state = policy_math.fused_hybrid_sweep_step_math(t_now, *state,
+                                                         blk=blk, ids=ids)
+        consulted |= _consulted_after_factored(t_now, state, blk, ids)
+    return (*state, consulted)
+
+
+class ExpandedLayout(NamedTuple):
+    """What the ``registers`` and ``columns`` forms read: the unfactored
+    scan's per-config knob blocks, and how the group state expands to the
+    configs (``c_group`` and ``first`` are None for an identity block)."""
+    cfg_i32: torch.Tensor          # [S, 4] (n_bins, head, tail, min_samples)
+    cfg_f32: torch.Tensor          # [S, 7] (the step's float knobs)
+    bin_minutes: torch.Tensor      # [S] float64
+    c_group: Optional[torch.Tensor]  # [S] int64: each config's group
+    first: Optional[torch.Tensor]    # [G] int64: each group's first config
+
+
+class FactoredLayout(NamedTuple):
+    """What the ``factored`` form reads: the kernel's groups (a block's
+    groups, those of more than 64 configs split), each a contiguous range
+    of config slots and of percentile searches."""
+    grp_i32: torch.Tensor     # [Gk, 5] n_bins, slot0, slot1, search0, search1
+    grp_f64: torch.Tensor     # [Gk] bin minutes
+    search_i32: torch.Tensor  # [Q, 2] (head, tail) numerators
+    slot_i32: torch.Tensor    # [S, 3] (config row, search, min_samples)
+    slot_f32: torch.Tensor    # [S, 7] the slot's config's float knobs
+    k_group: Optional[torch.Tensor]  # [Gk] int64 block group; None: no split
+    first_k: Optional[torch.Tensor]  # [G] int64 a group's first kernel group
+
+
+class ScanPlan(NamedTuple):
+    """How :func:`fused_hybrid_sweep_scan_factored` scans a sweep block on
+    the card, picked on the host from the block before any launch
+    (:func:`factored_scan_plan`)."""
+    form: str              # "registers", "columns" or "factored"
+    bins_per_lane: int     # registers and factored: 2 or 8
+    configs_per_lane: int  # factored: 1 or 2 (FACTORED_CONFIGS_PER_LANE)
+    layout: Union[ExpandedLayout, FactoredLayout]
+
+
+def factored_scan_plan(blk: policy_math.HybridSweepBlock,
+                       ids: policy_math.SweepIdentities, n_bins: int,
+                       device) -> ScanPlan:
+    """The form the scan takes for the host block ``blk`` (numpy or CPU
+    tensors; ``n_bins`` bins allocated) and its layout, computed on the
+    host and put on ``device``:
+
+      * ``registers``: every selector is the identity (``ids``; a single
+        config among them), so each config has its own histogram: the
+        unfactored scan kernel in its register form, the configs' knob
+        blocks built from the block;
+      * ``factored``: the configs share a layer, up to 256 bins: one warp
+        per (group, app) with the group's bins in registers, the configs
+        sorted by group, lane k of a group's warp carrying its config k
+        (and k + 32). A group of more than 64 configs is split into groups
+        of at most 64 that each carry a copy of its histogram (exact: the
+        copies see the same events). Each group's percentile searches are
+        its configs' distinct (head, tail) numerators;
+      * ``columns``: past 256 bins the band's configs expand to per-config
+        rows (each group's histogram copied to its configs) and go
+        through the unfactored scan's columns form, the step once a
+        column.
+    """
+    host = {k: np.asarray(v) for k, v in blk._asdict().items()}
+    G = len(host["g_n_bins"])
+    win, gate, std = host["c_window"], host["c_gate"], host["c_std"]
+    c_group = host["w_group"][win].astype(np.int64)
+    if not np.array_equal(host["t_group"][gate], c_group) or \
+            set(c_group.tolist()) != set(range(G)):
+        raise ValueError("factored_scan_plan: each config's gate must read "
+                         "its window's group, and every group needs a "
+                         "config")
+    dev = torch.device(device)
+    put = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev)
+    col = lambda name, idx: host[name][idx, 0]
+    f32_cols = lambda w, t, d: np.stack(
+        [col("w_margin_lo", w), col("w_margin_hi", w), col("w_bin_f32", w),
+         col("w_range_f32", w), col("t_cv_threshold", t),
+         col("t_oob_threshold", t), col("d_standard_keep", d)], 1)
+    form, bpl = scan_form(n_bins)
+    identity = all(ids)
+    if form == "columns" or identity:
+        cfg_i32 = np.stack([col("g_n_bins", c_group), col("w_head_numer", win),
+                            col("w_tail_numer", win),
+                            col("t_min_samples", gate)], 1)
+        first = np.asarray([np.flatnonzero(c_group == g)[0]
+                            for g in range(G)])
+        return ScanPlan(form, bpl, 0, ExpandedLayout(
+            put(cfg_i32, np.int32), put(f32_cols(win, gate, std), np.float32),
+            put(col("g_bin_minutes", c_group), np.float64),
+            None if identity else put(c_group, np.int64),
+            None if identity else put(first, np.int64)))
+
+    cap = 32 * FACTORED_CONFIGS_PER_LANE[-1]
+    pieces = [(g, part) for g in range(G)
+              for part in np.array_split(
+                  np.flatnonzero(c_group == g),
+                  -(-int((c_group == g).sum()) // cap))]
+    widest = max(len(part) for _, part in pieces)
+    cpl = next(c for c in FACTORED_CONFIGS_PER_LANE if widest <= 32 * c)
+    grp_i32, searches, slot_i32, slots = [], [], [], []
+    for g, part in pieces:
+        s0, slot0, local = len(searches), len(slots), {}
+        for s in part:
+            key = (int(host["w_head_numer"][win[s], 0]),
+                   int(host["w_tail_numer"][win[s], 0]))
+            if key not in local:
+                local[key] = len(searches)
+                searches.append(key)
+            slots.append(s)
+            slot_i32.append([s, local[key],
+                             int(host["t_min_samples"][gate[s], 0])])
+        grp_i32.append([int(host["g_n_bins"][g, 0]), slot0, len(slots), s0,
+                        len(searches)])
+    k_group = np.asarray([g for g, _ in pieces], np.int64)
+    slots = np.asarray(slots)
+    split = len(pieces) != G
+    return ScanPlan("factored", bpl, cpl, FactoredLayout(
+        put(grp_i32, np.int32),
+        put(host["g_bin_minutes"][k_group, 0], np.float64),
+        put(searches, np.int32), put(slot_i32, np.int32),
+        put(f32_cols(win[slots], gate[slots], std[slots]), np.float32),
+        put(k_group, np.int64) if split else None,
+        put([int(np.flatnonzero(k_group == g)[0]) for g in range(G)],
+            np.int64) if split else None))
+
+
+def _expanded_launch(cols, state, plan: ScanPlan):
+    """The ``registers`` and ``columns`` forms: the unfactored scan over
+    one histogram per config (each group's state copied to its configs
+    unless the block is the identity), then each group's state read back
+    from its first config."""
+    prev_t, gcum, goob, gcv_sum, gcv_sum_sq, load_c, unload_c, cold, \
+        waste = state
+    lay = plan.layout
+    S, n = load_c.shape
+    if lay.c_group is None:
+        per_cfg = lambda x: x
+        per_group = lambda x: x
+    else:
+        per_cfg = lambda x: x.index_select(0, lay.c_group)
+        per_group = lambda x: x.index_select(0, lay.first)
+    cum = per_cfg(gcum)
+    out = _scan_launch(cols, (prev_t.expand(S, n).contiguous(), cum,
+                              per_cfg(goob), per_cfg(gcv_sum),
+                              per_cfg(gcv_sum_sq), load_c, unload_c, cold,
+                              waste, lay.cfg_i32, lay.cfg_f32),
+                       lay.bin_minutes)
+    if lay.c_group is not None:
+        gcum.copy_(per_group(cum))
+    o_prev, _, o_oob, o_cvs, o_cvss, *per_config = out
+    return (o_prev[0], gcum, per_group(o_oob), per_group(o_cvs),
+            per_group(o_cvss), *per_config)
+
+
+def _check_factored_args(cols, state) -> None:
+    """What the factored kernel takes: contiguous float64 ``cols`` ``[width,
+    n]``, the clock ``[n]``, the group state ``[G, n(, n_bins)]`` and the
+    per-config state ``[S, n]``, all on one device."""
+    gcum, load_c = state[1], state[5]
+    if gcum.dim() != 3 or load_c.dim() != 2:
+        raise ValueError("fused_hybrid_sweep_scan_factored: gcum must be "
+                         "[G, n, n_bins] and the per-config state [S, n]")
+    G, n, n_bins = gcum.shape
+    S = load_c.shape[0]
+    _check_cols(cols, n)
+    f64, i32 = torch.float64, torch.int32
+    want = [(cols, f64, tuple(cols.shape)), (state[0], f64, (n,)),
+            (gcum, i32, (G, n, n_bins)), (state[2], i32, (G, n)),
+            (state[3], f64, (G, n)), (state[4], f64, (G, n)),
+            (load_c, f64, (S, n)), (state[6], f64, (S, n)),
+            (state[7], i32, (S, n)), (state[8], f64, (S, n))]
+    for k, (x, dt, shape) in enumerate(want):
+        if x.device != gcum.device or x.dtype != dt or \
+                tuple(x.shape) != shape or not x.is_contiguous():
+            raise ValueError(
+                f"fused_hybrid_sweep_scan_factored: argument {k} (cols "
+                f"first) must be a contiguous {dt} tensor of shape {shape} "
+                f"on {gcum.device}, got {x.dtype} {tuple(x.shape)} on "
+                f"{x.device}")
+
+
+def _factored_lib() -> ctypes.CDLL:
+    lib = _lib()
+    if not getattr(lib, "_factored_typed", False):
+        fn = lib.hybrid_sweep_scan_factored
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + \
+            [ctypes.c_void_p] * 23 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib._factored_typed = True
+    return lib
+
+
+def _factored_launch(cols, state, plan: ScanPlan):
+    """The ``factored`` form: one launch, a warp per (group, app)."""
+    global SCAN_LAUNCHES
+    _check_factored_args(cols, state)
+    prev_t, gcum, goob, gcv_sum, gcv_sum_sq, load_c, unload_c, cold, \
+        waste = state
+    lay = plan.layout
+    G, n, n_bins = gcum.shape
+    Gk = lay.grp_i32.shape[0]
+    if lay.k_group is None:
+        kcum, kin = gcum, (goob, gcv_sum, gcv_sum_sq)
+    else:
+        kcum = gcum.index_select(0, lay.k_group)
+        kin = tuple(x.index_select(0, lay.k_group)
+                    for x in (goob, gcv_sum, gcv_sum_sq))
+    o_prev = torch.empty_like(prev_t)
+    o_group = [torch.empty_like(x) for x in kin]
+    o_config = [torch.empty_like(x) for x in (load_c, unload_c, cold, waste)]
+    consulted = torch.empty(cold.shape, dtype=torch.bool, device=cold.device)
+    lib = _factored_lib()
+    with torch.cuda.device(gcum.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.hybrid_sweep_scan_factored(
+            cols.data_ptr(), cols.shape[0],
+            *(x.data_ptr() for x in (prev_t, kcum, *kin, load_c, unload_c,
+                                     cold, waste, *lay[:5],
+                                     o_prev, *o_group, *o_config,
+                                     consulted)),
+            Gk, n, n_bins, plan.bins_per_lane, plan.configs_per_lane, stream)
+    if rc != 0:
+        raise RuntimeError("hybrid_sweep_scan_factored launch failed: "
+                           + lib.hybrid_error_string(rc).decode())
+    SCAN_LAUNCHES += 1
+    SCAN_LAUNCHES_BY_FORM["factored"] += 1
+    if lay.k_group is not None:
+        gcum.copy_(kcum.index_select(0, lay.first_k))
+        o_group = [x.index_select(0, lay.first_k) for x in o_group]
+    return (o_prev, gcum, *o_group, *o_config, consulted)
+
+
+def fused_hybrid_sweep_scan_factored(
+        cols, prev_t, gcum, goob, gcv_sum, gcv_sum_sq, load_c, unload_c,
+        cold, waste, *, blk: policy_math.HybridSweepBlock,
+        ids: policy_math.SweepIdentities = policy_math.SweepIdentities(),
+        plan: ScanPlan = None):
+    """The factored sweep step over every event column of ``cols``
+    ``[width, n]`` (``+inf`` = no event), in one call: returns exactly what
+    :func:`fused_hybrid_sweep_scan_factored_plain` returns (the factored
+    step's nine outputs, ``gcum`` updated in place, and ``consulted``).
+
+    CPU tensors run the plain version, in any time dtype. CUDA tensors
+    (float64 time) run the form ``plan`` names (:func:`factored_scan_plan`
+    of the host block, which must be given) and count it in
+    ``SCAN_LAUNCHES_BY_FORM``, or raise."""
+    state = (prev_t, gcum, goob, gcv_sum, gcv_sum_sq, load_c, unload_c,
+             cold, waste)
+    _check_cols(cols, gcum.shape[-2] if gcum.dim() >= 2 else -1)
+    if cols.device.type == "cpu":
+        return fused_hybrid_sweep_scan_factored_plain(cols, *state, blk=blk,
+                                                      ids=ids)
+    if cols.device.type != "cuda":
+        raise ValueError(f"fused_hybrid_sweep_scan_factored: no kernel for "
+                         f"device {cols.device}")
+    if plan is None:
+        raise ValueError("fused_hybrid_sweep_scan_factored: a CUDA scan "
+                         "needs the plan factored_scan_plan made on the "
+                         "host")
+    if plan.form == "factored":
+        return _factored_launch(cols, state, plan)
+    return _expanded_launch(cols, state, plan)
 
 
 # ---------------------------------------------------------------------------

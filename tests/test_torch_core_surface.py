@@ -12,10 +12,9 @@ import repro_torch.core as port_core
 
 REPO = Path(__file__).resolve().parents[1]
 NOT_PORTED = set()
-# the factored sweep: ROADMAP performance list, item P6
-POLICY_MATH_NOT_PORTED = {"HybridSweepBlock", "SweepIdentities",
-                          "hybrid_sweep_decide",
-                          "fused_hybrid_sweep_step_math"}
+# every name of the reference's policy_math is ported (the factored sweep
+# was the last)
+POLICY_MATH_NOT_PORTED = set()
 
 
 @pytest.fixture(scope="module")
@@ -65,12 +64,8 @@ def test_module_surface_is_the_reference_surface(ref_core, module):
     theirs = importlib.import_module(f"repro.{module}")
     want = list(theirs.__all__)
     if module == "core.policy_math":
-        # the factored-sweep helpers are not ported (ROADMAP performance
-        # list, P6); every other name is, SPES and arima_window among them
         want = [n for n in want if n not in POLICY_MATH_NOT_PORTED]
-        assert set(want) <= set(mine.__all__)
-    else:
-        assert list(mine.__all__)[:len(want)] == want
+    assert list(mine.__all__)[:len(want)] == want
     for name in want:
         obj = getattr(mine, name)
         if inspect.isclass(obj) or inspect.isfunction(obj):
