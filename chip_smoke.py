@@ -30,8 +30,16 @@ port's main paths:
   * serving Qwen2-7B the same way (phase ``serve_qwen2``), through a KV
     cache: every request must launch the attention kernel 28 times (the
     prefill) and the decode kernel 420 times (15 decode steps of 28
-    layers), and the logits of four decode steps are held to the plain
-    branches too;
+    layers, counted through the graph's replays), and the logits of four
+    decode steps are held to the plain branches too;
+  * in every serving phase, ``generate`` decodes through the engine's
+    executable cache: a CUDA graph of one decode step per (app,
+    ``max_len``, batch), captured at the first request after each load
+    (its seconds reported as ``capture_s``) and replayed for every later
+    step. Phase ``decode_graph``, run inside each serving phase on its
+    weights: the graph's tokens and logits over 15 greedy steps equal the
+    eager ``model.decode_step``'s from the same prefill bit for bit, with
+    the same launches a step by kernel and form, the two timed in turn;
   * serving OLMoE-1B-7B (phase ``serve_olmoe``, the MoE family: 64
     experts, top 8, at the ``depth_scaled`` draw, whose routing does not
     collapse) the same way: 16 attention and 240 decode launches a
@@ -109,7 +117,9 @@ switches off and the float32 matmul precision ``"highest"``.
 
 Then it times each kernel at its path's shapes beside its bound, its plain
 version and, where one exists, the one PyTorch call computing the same
-function (the fleet tick per call and back to back, the RG-LRU scan by
+function (the decode kernel with ``kv_len`` on the device, as the serving
+graphs launch it, beside the host-int form; the fleet tick per call and
+back to back, the RG-LRU scan by
 CUDA-graph replay and with its host work, the sweep scan's factored form
 at the sweep point beside its register form). Each phase prints one JSON
 line; any mismatch raises. The last lines are the kernel table, the
@@ -867,8 +877,9 @@ def decode_parity(device):
     OLMoE-1B-7B and SeamlessM4T-medium) at kv_len 4,097, 4,112 and 1, and
     a ragged cache (Skv 640, kv_len 600, which the TPU
     kernel gets wrong); f32 and bf16 at DECODE_TOL, each case's largest and
-    median |out| printed beside its error. Returns the largest absolute
-    difference seen."""
+    median |out| printed beside its error; in every case the launch with
+    kv_len on the device (the serve engine's form) equal to the host-int
+    launch bit for bit. Returns the largest absolute difference seen."""
     import torch
     from repro_torch.kernels import decode_attention as DA
 
@@ -884,8 +895,15 @@ def decode_parity(device):
             q, kc, vc = decode_inputs(*shape, getattr(torch, dtype), device,
                                       seed=70 + k)
             got = DA.decode_attention(q, kc, vc, kv_len)
+            on_device = DA.decode_attention(
+                q, kc, vc, torch.full((), kv_len, dtype=torch.int64,
+                                      device=device))
             want = DA.decode_attention_plain(q, kc, vc, kv_len)
             torch.cuda.synchronize()
+            if not torch.equal(on_device, got):
+                raise AssertionError(
+                    f"decode kernel with kv_len {kv_len} on the device "
+                    f"differs from the host-int launch at {shape}, {dtype}")
             got, want = got.float(), want.float()
             atol, rtol = decode_tol(dtype, want)
             torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
@@ -1084,9 +1102,14 @@ def serve(device, phase, arch, prefix, kernels, logits_rel_tol,
     memory that is not zero. For the MoE family the phase also prints each
     layer's routing agreement between the kernel and plain paths, the
     choices dropped by capacity, and the prefill seconds of the gather
-    dispatch beside the einsum one. Returns the stream's launches by
+    dispatch beside the einsum one. ``generate`` decodes by replaying the
+    executable cache's graph; the launches counted through the replays
+    must be each request's, the requests after each load report their
+    ``capture_s``, and :func:`decode_graph` (phase ``decode_graph``) holds
+    the graph to eager decode bit for bit after the stream; its gates join
+    the logits gates. Returns the stream's launches by
     kernel name, its launches by form, the number of requests and the
-    logits gates that failed (the phase line lists them too; the caller
+    gates that failed (the phase line lists them too; the caller
     fails the run once the later phases have run)."""
     import contextlib
     import torch
@@ -1171,6 +1194,12 @@ def serve(device, phase, arch, prefix, kernels, logits_rel_tol,
     warms = [q for q in requests if not q["cold"]]
     if not colds or not warms:
         raise AssertionError("the stream needs a cold and a warm request")
+    captures = [q["capture_s"] for q in requests if q["capture_s"] > 0]
+    if not captures:
+        raise AssertionError("no request of the stream captured its decode "
+                             "step")
+    graph = decode_graph(engine, f"{prefix}-{SERVE_STREAM[-1][1]}", cfg,
+                         tokens, phase)
 
     # the same prompt through the plain branches, on the same weights
     app = f"{prefix}-{SERVE_STREAM[-1][1]}"
@@ -1215,14 +1244,19 @@ def serve(device, phase, arch, prefix, kernels, logits_rel_tol,
             plain, _ = pmodel.prefill(params, tokens, max_len,
                                       embeds=frames)
         if decode_steps:
+            torch.cuda.synchronize()
+            t_dec = time.perf_counter()
             with routes() as k_dec_routes:
                 dec_got = decode_logits(kmodel, params, copied(state))
+            torch.cuda.synchronize()
+            teacher_forced_ms = 1e3 * (time.perf_counter() - t_dec) \
+                / decode_steps
             with routes() as p_dec_routes:
                 dec_plain = decode_logits(pmodel, params, copied(state))
     # every gate is evaluated and the phase line printed before the
     # failures go back to the caller, so that a failing run still reports
     # what it measured
-    failures = []
+    failures = list(graph.pop("failures"))
     got, plain = got.float(), plain.float()
     diff = float((got - plain).abs().max())
     scale = float(plain.abs().max())
@@ -1243,6 +1277,7 @@ def serve(device, phase, arch, prefix, kernels, logits_rel_tol,
                             f"{dec_scale})")
         decode_fields = dict(
             decode_steps_checked=decode_steps,
+            eager_teacher_forced_decode_ms_per_step=teacher_forced_ms,
             decode_logits_max_abs_diff_vs_plain=dec_diff,
             decode_logits_max_abs=dec_scale,
             decode_logits_max_abs_diff_by_step=[
@@ -1311,6 +1346,11 @@ def serve(device, phase, arch, prefix, kernels, logits_rel_tol,
          prefill_tokens_per_s=[SERVE_BATCH * SERVE_SEQ / s
                                for s in warm_prefill],
          decode_ms_per_step=[1e3 * s / (SERVE_NEW - 1) for s in warm_decode],
+         decode_timed_by="graph replays of the executable cache's entry "
+                         "(warm requests)",
+         capture_s=captures,
+         eager_decode_ms_per_step=graph["eager_ms_per_step"],
+         graph_decode_ms_per_step=graph["graph_ms_per_step"],
          peak_device_bytes=peak, launches=launches,
          launches_by_form=by_form, logits_max_abs_diff_vs_plain=diff,
          logits_max_abs=scale,
@@ -1322,6 +1362,116 @@ def serve(device, phase, arch, prefix, kernels, logits_rel_tol,
          gates_failed=failures)
     return launches, by_form, len(requests), [f"{phase}: {f}"
                                               for f in failures]
+
+
+def decode_graph(engine, app, cfg, tokens, phase):
+    """Phase ``decode_graph`` of a serving phase, on its last request's
+    app and prompt at full width: from one prefill each, SERVE_NEW - 1
+    greedy steps of the eager ``model.decode_step`` and of the executable
+    cache's entry (``ServeEngine._executables``: its graph, captured by
+    the stream), timed in turn in this process. Gates (in the returned
+    ``failures``): the graph's tokens and every step's logits equal the
+    eager ones bit for bit, and the graph's launches by kernel and form
+    per step equal the eager step's. Also: the entry's capture seconds,
+    the ms a step of each, the device ms a step and idle share of the
+    graph (torch.profiler over its replays), the ms of copying a prefill's
+    state into the entry's (what each request's prefill does) and the
+    state's bytes. The launches here are not the serving path's: the
+    counters are put back after."""
+    import torch
+    from repro_torch.serving.engine import _COUNTED, _copy_into, _tree
+
+    mods = _COUNTED                       # the model kernels' modules
+    model, params = engine._model(cfg), engine._loaded[app]
+    max_len = SERVE_SEQ + SERVE_NEW
+    steps = SERVE_NEW - 1
+    entry = engine._executables(app, max_len, SERVE_BATCH)
+    embeds = engine._frontend(cfg, tokens)
+
+    def counts():
+        return {m.__name__.rsplit(".", 1)[-1]: dict(
+            getattr(m, "LAUNCHES_BY_FORM", {}), all=m.LAUNCHES)
+            for m in mods}
+
+    def per_step(after, before):
+        return {k: {f: (n - before[k][f]) / steps for f, n in v.items()
+                    if n != before[k][f]}
+                for k, v in after.items() if v["all"] != before[k]["all"]}
+
+    with contextlib.ExitStack() as stack:
+        for m in mods:
+            stack.enter_context(uncounted(m))
+        with torch.inference_mode():
+            logits, state = model.prefill(params, tokens, max_len,
+                                          embeds=embeds)
+            tok = torch.argmax(logits, dim=-1)[:, 0]
+            eager_tok, eager_lg = [tok], []
+            torch.cuda.synchronize()
+            c0, t0 = counts(), time.perf_counter()
+            for _ in range(steps):
+                lg, state = model.decode_step(params, tok, state)
+                tok = torch.argmax(lg, dim=-1)
+                eager_tok.append(tok)
+                eager_lg.append(lg)
+            torch.cuda.synchronize()
+            eager_s, eager_launches = time.perf_counter() - t0, \
+                per_step(counts(), c0)
+            graph_tok = [entry.prefill(tokens, embeds)]
+            graph_lg = []
+            torch.cuda.synchronize()
+            c0, t0 = counts(), time.perf_counter()
+            for _ in range(steps):
+                graph_tok.append(entry.decode())
+                graph_lg.append(entry.logits.clone())
+            torch.cuda.synchronize()
+            graph_s, graph_launches = time.perf_counter() - t0, \
+                per_step(counts(), c0)
+            # the copy each request's prefill makes into the entry's state
+            # (of a fresh prefill: the profiled replays start at its pos)
+            del state
+            _, state = model.prefill(params, tokens, max_len, embeds=embeds)
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            _tree(_copy_into, entry.state, state)
+            b.record()
+            b.synchronize()
+            copy_ms = a.elapsed_time(b)
+            nbytes = []
+            _tree(lambda t: nbytes.append(t.numel() * t.element_size()),
+                  entry.state)
+            state_bytes = sum(nbytes)
+            del state
+            prof = 4                      # < SERVE_NEW: inside the cache
+            dev = device_ms(lambda: [entry.decode() for _ in range(prof)])
+    failures = []
+    same_tokens = torch.equal(torch.stack(eager_tok, 1),
+                              torch.stack(graph_tok, 1))
+    same_logits = [torch.equal(x, y) for x, y in zip(eager_lg, graph_lg)]
+    if not (same_tokens and all(same_logits)):
+        failures.append(f"decode_graph: the graph's tokens (equal: "
+                        f"{same_tokens}) or logits (equal by step: "
+                        f"{same_logits}) differ from eager decode")
+    if graph_launches != eager_launches:
+        failures.append(f"decode_graph: {graph_launches} launches a graph "
+                        f"step, {eager_launches} an eager one")
+    graph_ms = 1e3 * graph_s / steps
+    dev_step = None if dev is None else {k: v / prof for k, v in dev.items()}
+    out = dict(serve_phase=phase, arch=cfg.arch_id, family=cfg.family,
+               steps=steps, tokens_equal=same_tokens,
+               logits_equal_by_step=same_logits,
+               capture_s=entry.capture_s,
+               eager_ms_per_step=1e3 * eager_s / steps,
+               graph_ms_per_step=graph_ms,
+               eager_launches_per_step=eager_launches,
+               graph_launches_per_step=graph_launches,
+               graph_device_ms_per_step=dev_step,
+               graph_idle_share=None if dev_step is None else
+               1.0 - sum(dev_step.values()) / graph_ms,
+               state_copy_ms=copy_ms, state_bytes=state_bytes,
+               gates_failed=failures)
+    emit("decode_graph", **out)
+    out["failures"] = failures
+    return out
 
 
 class recorded_routes:
@@ -3383,7 +3533,9 @@ def time_ssd(device):
 def time_decode(device, d=DECODE_SHAPE,
                 per_request=QWEN2_DECODE_PER_REQUEST):
     """The decode kernel at a serving shape ``d`` (bf16, the full 4,112-row
-    cache: Qwen2-7B's by default), its plain version, and
+    cache: Qwen2-7B's by default) with ``kv_len`` on the device, as the
+    serve engine's graph launches it, beside the host-int form it replaced
+    (timed in turns: host, device, device, host), its plain version, and
     scaled_dot_product_attention with enable_gqa, with the boolean kv_len
     mask and without one (the same function at kv_len = Skv), each SDPA
     backend pinned in turn (timed here
@@ -3417,13 +3569,23 @@ def time_decode(device, d=DECODE_SHAPE,
     sdpa = lambda q, k, v, **kw: F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         enable_gqa=True, **kw)
+    # the main path's form reads kv_len from the device (the serve engine's
+    # graph); the host-int form it replaced is timed beside it, in turns
+    kv_dev = torch.full((), kv_len, dtype=torch.int64, device=device)
     calls = {
         "kernel": (cycled(lambda q, k, v: DA.decode_attention(
+            q, k, v, kv_dev)), 200),
+        "kernel_host_kv_len": (cycled(lambda q, k, v: DA.decode_attention(
             q, k, v, kv_len)), 200),
         "plain": (cycled(lambda q, k, v: DA.decode_attention_plain(
-            q, k, v, kv_len)), 24)}
+            q, k, v, kv_dev)), 24)}
     with uncounted(DA):
-        device_ms = {k: graph_ms(fn, reps) for k, (fn, reps) in calls.items()}
+        turns = {"kernel": [], "kernel_host_kv_len": []}
+        for name in ("kernel_host_kv_len", "kernel", "kernel",
+                     "kernel_host_kv_len"):
+            turns[name].append(graph_ms(*calls[name]))
+        device_ms = {k: statistics.mean(v) for k, v in turns.items()}
+        device_ms["plain"] = graph_ms(*calls["plain"])
         call_ms = {k: launch_ms(fn, reps) for k, (fn, reps) in calls.items()}
         # the kernel at other split lengths (the wrapper's is SPLIT_KEYS)
         split_ms, chosen = {}, DA.SPLIT_KEYS
@@ -3452,7 +3614,12 @@ def time_decode(device, d=DECODE_SHAPE,
     kernel_ms, plain_ms = device_ms["kernel"], device_ms["plain"]
     out = dict(shape=[B, Skv, Hq, Hkv, D], kv_len=kv_len, dtype="bfloat16",
                form=DA._form(*bufs[0]), split_keys=chosen,
-               kernel_ms=kernel_ms, kernel_ms_by_split_keys=split_ms,
+               kernel_ms=kernel_ms, kv_len_on="device",
+               kernel_ms_turns=turns["kernel"],
+               host_kv_len_ms=device_ms["kernel_host_kv_len"],
+               host_kv_len_ms_turns=turns["kernel_host_kv_len"],
+               host_kv_len_call_ms=call_ms["kernel_host_kv_len"],
+               kernel_ms_by_split_keys=split_ms,
                plain_ms=plain_ms, library_ms=best[0], library_call=best[1],
                library_backend=best[2], library_ms_by_backend=lib,
                timed_by="CUDA graph replay (device only)",
@@ -4387,13 +4554,16 @@ def main() -> int:
         "launches_by_path": {"qwen2": qwen2_forms["decode_attention"],
                              "olmoe": olmoe_forms["decode_attention"],
                              "seamless": seamless_forms["decode_attention"]},
+        # ms with kv_len on the device (the main path's graph), the
+        # host-int form it replaced beside it
         "max_abs_err": decode_err, "ms": da["kernel_ms"],
+        "host_kv_len_ms": da["host_kv_len_ms"],
         "plain_ms": da["plain_ms"], "bound_ms": da["bound_ms"],
         "bound_by": da["bound_by"], "library_ms": da["library_ms"],
         "library_backend": da["library_backend"],
         **{name: {k: t[k] for k in (
-            "kernel_ms", "plain_ms", "library_ms", "library_backend",
-            "bound_ms", "bound_by")} for name, t in (
+            "kernel_ms", "host_kv_len_ms", "plain_ms", "library_ms",
+            "library_backend", "bound_ms", "bound_by")} for name, t in (
                 ("olmoe", da_ol), ("seamless", da_sm))}}, {
         "name": "policy_update", "route": "cuda",
         "source": csrc + "policy_update.cu",

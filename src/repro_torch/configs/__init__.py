@@ -25,5 +25,22 @@ def get(arch_id: str) -> ModelConfig:
     return ARCHS[arch_id]
 
 
-__all__ = ["ARCHS", "SHAPES", "SUBQUADRATIC", "get", "ModelConfig",
+def cells(include_skipped: bool = False):
+    """Yield every (arch_id, shape_name) dry-run cell; with
+    ``include_skipped`` every (arch_id, shape_name, status) with status
+    ``"run"`` or ``"skip:full-attention"`` (long_500k on a pure
+    full-attention arch)."""
+    for arch_id in ARCHS:
+        for shape in SHAPES.values():
+            if shape.name == "long_500k" and arch_id not in SUBQUADRATIC:
+                if include_skipped:
+                    yield arch_id, shape.name, "skip:full-attention"
+                continue
+            if include_skipped:
+                yield arch_id, shape.name, "run"
+            else:
+                yield arch_id, shape.name
+
+
+__all__ = ["ARCHS", "SHAPES", "SUBQUADRATIC", "get", "cells", "ModelConfig",
            "ShapeConfig", "reduced"]

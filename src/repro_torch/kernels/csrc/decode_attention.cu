@@ -10,7 +10,11 @@
 // would copy each layer's whole cache every step). kv_len is a launch
 // argument: one build serves every fill level, and any Skv and kv_len in
 // [1, Skv] is taken (the TPU kernel visits keys only up to a multiple of
-// its block and at Skv = 4,112 misses the last 16).
+// its block and at Skv = 4,112 misses the last 16). kv_len is either a
+// launch argument or, for a CUDA graph that replays one launch at every fill
+// level (the serve engine's captured decode step), an int64 in device
+// memory that each block reads (clamped to [0, Skv]); the grid then covers
+// the whole cache, ceil(Skv / split_len) splits, the size of the scratch.
 //
 // Bound on an H100: bytes. At the serving path's shape (B=2, Hq=28, Hkv=4,
 // D=128, kv_len=4,112, bf16) a call must read K and V up to kv_len, 16.8 MB,
@@ -26,8 +30,12 @@
 // group chunk) to finish, found by a __threadfence and an atomicAdd on an
 // int32 counter, merges the splits and writes the output; it resets the
 // counter to 0, so the next call and every CUDA-graph replay find it
-// zeroed. Only splits that start below kv_len are launched; keys at or past
-// kv_len are masked (their rows staged as zeros).
+// zeroed. With kv_len a launch argument only the splits that start below it
+// are launched; with kv_len in device memory a block whose split starts at
+// or past it writes no partial and only counts itself in, and the merge
+// reads the ceil(kv_len / split_len) live splits, so every launched block
+// arrives at the counter once and the counter is reset on every replay.
+// Keys at or past kv_len are masked (their rows staged as zeros).
 //
 // Bytes in flight: at the serving shape 11 splits x 8 (b, kv head) = 88
 // blocks, one an SM. Each block issues all of its split at once: 8 warps x
@@ -116,6 +124,16 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// kv_len of this launch: `kv_cap`, or the int64 at `kv_len_dev` clamped to
+// [0, kv_cap] (kv_cap is Skv then: no key past the cache is read, whatever
+// the device holds).
+__device__ __forceinline__ int live_len(int kv_cap,
+                                        const int64_t* kv_len_dev) {
+  if (kv_len_dev == nullptr) return kv_cap;
+  const int64_t n = *kv_len_dev;
+  return (int)(n < 0 ? 0 : n > kv_cap ? kv_cap : n);
+}
+
 // ---------------------------------------------------------------------------
 // The merge of the splits, by the last block of each (b, kv head, chunk)
 // ---------------------------------------------------------------------------
@@ -141,7 +159,8 @@ __device__ bool last_block(int* counter, int n_splits) {
 }
 
 // out[row0 + h] = sum_s e(m_s - M) acc_s / max(sum_s e(m_s - M) l_s, 1e-30)
-// for the nh heads from row0 (rows of [B * Hq]), M the largest m_s; e is
+// over the first n_live splits (row stride n_splits) for the nh heads from
+// row0 (rows of [B * Hq]), M the largest m_s; e is
 // 2^x (LOG2: m in log2 units) or e^x. The partials were written by other
 // blocks: read from L2 (__ldcg). One pass: each of the NTHREADS threads
 // owns (head, V-column) outputs and merges the splits into a running max,
@@ -185,7 +204,7 @@ __device__ __forceinline__ void load_split(const float* mr, const float* lr,
 template <typename T, bool LOG2, int V, int NTHREADS>
 __device__ void merge_splits(const float* m_part, const float* l_part,
                              const float* acc_part, T* out, int64_t row0,
-                             int nh, int D, int n_splits) {
+                             int nh, int D, int n_splits, int n_live) {
   constexpr int kBatch = 12;        // splits of loads in flight a thread
   const int per_row = D / V;
   for (int p = threadIdx.x; p < nh * per_row; p += NTHREADS) {
@@ -195,11 +214,11 @@ __device__ void merge_splits(const float* m_part, const float* l_part,
     const float* lr = l_part + row * n_splits;
     const float* ar = acc_part + row * n_splits * D + c;
     Running<V> run;
-    for (int s0 = 0; s0 < n_splits; s0 += kBatch) {
+    for (int s0 = 0; s0 < n_live; s0 += kBatch) {
       float ms[kBatch], ls[kBatch], x[kBatch][V];
 #pragma unroll
       for (int j = 0; j < kBatch; ++j) {
-        if (s0 + j < n_splits) {
+        if (s0 + j < n_live) {
           load_split<V>(mr, lr, ar, s0 + j, D, ms[j], ls[j], x[j]);
         } else {
           ms[j] = kNegInf;
@@ -243,9 +262,10 @@ decode_attention_mma_kernel(
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
     float* __restrict__ m_part, float* __restrict__ l_part,
     float* __restrict__ acc_part, int* __restrict__ counters, int Hq,
-    int group, int kv_len, int split_len, int n_splits, int n_gchunks,
-    int64_t qsb, int64_t qsh, int64_t ksb, int64_t kss, int64_t ksh,
-    int64_t vsb, int64_t vss, int64_t vsh, float scale_log2) {
+    int group, int kv_cap, const int64_t* __restrict__ kv_len_dev,
+    int split_len, int n_splits, int n_gchunks, int64_t qsb, int64_t qsh,
+    int64_t ksb, int64_t kss, int64_t ksh, int64_t vsb, int64_t vss,
+    int64_t vsh, float scale_log2) {
   constexpr int LDS = DP + 8;                    // padded row, elements
   constexpr int kRows = kKeysPerWarp * LDS;      // one warp's K (or V) slot
   constexpr int kChunksPerLane = kKeysPerWarp * DP / 8 / 32;
@@ -262,6 +282,16 @@ decode_attention_mma_kernel(
   const int h0 = kvh * group + g0;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
+  const int kv_len = live_len(kv_cap, kv_len_dev);
+  const int n_live = (kv_len + split_len - 1) / split_len;
+  const int64_t row0 = (int64_t)b * Hq + h0;
+  int* counter = counters + ((int64_t)b * gridDim.y + blockIdx.y);
+  if (split >= n_live) {             // no live key: no partial, count in
+    if (last_block(counter, n_splits))
+      merge_splits<__nv_bfloat16, true, 4, kMmaThreads>(
+          m_part, l_part, acc_part, out, row0, ng, DP, n_splits, n_live);
+    return;
+  }
 
   // q^T's B fragments (k = d, n = head), held for the whole loop
   uint32_t qf[NT][KS][2];
@@ -468,7 +498,6 @@ decode_attention_mma_kernel(
     wl[tid] = ll;
   }
   __syncthreads();
-  const int64_t row0 = (int64_t)b * Hq + h0;
   for (int i = tid; i < ng * DP; i += kMmaThreads) {
     const int hd = i / DP, d = i - hd * DP;
     float a = 0.0f;
@@ -482,10 +511,9 @@ decode_attention_mma_kernel(
       l_part[row * n_splits + split] = wl[hd];
     }
   }
-  int* counter = counters + ((int64_t)b * gridDim.y + blockIdx.y);
   if (!last_block(counter, n_splits)) return;
   merge_splits<__nv_bfloat16, true, 4, kMmaThreads>(
-      m_part, l_part, acc_part, out, row0, ng, DP, n_splits);
+      m_part, l_part, acc_part, out, row0, ng, DP, n_splits, n_live);
 }
 
 // ---------------------------------------------------------------------------
@@ -501,6 +529,19 @@ constexpr int core_smem_bytes() {
          (kG * DP + kKT * (DP + 1) + kKT * DP + kG * kKT + kG);
 }
 
+// The CUDA-core form's merge: float4 loads where D allows them.
+template <typename T>
+__device__ void merge_core(const float* m_part, const float* l_part,
+                           const float* acc_part, T* out, int64_t row0,
+                           int nh, int D, int n_splits, int n_live) {
+  if (D % 4 == 0)
+    merge_splits<T, false, 4, kThreads>(m_part, l_part, acc_part, out, row0,
+                                        nh, D, n_splits, n_live);
+  else
+    merge_splits<T, false, 1, kThreads>(m_part, l_part, acc_part, out, row0,
+                                        nh, D, n_splits, n_live);
+}
+
 // One block: (split, kv head x group chunk, batch row). Writes the split's
 // running max (natural units), sum and unnormalised output of each of its
 // q heads and, in the last block, the merged output.
@@ -510,10 +551,10 @@ decode_attention_core_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ out, float* __restrict__ m_part,
     float* __restrict__ l_part, float* __restrict__ acc_part,
-    int* __restrict__ counters, int Hq, int group, int D, int kv_len,
-    int split_len, int n_splits, int n_gchunks, int64_t qsb, int64_t qsh,
-    int64_t ksb, int64_t kss, int64_t ksh, int64_t vsb, int64_t vss,
-    int64_t vsh, float q_div) {
+    int* __restrict__ counters, int Hq, int group, int D, int kv_cap,
+    const int64_t* __restrict__ kv_len_dev, int split_len, int n_splits,
+    int n_gchunks, int64_t qsb, int64_t qsh, int64_t ksb, int64_t kss,
+    int64_t ksh, int64_t vsb, int64_t vss, int64_t vsh, float q_div) {
   extern __shared__ float smem[];
   float* qs = smem;                          // [kG][DP], q / sqrt(D)
   float* ks = qs + kG * DP;                  // [kKT][DP + 1]
@@ -528,6 +569,16 @@ decode_attention_core_kernel(
   const int ng = min(kG, group - g0);        // live q heads of this block
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int h0 = kvh * group + g0;           // first q head of this block
+  const int64_t row0 = (int64_t)b * Hq + h0;  // (b, first q head) row
+  const int kv_len = live_len(kv_cap, kv_len_dev);
+  const int n_live = (kv_len + split_len - 1) / split_len;
+  int* counter = counters + ((int64_t)b * gridDim.y + blockIdx.y);
+  if (split >= n_live) {                     // no live key: count in only
+    if (last_block(counter, n_splits)) merge_core(m_part, l_part, acc_part,
+                                                  out, row0, ng, D, n_splits,
+                                                  n_live);
+    return;
+  }
 
   for (int i = tid; i < kG * DP; i += kThreads) {
     const int g = i / DP, d = i - g * DP;
@@ -608,7 +659,6 @@ decode_attention_core_kernel(
     }
   }
 
-  const int64_t row0 = (int64_t)b * Hq + h0;  // (b, first q head) row
   if (lane == 0) {
     if (warp < ng) {
       m_part[(row0 + warp) * n_splits + split] = m0;
@@ -628,14 +678,8 @@ decode_attention_core_kernel(
       if (g < ng)
         acc_part[((row0 + g) * n_splits + split) * D + d] = acc[g][c];
   }
-  int* counter = counters + ((int64_t)b * gridDim.y + blockIdx.y);
   if (!last_block(counter, n_splits)) return;
-  if (D % 4 == 0)
-    merge_splits<T, false, 4, kThreads>(m_part, l_part, acc_part, out, row0,
-                                        ng, D, n_splits);
-  else
-    merge_splits<T, false, 1, kThreads>(m_part, l_part, acc_part, out, row0,
-                                        ng, D, n_splits);
+  merge_core(m_part, l_part, acc_part, out, row0, ng, D, n_splits, n_live);
 }
 
 // ---------------------------------------------------------------------------
@@ -651,7 +695,9 @@ struct Args {
   float* l_part;
   float* acc_part;
   int* counters;
-  int B, Hq, Hkv, D, kv_len, split_len, n_splits;
+  int B, Hq, Hkv, D, kv_len;
+  const int64_t* kv_len_dev;
+  int split_len, n_splits;
   const int64_t* st;
 };
 
@@ -669,9 +715,9 @@ int launch_mma(const Args& a, float scale_log2, cudaStream_t stream) {
       <<<grid, kMmaThreads, smem, stream>>>(
       (const __nv_bfloat16*)a.q, (const __nv_bfloat16*)a.k,
       (const __nv_bfloat16*)a.v, (__nv_bfloat16*)a.out, a.m_part, a.l_part,
-      a.acc_part, a.counters, a.Hq, group, a.kv_len, a.split_len, a.n_splits,
-      n_gchunks, a.st[0], a.st[1], a.st[2], a.st[3], a.st[4], a.st[5],
-      a.st[6], a.st[7], scale_log2);
+      a.acc_part, a.counters, a.Hq, group, a.kv_len, a.kv_len_dev,
+      a.split_len, a.n_splits, n_gchunks, a.st[0], a.st[1], a.st[2], a.st[3],
+      a.st[4], a.st[5], a.st[6], a.st[7], scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -703,8 +749,8 @@ int launch_core(const Args& a, float q_div, cudaStream_t stream) {
   decode_attention_core_kernel<T, DP><<<grid, kThreads, smem, stream>>>(
       (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.out, a.m_part,
       a.l_part, a.acc_part, a.counters, a.Hq, group, a.D, a.kv_len,
-      a.split_len, a.n_splits, n_gchunks, a.st[0], a.st[1], a.st[2], a.st[3],
-      a.st[4], a.st[5], a.st[6], a.st[7], q_div);
+      a.kv_len_dev, a.split_len, a.n_splits, n_gchunks, a.st[0], a.st[1],
+      a.st[2], a.st[3], a.st[4], a.st[5], a.st[6], a.st[7], q_div);
   return (int)cudaGetLastError();
 }
 
@@ -726,15 +772,18 @@ extern "C" {
 // (batch, head), k (batch, seq, head), v (batch, seq, head). m_part,
 // l_part [B, Hq, n_splits] and acc_part [B, Hq, n_splits, D] are f32
 // scratch; counters holds at least B * Hq int32 zeros (left zeroed); out is
-// a contiguous [B, 1, Hq, D]. n_splits must be ceil(kv_len / split_len),
-// split_len a multiple of 32. q_div = sqrt(D) (CUDA cores), scale_log2 =
-// log2(e) / sqrt(D) (tensor cores). Returns 0, a CUDA error code, or one of
-// the negative argument codes above.
+// a contiguous [B, 1, Hq, D]. kv_len_dev null: kv_len keys are live. Else
+// kv_len must be Skv and the int64 at kv_len_dev (device memory, read by the
+// kernel, clamped to [0, Skv]) gives the live keys. n_splits must be
+// ceil(kv_len / split_len), split_len a multiple of 32. q_div = sqrt(D)
+// (CUDA cores), scale_log2 = log2(e) / sqrt(D) (tensor cores). Returns 0, a
+// CUDA error code, or one of the negative argument codes above.
 int decode_attention_fwd(const void* q, const void* k, const void* v,
                          void* out, void* m_part, void* l_part,
                          void* acc_part, void* counters, int form, int dtype,
                          int B, int Hq, int Hkv, int D, int Skv, int kv_len,
-                         int split_len, int n_splits, int64_t qsb,
+                         const void* kv_len_dev, int split_len, int n_splits,
+                         int64_t qsb,
                          int64_t qsh, int64_t ksb, int64_t kss, int64_t ksh,
                          int64_t vsb, int64_t vss, int64_t vsh, float q_div,
                          float scale_log2, void* stream) {
@@ -742,14 +791,15 @@ int decode_attention_fwd(const void* q, const void* k, const void* v,
   if (B < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0 || B > 65535 ||
       Skv < 1 || split_len < kKT || split_len % kKT != 0)
     return kErrShape;
-  if (kv_len < 1 || kv_len > Skv) return kErrKvLen;
+  if (kv_len < 1 || kv_len > Skv || (kv_len_dev && kv_len != Skv))
+    return kErrKvLen;
   if (n_splits != (kv_len + split_len - 1) / split_len) return kErrShape;
   if ((int64_t)Hkv * ((Hq / Hkv + kG - 1) / kG) > 65535) return kErrShape;
   if (dtype != 0 && dtype != 1) return kErrDtype;
   const int64_t st[8] = {qsb, qsh, ksb, kss, ksh, vsb, vss, vsh};
   const Args a{q, k, v, out, (float*)m_part, (float*)l_part,
                (float*)acc_part, (int*)counters, B, Hq, Hkv, D, kv_len,
-               split_len, n_splits, st};
+               (const int64_t*)kv_len_dev, split_len, n_splits, st};
   cudaStream_t s = (cudaStream_t)stream;
   if (form == 1) {
     if (dtype != 1) return kErrDtype;
@@ -773,7 +823,8 @@ const char* decode_attention_error_string(int code) {
     case kErrShape: return "unsupported shape";
     case kErrDtype: return "dtype must be float32 or bfloat16 (tensor-core "
                            "form: bfloat16)";
-    case kErrKvLen: return "kv_len must be in [1, Skv]";
+    case kErrKvLen: return "kv_len must be in [1, Skv] (Skv with a device "
+                           "kv_len)";
     case kErrLayout: return "tensor-core form: strides must be multiples of "
                             "8 elements and pointers 16-byte aligned";
     default: return cudaGetErrorString((cudaError_t)code);

@@ -18,7 +18,13 @@ Both take the model's layout, q ``[B,1,Hq,D]`` and the caches ``[B,Skv,
 Hkv,D]``, where the reference's kernel and oracle take ``[B,Hkv,group,D]``
 and ``[B,Hkv,Skv,D]``. ``kv_len`` is a host int in ``[1, Skv]``: the two
 reference forms disagree below 1 (the kernel gives 0, the oracle the mean
-of v), so both versions here reject it.
+of v), so both versions here reject it. Or it is a one-element int64
+tensor on q's device (the decode step's position plus one, as the serve
+engine's captured CUDA graph carries it): never read on the host, so not
+checked there; it must hold a value in ``[1, Skv]`` (the kernel clamps it to
+``[0, Skv]``). The kernel then launches a block per split of the whole
+cache and each block reads the length, so that one launch, captured once,
+serves every fill level.
 """
 from __future__ import annotations
 
@@ -32,7 +38,7 @@ import torch
 from . import refuse_grad
 
 __all__ = ["LAUNCHES", "LAUNCHES_BY_FORM", "SPLIT_KEYS", "decode_attention",
-           "decode_attention_plain"]
+           "decode_attention_plain", "scratch_tensors"]
 
 #: Kernel launches made by this process (plain-version calls do not count).
 LAUNCHES = 0
@@ -59,7 +65,16 @@ _SCRATCH = {}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _kv_len(kv_len, Skv: int) -> int:
+def _kv_len(kv_len, Skv: int, device):
+    """``kv_len`` as the two versions take it: a host int checked against
+    ``[1, Skv]``, or a one-element int64 tensor on ``device`` as it is."""
+    if isinstance(kv_len, torch.Tensor):
+        if kv_len.numel() != 1 or kv_len.dtype != torch.int64 \
+                or kv_len.device != torch.device(device):
+            raise ValueError(f"decode_attention: a kv_len tensor must be one "
+                             f"int64 on {device}, got {kv_len.dtype} "
+                             f"{tuple(kv_len.shape)} on {kv_len.device}")
+        return kv_len
     n = operator.index(kv_len)
     if not 1 <= n <= Skv:
         raise ValueError(f"decode_attention: kv_len {n} is not in [1, "
@@ -71,10 +86,13 @@ def decode_attention_plain(q, k, v, kv_len):
     """The kernel's function in plain PyTorch ops, on any device (the port
     of ``repro/kernels/ref.py::decode_attention_ref``): q ``[B,1,Hq,D]``,
     k/v ``[B,Skv,Hkv,D]`` -> ``[B,1,Hq,D]`` in q's dtype; softmax in f32
-    over the keys ``j < kv_len``, masked logits -1e30."""
+    over the keys ``j < kv_len`` (a host int, or a one-element int64
+    tensor on q's device, compared on the device), masked logits -1e30."""
     B, _, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    n = _kv_len(kv_len, Skv)
+    n = _kv_len(kv_len, Skv, q.device)
+    if isinstance(n, torch.Tensor):
+        n = n.reshape(())
     qf = q[:, 0].float().reshape(B, Hkv, Hq // Hkv, D) / math.sqrt(D)
     s = torch.einsum("bhgd,bkhd->bhgk", qf, k.float())
     live = torch.arange(Skv, device=q.device) < n
@@ -126,6 +144,15 @@ def _form(q, k, v) -> str:
     return "tensor_cores" if aligned else "cuda_cores"
 
 
+def scratch_tensors(device) -> list:
+    """Every scratch tensor kept for ``device``: what a CUDA graph of this
+    kernel's launches there reads and writes besides its arguments (the
+    serve engine's cache entries hold them)."""
+    dev = torch.device(device)
+    return [t for key, bufs in _SCRATCH.items() if key[0] == dev
+            for t in bufs]
+
+
 def _scratch(device, B: int, Hq: int, max_splits: int, D: int):
     """The scratch of calls of this shape: made at the first and reused by
     every later one (a new shape gets its own)."""
@@ -146,8 +173,9 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("decode_attention")
     if not getattr(lib, "_typed", False):
         fn = lib.decode_attention_fwd
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + \
-            [ctypes.c_int64] * 8 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + \
+            [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_int64] * 8 + \
+            [ctypes.c_float] * 2 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.decode_attention_error_string.argtypes = [ctypes.c_int]
         lib.decode_attention_error_string.restype = ctypes.c_char_p
@@ -155,13 +183,16 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _launch(q, k, v, n: int):
+def _launch(q, k, v, n):
     global LAUNCHES
     _check_cuda_args(q, k, v)
     lib = _lib()
     B, _, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     form = _form(q, k, v)
+    # a device kv_len: the grid covers the whole cache, the kernel reads it
+    n, n_ptr = (Skv, n.data_ptr()) if isinstance(n, torch.Tensor) \
+        else (n, None)
     n_splits = -(-n // SPLIT_KEYS)
     out = torch.empty((B, 1, Hq, D), dtype=q.dtype, device=q.device)
     scratch = _scratch(q.device, B, Hq, -(-Skv // SPLIT_KEYS), D)
@@ -174,7 +205,7 @@ def _launch(q, k, v, n: int):
         rc = lib.decode_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             *(x.data_ptr() for x in scratch), _FORM_CODE[form],
-            _DTYPE_CODE[q.dtype], B, Hq, Hkv, D, Skv, n, SPLIT_KEYS,
+            _DTYPE_CODE[q.dtype], B, Hq, Hkv, D, Skv, n, n_ptr, SPLIT_KEYS,
             n_splits, *strides, q_div, math.log2(math.e) / math.sqrt(D),
             stream)
     if rc != 0:
@@ -189,8 +220,9 @@ def decode_attention(q, k, v, kv_len):
     """One query token per sequence against a KV cache in the model's
     layout: q ``[B,1,Hq,D]``, k/v ``[B,Skv,Hkv,D]`` (f32 or bf16, last
     dimension contiguous, any other strides), ``kv_len`` a host int in
-    ``[1, Skv]`` -> ``[B,1,Hq,D]`` in q's dtype; q head h reads KV head
-    h // (Hq / Hkv) over the keys ``j < kv_len``.
+    ``[1, Skv]`` or a one-element int64 tensor on q's device holding one
+    (read on the device only) -> ``[B,1,Hq,D]`` in q's dtype; q head h
+    reads KV head h // (Hq / Hkv) over the keys ``j < kv_len``.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel in
     the form :func:`_form` picks (and count one launch in ``LAUNCHES`` and
@@ -198,7 +230,7 @@ def decode_attention(q, k, v, kv_len):
     An input that requires grad, in grad mode, raises on either device
     (:func:`refuse_grad`)."""
     refuse_grad("decode_attention", q, k, v)
-    n = _kv_len(kv_len, k.shape[1])
+    n = _kv_len(kv_len, k.shape[1], q.device)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, n)
     if q.device.type == "cuda":

@@ -45,6 +45,13 @@ CHUNKED_Q_THRESHOLD = 8192
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _per_batch(x):
+    """An int, or a tensor (0-d or per batch row) as [1 or B, 1, 1]: no
+    host-to-device copy, so the decode step stays capturable in a CUDA
+    graph."""
+    return x.reshape(-1, 1, 1) if isinstance(x, torch.Tensor) else x
+
+
 def _band(q_pos, k_pos, causal: bool, window: int, kv_len=None):
     mask = torch.ones(torch.broadcast_shapes(q_pos.shape, k_pos.shape),
                       dtype=torch.bool, device=q_pos.device)
@@ -53,8 +60,7 @@ def _band(q_pos, k_pos, causal: bool, window: int, kv_len=None):
     if window and window > 0:
         mask &= k_pos > q_pos - window
     if kv_len is not None:
-        mask = mask & (k_pos < torch.as_tensor(kv_len, device=k_pos.device)
-                       .reshape(-1, 1, 1))
+        mask = mask & (k_pos < _per_batch(kv_len))
     return mask
 
 
@@ -76,7 +82,7 @@ def _sdpa_chunked(q, k, v, *, causal: bool, window: int, q_offset,
     Skv = k.shape[1]
     k_pos = torch.arange(Skv, device=q.device)[None, None, :]
     kf, vf = k.float(), v.float()
-    offset = torch.as_tensor(q_offset, device=q.device).reshape(-1, 1, 1)
+    offset = _per_batch(q_offset)
     outs = []
     for i in range(Sq // q_block):
         qf = q[:, i * q_block:(i + 1) * q_block].float() / math.sqrt(hd)
@@ -107,8 +113,7 @@ def sdpa(q, k, v, *, causal: bool, window: int, q_offset=0, kv_len=None):
         return _sdpa_chunked(q, k, v, causal=causal, window=window,
                              q_offset=q_offset, kv_len=kv_len)
     qf = q.float() / math.sqrt(hd)
-    offset = torch.as_tensor(q_offset, device=q.device).reshape(-1, 1, 1)
-    q_pos = torch.arange(Sq, device=q.device)[:, None] + offset
+    q_pos = torch.arange(Sq, device=q.device)[:, None] + _per_batch(q_offset)
     k_pos = torch.arange(Skv, device=q.device)[None, None, :]
     out = _softmax_attend(qf, k.float(), v.float(),
                           _band(q_pos, k_pos, causal, window, kv_len))

@@ -16,9 +16,13 @@ Qwen3-MoE), encoder-decoder (SeamlessM4T), hybrid (RecurrentGemma) and SSM
     ``kv_source`` makes it cross-attention over a memory (no RoPE, no
     cache, not causal);
   * a KV cache is ``{"k": [per layer [B, max_len, Hkv, hd]], "v": ...,
-    "pos": int}``: one preallocated tensor pair per layer (the reference
-    stacks them ``[n_layers, ...]``), written in place, with ``pos`` a host
-    int.
+    "pos": ...}``: one preallocated tensor pair per layer (the reference
+    stacks them ``[n_layers, ...]``), written in place. ``pos`` is a 0-d
+    int64 tensor on the cache's device after a prefill (the reference's
+    jitted steps carry it as an array), so that a decode step reads it on
+    the device only and a CUDA graph of the step replays at every
+    position (:func:`step_positions`, :func:`write_rows`); the zero
+    stand-ins of ``make_cache`` and the dry-run keep a host int 0.
 
 Training: the cross-entropy losses (:func:`softmax_xent`, and
 :func:`softmax_xent_chunked`, which never holds the ``[B, S, V]`` logits)
@@ -54,8 +58,9 @@ from ..kernels.flash_attention import sdpa
 
 __all__ = ["FP32_AT_USE", "fp32_at_use", "compute_dtype", "Linear",
            "RMSNorm", "Attention", "MLP", "Embedding", "normal_", "linear",
-           "rmsnorm", "causal_conv", "rope", "attention_apply", "make_cache",
-           "mlp_apply", "embed", "unembed", "_sdpa", "remat", "softmax_xent",
+           "rmsnorm", "causal_conv", "rope", "device_pos", "step_positions",
+           "write_rows", "attention_apply", "make_cache", "mlp_apply",
+           "embed", "unembed", "_sdpa", "remat", "softmax_xent",
            "softmax_xent_chunked"]
 
 #: Parameter names that stay fp32 at use, matched against the last parts of
@@ -292,6 +297,33 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     return torch.cat([y1.to(x.dtype), y2.to(x.dtype)], dim=-1)
 
 
+def device_pos(n: int, device) -> torch.Tensor:
+    """A decode state's ``pos`` as a prefill leaves it: the 0-d int64 ``n``
+    on ``device``, made there by a fill (no host-to-device copy)."""
+    return torch.full((), n, dtype=torch.int64, device=device)
+
+
+def step_positions(pos, B: int, device) -> torch.Tensor:
+    """The [B, 1] int64 positions of a decode step at ``pos``: a 0-d device
+    tensor expanded (no host read), or a host int filled in."""
+    if isinstance(pos, torch.Tensor):
+        return pos.reshape(1, 1).expand(B, 1)
+    return torch.full((B, 1), pos, dtype=torch.int64, device=device)
+
+
+def write_rows(cache: torch.Tensor, at, x: torch.Tensor) -> None:
+    """``cache[:, at:at + S] = x`` in place (x [B, S, ...], cast to the
+    cache's dtype): a slice at a host int ``at``; at a 0-d device tensor,
+    ``index_copy_`` into the rows ``at + arange(S)``, read on the device
+    only."""
+    x = x.to(cache.dtype)
+    if isinstance(at, torch.Tensor):
+        rows = torch.arange(x.shape[1], device=cache.device) + at
+        cache.index_copy_(1, rows, x)
+    else:
+        cache[:, at:at + x.shape[1]] = x
+
+
 def attention_apply(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                     positions: torch.Tensor, *, causal: bool = True,
                     window: int = 0, cache=None, kv_source=None,
@@ -308,15 +340,19 @@ def attention_apply(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     under the reference's condition (``use_kernels``, S a multiple of 128,
     hd a multiple of 8, causal), otherwise the plain ``_sdpa``.
 
-    With ``cache = {"k", "v": [B, max_len, Hkv, hd], "pos": int}`` (one
-    layer's pair): this step's K/V are written IN PLACE at ``pos`` and the
-    queries attend over the cache, ``_sdpa(q, ck, cv, causal, q_offset=pos,
-    kv_len=pos+S)`` as in the reference; the caller advances ``pos``. Under
-    ``use_kernels`` (and no window) the kernel computing that function is
-    taken instead: at ``pos == 0`` under the condition above (the prefill),
-    ``flash_attention`` over the cache rows just written (every row at or
-    past S is masked); at ``S == 1`` (decode), ``decode_attention`` with
-    ``kv_len = pos + 1``."""
+    With ``cache = {"k", "v": [B, max_len, Hkv, hd], "pos": ...}`` (one
+    layer's pair; ``pos`` the prefill's host int 0, or a decode step's 0-d
+    device tensor): this step's K/V are written IN PLACE at ``pos``
+    (:func:`write_rows`) and the queries attend over the cache,
+    ``_sdpa(q, ck, cv, causal, q_offset=pos, kv_len=pos+S)`` as in the
+    reference; the caller advances ``pos``. The cache's capacity is the
+    caller's to respect (``ServeEngine.generate`` checks it on the host):
+    a device ``pos`` is never read here. Under ``use_kernels`` (and no
+    window) the kernel computing that function is taken instead: at
+    ``pos == 0`` under the condition above (the prefill), ``flash_attention``
+    over the cache rows just written (every row at or past S is masked); at
+    ``S == 1`` (decode), ``decode_attention`` with ``kv_len = pos + 1``
+    (a device tensor where ``pos`` is one)."""
     B, S, _ = x.shape
     hd = cfg.hd
     x = _gather_inner(x)           # once for the three projections
@@ -337,21 +373,22 @@ def attention_apply(p: Attention, cfg: ModelConfig, x: torch.Tensor,
         else:
             out = _sdpa(q, k, v, causal=causal, window=window, q_offset=0)
     else:
-        pos = int(cache["pos"])
+        pos = cache["pos"]
         ck, cv = cache["k"], cache["v"]
-        if pos + S > ck.shape[1]:
-            raise ValueError(f"KV cache of {ck.shape[1]} positions is full: "
-                             f"{S} more at position {pos}")
         sharded = dist_decode.applicable(ck.shape[1], S)
         if not sharded:
-            ck[:, pos:pos + S] = k.to(ck.dtype)
-            cv[:, pos:pos + S] = v.to(cv.dtype)
+            write_rows(ck, pos, k)
+            write_rows(cv, pos, v)
         kernels = cfg.use_kernels and not window
         if sharded:
             # sequence-sharded cache: the owning rank writes, every rank
-            # attends over its block, log-sum-exp merge (dist_decode)
-            out, _, _ = dist_decode.decode_attention(q, k, v, ck, cv, pos)
-        elif kernels and pos == 0 and flash_ok:
+            # attends over its block, log-sum-exp merge (dist_decode, which
+            # takes a host position)
+            out, _, _ = dist_decode.decode_attention(q, k, v, ck, cv,
+                                                     int(pos))
+        elif kernels and flash_ok and pos == 0:
+            # (flash_ok first: a decode step's device pos is never compared
+            # on the host)
             out = kops.flash_attention(q, ck[:, :S], cv[:, :S])
         elif kernels and S == 1:
             out = kops.decode_attention(q, ck, cv, pos + 1)
@@ -364,7 +401,8 @@ def attention_apply(p: Attention, cfg: ModelConfig, x: torch.Tensor,
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
                dtype, device=None):
     """Zero KV cache of capacity ``max_len``: per layer ``k`` and ``v``
-    ``[batch, max_len, Hkv, hd]`` in ``dtype``; ``pos`` 0. Under a mesh
+    ``[batch, max_len, Hkv, hd]`` in ``dtype``; ``pos`` the host int 0 (a
+    prefill hands its cache on with a device ``pos``). Under a mesh
     each is a DTensor placed by ``sharding.cache_specs_tree``."""
     device = resolve_device(device)
     shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)

@@ -238,7 +238,8 @@ def init_state(cfg: ModelConfig, batch: int, dtype, device=None) -> Dict:
 
 def prefill(cfg: ModelConfig, params: SSMParams, tokens, max_len: int = 0):
     """Prompt pass: last-token logits [B, 1, vocab] and the decode state
-    (per layer ``ssm`` and ``conv``; ``pos`` = S). The state is O(1) in the
+    (per layer ``ssm`` and ``conv``; ``pos`` = S, a 0-d device tensor).
+    The state is O(1) in the
     sequence length and does not depend on ``max_len``."""
     x = L.embed(params.embed, tokens, L.compute_dtype(cfg))
     ssms, convs = [], []
@@ -248,7 +249,8 @@ def prefill(cfg: ModelConfig, params: SSMParams, tokens, max_len: int = 0):
         convs.append(ns["conv"])
     x = L.rmsnorm(params.ln_f, x[:, -1:], cfg.norm_eps)
     logits = L.unembed(params.embed, x)
-    return logits, {"ssm": ssms, "conv": convs, "pos": tokens.shape[1]}
+    return logits, {"ssm": ssms, "conv": convs,
+                    "pos": L.device_pos(tokens.shape[1], x.device)}
 
 
 def decode_step(cfg: ModelConfig, params: SSMParams, token, cache):

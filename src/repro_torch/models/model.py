@@ -14,7 +14,9 @@ encoder-decoder: SeamlessM4T; hybrid: RecurrentGemma; SSM: Mamba-2):
   * ``prefill(params, tokens, max_len, embeds=None)`` — (last-token
     logits, state)
   * ``decode_step(params, token, cache)`` — (logits, state)
-  * ``n_params()`` — analytic parameter count
+  * ``n_params()`` — analytic parameter count (the weight matrices and
+    tables; no norm scales, biases or the recurrent families' vectors)
+  * ``param_count(params)`` — the parameters a module holds, counted
   * ``input_specs(shape)``, ``cache_specs(batch, kv_len)`` — the dry-run's
     stand-ins (:class:`TensorSpec` records, the port's cache layout), and
     ``make_inputs(shape, seed=)`` — concrete random inputs matching them
@@ -169,6 +171,13 @@ class Model:
 
     def n_params(self, active_only: bool = False) -> int:
         return n_params(self.cfg, active_only)
+
+    def param_count(self, params) -> int:
+        """The number of parameters in ``params`` (every element of every
+        tensor, as the reference counts the leaves of its pytree): more
+        than :meth:`n_params` by the norm scales, biases and other vectors
+        that the analytic count leaves out."""
+        return int(sum(p.numel() for p in params.parameters()))
 
     # -- dry-run stand-ins ----------------------------------------------------
 

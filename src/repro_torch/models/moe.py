@@ -344,7 +344,8 @@ def loss_fn(cfg: ModelConfig, params: MoEParams, batch: Dict):
 
 def prefill(cfg: ModelConfig, params: MoEParams, tokens, max_len: int = 0):
     """Prompt pass: last-token logits [B, 1, vocab] and a KV cache of
-    capacity ``max_len`` (0: the prompt's length), ``pos`` = S."""
+    capacity ``max_len`` (0: the prompt's length), ``pos`` = S as a 0-d
+    device tensor."""
     x = L.embed(params.embed, tokens, L.compute_dtype(cfg))
     B, S, _ = x.shape
     max_len = max_len or S
@@ -355,7 +356,7 @@ def prefill(cfg: ModelConfig, params: MoEParams, tokens, max_len: int = 0):
     for lp, ck, cv in zip(params.layers, cache["k"], cache["v"]):
         x, _ = moe_block_apply(cfg, lp, x, positions,
                                cache={"k": ck, "v": cv, "pos": 0})
-    cache["pos"] = S
+    cache["pos"] = L.device_pos(S, x.device)
     return _logits(cfg, params, x[:, -1:]), cache
 
 
@@ -364,8 +365,8 @@ def decode_step(cfg: ModelConfig, params: MoEParams, token, cache: Dict):
     cache with ``pos`` advanced; its tensors are written in place)."""
     x = L.embed(params.embed, token[:, None], L.compute_dtype(cfg))
     B = x.shape[0]
-    pos = int(cache["pos"])
-    positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    pos = cache["pos"]
+    positions = L.step_positions(pos, B, x.device)
     for lp, ck, cv in zip(params.layers, cache["k"], cache["v"]):
         x, _ = moe_block_apply(cfg, lp, x, positions,
                                cache={"k": ck, "v": cv, "pos": pos})

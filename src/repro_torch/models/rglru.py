@@ -231,8 +231,9 @@ def attn_apply_local(cfg: ModelConfig, p: L.Attention, x, positions, window,
     """Full sequence (``ring`` None): banded attention through
     ``layers.attention_apply``. Decode: one token against the ring buffer
     ``ring = dict(k, v [B, window, Hkv, hd], pos)`` (``pos`` the absolute
-    position of this token, an int); returns the output and the new ring
-    (a new tensor pair: the input ring is left as it was)."""
+    position of this token: a 0-d device tensor, read on the device only,
+    or a host int); returns the output and the new ring (a new tensor pair:
+    the input ring is left as it was)."""
     if ring is None:
         return L.attention_apply(p, cfg, x, positions, causal=True,
                                  window=window), None
@@ -244,14 +245,14 @@ def attn_apply_local(cfg: ModelConfig, p: L.Attention, x, positions, window,
     q = L.rope(q, positions, cfg.rope_theta)
     k = L.rope(k, positions, cfg.rope_theta)
 
-    pos = int(ring["pos"])
+    pos = ring["pos"]
     slot = pos % window
     group = cfg.n_heads // cfg.n_kv_heads
 
     def ring_attend(q, k, v, ck, cv):
         ck, cv = ck.clone(), cv.clone()
-        ck[:, slot:slot + S] = k.to(ck.dtype)
-        cv[:, slot:slot + S] = v.to(cv.dtype)
+        L.write_rows(ck, slot, k)
+        L.write_rows(cv, slot, v)
         # absolute position held by each slot j after the write
         j = torch.arange(window, device=q.device)
         valid = (pos - torch.remainder(slot - j, window)) >= 0
@@ -396,7 +397,8 @@ def init_cache(cfg: ModelConfig, batch: int, dtype, device=None) -> Dict:
 def prefill(cfg: ModelConfig, params: HybridParams, tokens,
             max_len: int = 0):
     """Prompt pass: last-token logits [B, 1, vocab] and the decode state
-    (recurrent states, conv tails and ring buffers; ``pos`` = S). The state
+    (recurrent states, conv tails and ring buffers; ``pos`` = S, a 0-d
+    device tensor). The state
     does not depend on ``max_len`` (the ring holds ``window`` slots)."""
     x = L.embed(params.embed, tokens, L.compute_dtype(cfg))
     B, S, _ = x.shape
@@ -413,7 +415,8 @@ def prefill(cfg: ModelConfig, params: HybridParams, tokens,
         tail_state[f"tail{i}"] = s
     x = L.rmsnorm(params.ln_f, x[:, -1:], cfg.norm_eps)
     logits = L.unembed(params.embed, x)
-    return logits, {"blocks": bstates, "tail": tail_state, "pos": S}
+    return logits, {"blocks": bstates, "tail": tail_state,
+                    "pos": L.device_pos(S, x.device)}
 
 
 def decode_step(cfg: ModelConfig, params: HybridParams, token, cache):
@@ -421,8 +424,8 @@ def decode_step(cfg: ModelConfig, params: HybridParams, token, cache):
     state)."""
     x = L.embed(params.embed, token[:, None], L.compute_dtype(cfg))
     B = x.shape[0]
-    pos = int(cache["pos"])
-    positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    pos = cache["pos"]
+    positions = L.step_positions(pos, B, x.device)
     bstates = []
     for bp, st in zip(params.blocks, cache["blocks"]):
         x, ns = sblock_apply(cfg, bp, x, positions, state=dict(st, pos=pos))

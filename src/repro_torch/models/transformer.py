@@ -257,8 +257,8 @@ def prefill(cfg: ModelConfig, params: DenseParams, tokens,
             max_len: int = 0, embeds=None):
     """Prompt pass: last-token logits [B, 1, vocab] and a KV cache of
     capacity ``max_len`` (0: the prompt's length) holding the prompt's keys
-    and values, ``pos`` = S (``embeds`` rows prepended, as in
-    :func:`forward`)."""
+    and values, ``pos`` = S as a 0-d device tensor (``embeds`` rows
+    prepended, as in :func:`forward`)."""
     x = _embed_inputs(cfg, params, tokens, embeds, L.compute_dtype(cfg))
     B, S, _ = x.shape
     max_len = max_len or S
@@ -269,18 +269,19 @@ def prefill(cfg: ModelConfig, params: DenseParams, tokens,
     for lp, ck, cv in zip(params.layers, cache["k"], cache["v"]):
         x = block_apply(cfg, lp, x, positions,
                         cache={"k": ck, "v": cv, "pos": 0})
-    cache["pos"] = S
+    cache["pos"] = L.device_pos(S, x.device)
     return _logits(cfg, params, x[:, -1:]), cache
 
 
 def decode_step(cfg: ModelConfig, params: DenseParams, token, cache: Dict):
     """One token per sequence (``token`` [B]) against the cache -> (logits
-    [B, vocab], the cache with ``pos`` advanced). The cache's tensors are
+    [B, vocab], the cache with ``pos`` advanced: a new 0-d tensor where
+    ``pos`` is one, never read on the host). The cache's tensors are
     written in place: the returned cache shares them with ``cache``."""
     x = L.embed(params.embed, token[:, None], L.compute_dtype(cfg))
     B = x.shape[0]
-    pos = int(cache["pos"])
-    positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    pos = cache["pos"]
+    positions = L.step_positions(pos, B, x.device)
     for lp, ck, cv in zip(params.layers, cache["k"], cache["v"]):
         x = block_apply(cfg, lp, x, positions,
                         cache={"k": ck, "v": cv, "pos": pos})
@@ -358,7 +359,7 @@ def encdec_prefill(cfg: ModelConfig, params: EncDecParams, tokens,
     for lp, ck, cv in zip(params.layers, cache["k"], cache["v"]):
         x = block_apply(cfg, lp, x, positions,
                         cache={"k": ck, "v": cv, "pos": 0}, enc=enc)
-    cache["pos"] = S
+    cache["pos"] = L.device_pos(S, x.device)
     cache["enc"] = enc
     return _encdec_logits(cfg, params, x[:, -1:]), cache
 
@@ -369,9 +370,9 @@ def encdec_decode_step(cfg: ModelConfig, params: EncDecParams, token,
     -> (logits [B, vocab], the cache with ``pos`` advanced)."""
     x = L.embed(params.embed, token[:, None], L.compute_dtype(cfg))
     B = x.shape[0]
-    pos = int(cache["pos"])
+    pos = cache["pos"]
     enc = cache["enc"]
-    positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    positions = L.step_positions(pos, B, x.device)
     for lp, ck, cv in zip(params.layers, cache["k"], cache["v"]):
         x = block_apply(cfg, lp, x, positions,
                         cache={"k": ck, "v": cv, "pos": pos}, enc=enc)

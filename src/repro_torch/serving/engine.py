@@ -2,9 +2,25 @@
 
 The port of ``repro/serving/engine.py``: a per-app host weight store (fp32,
 made from the endpoint's seed at first load), the device copies of the
-loaded apps, and greedy batched decode. PyTorch runs eagerly, so there is
-no ``jit`` and no executable cache: a cold start here is the weights'
-trip to the device (plus, at an app's first load, their initialisation).
+loaded apps, an executable cache, and greedy batched decode. A cold start
+is the weights' trip to the device (plus, at an app's first load, their
+initialisation), and the first request of each (app, ``max_len``, batch)
+after a load pays its entry's capture.
+
+The executable cache (the reference's ``_executables``, a ``jax.jit`` of
+prefill and decode per arch and ``max_len``): an :class:`Executable` per
+(app, ``max_len``, batch), holding the decode state that its steps read
+and write in place (copied in from each request's eager prefill) and, on
+the card, a ``torch.cuda.CUDAGraph`` of one greedy decode step captured on
+that state. The reference passes the weights to its compiled steps as
+arguments; a CUDA graph bakes in the addresses it read, so an entry
+belongs to the loaded copy of its app's weights, and ``unload`` and every
+``load`` drop the app's entries. The decode step reads its position on the
+device only (``layers.step_positions``, ``write_rows``; the decode kernel
+takes ``kv_len`` as a device tensor), so one graph serves every step of
+every request. The entry shares with the others of its arch what the port
+shares anyway: the built ``Model`` and the kernels' builds. On the CPU an
+entry runs the same steps eagerly.
 
 Every family serves: dense (Qwen2; a VLM backbone serves text only, as in
 the reference), MoE (OLMoE), encoder-decoder (SeamlessM4T, whose encoder
@@ -29,12 +45,19 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from ..kernels import ssd_scan
+from ..distributed import ctx
+from ..kernels import decode_attention, flash_attention, rglru_scan, ssd_scan
 from ..models import Model, build
 from ..models.layers import compute_dtype, fp32_at_use
 from .registry import Registry
 
-__all__ = ["ServeEngine"]
+__all__ = ["ServeEngine", "Executable"]
+
+#: The model kernels whose wrappers count their launches (``LAUNCHES`` and,
+#: where they keep one, ``LAUNCHES_BY_FORM``). A graph replay makes no
+#: Python call, so an entry takes back what its capture counted (nothing
+#: ran then) and adds it once per replay.
+_COUNTED = (flash_attention, decode_attention, rglru_scan, ssd_scan)
 
 
 #: Most bytes of one pinned host chunk the engine packs an image's
@@ -104,6 +127,140 @@ def _placed(params: nn.Module, device: torch.device,
     return copy.deepcopy(params, memo)
 
 
+def _launch_counts():
+    return [(m.LAUNCHES, dict(getattr(m, "LAUNCHES_BY_FORM", {})))
+            for m in _COUNTED]
+
+
+def _add_launches(delta, sign: int = 1) -> None:
+    for m, (n, forms) in zip(_COUNTED, delta):
+        m.LAUNCHES += sign * n
+        for form, c in forms.items():
+            m.LAUNCHES_BY_FORM[form] += sign * c
+
+
+def _tree(fn, a, *rest):
+    """``fn`` over the tensor leaves of a decode state (dicts and lists of
+    tensors, ``pos`` among them), with the same leaves of ``rest``."""
+    if isinstance(a, dict):
+        return {k: _tree(fn, v, *(r[k] for r in rest)) for k, v in a.items()}
+    if isinstance(a, list):
+        return [_tree(fn, *leaves) for leaves in zip(a, *rest)]
+    return fn(a, *rest)
+
+
+def _own(t: torch.Tensor) -> torch.Tensor:
+    """``t`` where it is contiguous and owns all of its storage, else a
+    contiguous copy: a view kept as an entry's state would keep its base
+    alive (the hybrid's conv tails are views of a prompt's projection)."""
+    whole = t.is_contiguous() and t.storage_offset() == 0 and \
+        t.untyped_storage().nbytes() == t.numel() * t.element_size()
+    return t if whole else t.clone(memory_format=torch.contiguous_format)
+
+
+def _copy_into(dst: torch.Tensor, src: torch.Tensor) -> None:
+    if dst is not src:
+        dst.copy_(src)
+
+
+class Executable:
+    """One entry of the executable cache: greedy decode of ``batch``
+    sequences of one loaded app with a KV capacity of ``max_len``.
+
+    ``state`` is the decode state its steps read and write in place:
+    adopted from the first request's prefill (each tensor that is a view
+    is copied out, :func:`_own`), and from then on each request's prefill
+    state is copied into it. ``token`` [B] holds the last greedy tokens and
+    ``logits`` [B, vocab] the last step's logits. On the CPU :meth:`decode`
+    runs the step eagerly. On the card its first call runs the step
+    eagerly on a side stream (the warm-up: the kernels' libraries and
+    scratch and cuBLAS's workspace are made outside the graph's pool),
+    then captures one step, its state copied back into ``state``, the
+    argmax into ``token`` and ``pos`` advanced inside the graph, and every
+    later call replays it. A capture that fails raises: there is no eager
+    path behind it on the card."""
+
+    def __init__(self, model: Model, params: nn.Module, max_len: int,
+                 device: torch.device):
+        self.model, self.params = model, params
+        self.max_len, self.device = max_len, device
+        self.state = self.token = self.logits = None
+        self.graph = None
+        #: seconds the capture took (0.0 until it happened)
+        self.capture_s = 0.0
+        self._per_replay = None      # each counted kernel's launches a replay
+        self._scratch = []           # the kernel scratch its graph reads
+
+    def prefill(self, tokens: torch.Tensor, embeds=None) -> torch.Tensor:
+        """The eager prefill of ``tokens`` [B, S] into the entry's state;
+        returns the first greedy tokens [B]."""
+        with torch.inference_mode():
+            logits, state = self.model.prefill(self.params, tokens,
+                                               self.max_len, embeds=embeds)
+            token = torch.argmax(logits, dim=-1)[:, 0]
+            if self.state is None:
+                self.state, self.token = _tree(_own, state), _own(token)
+            else:
+                _tree(_copy_into, self.state, state)
+                self.token.copy_(token)
+            return self.token.clone()
+
+    def _step(self) -> torch.Tensor:
+        logits, state = self.model.decode_step(self.params, self.token,
+                                               self.state)
+        _tree(_copy_into, self.state, state)
+        self.token.copy_(torch.argmax(logits, dim=-1))
+        return logits
+
+    def decode(self) -> torch.Tensor:
+        """One greedy decode step from the entry's state; returns the next
+        tokens [B] (``logits`` holds the step's logits)."""
+        with torch.inference_mode():
+            if self.graph is not None:
+                self.graph.replay()
+                _add_launches(self._per_replay)
+            elif self.device.type == "cuda":
+                self._capture()
+            else:
+                self.logits = self._step()
+            return self.token.clone()
+
+    def _capture(self) -> None:
+        """The first step eagerly on a side stream, then the capture of the
+        next on that stream; the eager step's logits are copied into the
+        graph's output, which ``logits`` is from then on."""
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            logits = self._step()
+            # repro-lint: ignore[nondeterminism] -- the capture's seconds
+            # are reported (capture_s); no token depends on them
+            t0 = time.perf_counter()
+            before = _launch_counts()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side):
+                out = self._step()
+            delta = [(n1 - n0, {f: c - f0[f] for f, c in f1.items()})
+                     for (n0, f0), (n1, f1) in zip(before, _launch_counts())]
+            _add_launches(delta, -1)             # recorded, not run
+            out.copy_(logits)
+            side.synchronize()
+            # repro-lint: ignore[nondeterminism] -- end of the capture
+            self.capture_s = time.perf_counter() - t0
+        main.wait_stream(side)
+        self.graph, self.logits = graph, out
+        self._per_replay = delta
+        self._scratch = decode_attention.scratch_tensors(self.device)
+
+    def close(self) -> None:
+        """Free the graph's memory pool and drop the state."""
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = self.state = self.token = self.logits = None
+        self._scratch = []
+
+
 class ServeEngine:
     def __init__(self, registry: Registry, device=None):
         self.registry = registry
@@ -111,7 +268,10 @@ class ServeEngine:
         self._models: Dict[str, Model] = {}          # arch key -> Model
         self._weights: Dict[str, nn.Module] = {}     # app id -> fp32 (host)
         self._loaded: Dict[str, nn.Module] = {}      # app id -> device copy
-        #: seconds of the last ``generate``'s prefill and decode phases
+        #: (app id, max_len, batch) -> entry, of the loaded copy only
+        self._exec_cache: Dict[Tuple[str, int, int], Executable] = {}
+        #: seconds of the last ``generate``'s prefill and decode phases and,
+        #: on the card, of its capture (0.0 where its entry was cached)
         self.last_times: Dict[str, float] = {}
 
     @staticmethod
@@ -128,6 +288,23 @@ class ServeEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _executables(self, app_id: str, max_len: int,
+                     batch: int) -> Executable:
+        """The entry of (``app_id``, ``max_len``, ``batch``), made at first
+        use for the app's loaded copy (a ``KeyError`` where it is not
+        loaded)."""
+        key = (app_id, max_len, batch)
+        entry = self._exec_cache.get(key)
+        if entry is None:
+            entry = self._exec_cache[key] = Executable(
+                self._model(self.registry.get(app_id).cfg),
+                self._loaded[app_id], max_len, self.device)
+        return entry
+
+    def _drop_executables(self, app_id: str) -> None:
+        for key in [k for k in self._exec_cache if k[0] == app_id]:
+            self._exec_cache.pop(key).close()
+
     # -- lifecycle (called by the warm pool's driver) -------------------------
 
     def load(self, app_id: str) -> float:
@@ -139,6 +316,7 @@ class ServeEngine:
         # depends on them
         t0 = time.perf_counter()
         ep = self.registry.get(app_id)
+        self._drop_executables(app_id)       # they read the old copy
         if app_id not in self._weights:
             params = self._model(ep.cfg).init(ep.seed, device=self.device,
                                               scheme=ep.init)
@@ -151,8 +329,10 @@ class ServeEngine:
         return time.perf_counter() - t0
 
     def unload(self, app_id: str) -> None:
-        """Drop the app's device copy; when the last loaded Mamba-2 (SSM)
-        app goes, the SSD scan's scratch on the device goes with it."""
+        """Drop the app's device copy and its executable-cache entries (and
+        their graphs' memory); when the last loaded Mamba-2 (SSM) app goes,
+        the SSD scan's scratch on the device goes with it."""
+        self._drop_executables(app_id)
         if self._loaded.pop(app_id, None) is None:
             return
         ssm = lambda a: self.registry.get(a).cfg.family == "ssm"
@@ -177,31 +357,48 @@ class ServeEngine:
     def generate(self, app_id: str, tokens, max_new: int = 8,
                  max_len: int = 128) -> Tuple[torch.Tensor, float]:
         """Greedy generation: one prefill, then ``max_new - 1`` decode
-        steps. Returns (tokens [B, max_new], wall seconds); the seconds of
-        each phase are left in ``last_times``.
+        steps through the executable cache's entry of (app, ``max_len``,
+        batch): on the card one eager step and a capture at the entry's
+        first request, graph replays otherwise. Returns (tokens [B,
+        max_new], wall seconds); the seconds of the prefill and decode
+        phases are left in ``last_times``, and on the card those of the
+        capture too (``capture_s``, not counted in ``decode_s``).
 
-        Requires the app to be loaded (the warm pool guarantees that)."""
+        Requires the app to be loaded (the warm pool guarantees that).
+        Raises before any step where the prompt and the new tokens need
+        more than ``max_len`` cache positions, and under an active mesh
+        (the distributed decode is ``distributed.dist_decode``'s)."""
         # repro-lint: ignore[nondeterminism] -- generate() reports measured
         # serving latency beside the (deterministic) tokens
         t0 = time.perf_counter()
+        if ctx.active_mesh() is not None:
+            raise RuntimeError("ServeEngine.generate runs on one device; "
+                               "under a mesh decode through the model's "
+                               "decode_step (distributed.dist_decode)")
         ep = self.registry.get(app_id)
-        params = self._loaded[app_id]
-        model = self._model(ep.cfg)
         tokens = torch.as_tensor(tokens, device=self.device)
+        B, S = tokens.shape
+        if S + max_new - 1 > max_len:
+            raise ValueError(f"generate: {S} prompt tokens and {max_new} new "
+                             f"ones need {S + max_new - 1} cache positions, "
+                             f"more than max_len {max_len}")
+        entry = self._executables(app_id, max_len, B)
+        capture = self.device.type == "cuda" and entry.graph is None \
+            and max_new > 1
         with torch.inference_mode():
-            logits, cache = model.prefill(params, tokens, max_len,
-                                          embeds=self._frontend(ep.cfg,
-                                                                tokens))
-            outs = [torch.argmax(logits, dim=-1)[:, 0]]
+            outs = [entry.prefill(tokens, self._frontend(ep.cfg, tokens))]
             self._sync()
             # repro-lint: ignore[nondeterminism] -- prefill/decode split
             t1 = time.perf_counter()
             for _ in range(max_new - 1):
-                logits, cache = model.decode_step(params, outs[-1], cache)
-                outs.append(torch.argmax(logits, dim=-1))
+                outs.append(entry.decode())
             result = torch.stack(outs, dim=1)
             self._sync()
         # repro-lint: ignore[nondeterminism] -- end of the measurement
         t2 = time.perf_counter()
-        self.last_times = {"prefill_s": t1 - t0, "decode_s": t2 - t1}
+        capture_s = entry.capture_s if capture else 0.0
+        self.last_times = {"prefill_s": t1 - t0,
+                           "decode_s": t2 - t1 - capture_s}
+        if self.device.type == "cuda":
+            self.last_times["capture_s"] = capture_s
         return result, t2 - t0

@@ -16,6 +16,10 @@ against the TPU kernel it replaces and the reference's oracle.
     ROADMAP Queue C);
   * kv_len 0 and kv_len > Skv raise, and the wrapper's argument checks
     raise before any launch;
+  * ``kv_len`` as a one-element int64 tensor on q's device (the serve
+    engine's decode step carries it so, for its CUDA graph): the plain
+    version equals the host-int call and the reference at the cases above;
+    a tensor of another dtype, size or device raises;
   * the form a CUDA launch takes (tensor cores or CUDA cores), chosen in
     Python from dtype, head dim and strides, and the kernel's scratch, kept
     once a shape;
@@ -23,7 +27,11 @@ against the TPU kernel it replaces and the reference's oracle.
     the CUDA kernel against the plain version, at small shapes, ragged
     lengths, split edges, groups of 7 and 18 and the serving path's shape:
     f32 at 2e-5, bf16 within one bf16 rounding step (``CUDA_TOL``); two
-    calls in a row and a CUDA graph replayed twice give the same output.
+    calls in a row and a CUDA graph replayed twice give the same output;
+    with a device ``kv_len`` at the three serving shapes, ragged lengths
+    and a cache mostly empty (splits past kv_len count in without a
+    partial), equal to the host-int launch bit for bit, and one captured
+    launch replayed at changing kv_len equal to the eager calls.
 """
 from types import SimpleNamespace
 
@@ -125,6 +133,34 @@ def test_kv_len_out_of_range_raises():
         with pytest.raises(ValueError, match="kv_len"):
             DA.decode_attention_plain(q, k, v, bad)
     assert ops.decode_attention(q, k, v, 64).shape == q.shape
+
+
+@pytest.mark.parametrize("Skv,kv_len", [(256, 256), (512, 300), (512, 1),
+                                        (1024, 777), (640, 600)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_decode_takes_kv_len_as_a_device_tensor(ref, Skv, kv_len,
+                                                      dtype):
+    """A 0-d and a one-element int64 kv_len give the host int's output bit
+    for bit, within the reference's tolerance of it."""
+    arrays = _inputs(7, 2, Skv, 4, 2, 64)
+    host = _port(arrays, dtype, kv_len)
+    q, k, v = (torch.from_numpy(a).to(TORCH_DTYPE[dtype]) for a in arrays)
+    for n in (torch.tensor(kv_len), torch.tensor([kv_len])):
+        got = ops.decode_attention(q, k, v, n)
+        assert np.array_equal(got.float().numpy(), host)
+        assert torch.equal(DA.decode_attention_plain(q, k, v, n), got)
+    (want,) = _reference(ref, arrays, dtype, kv_len, pallas=False)
+    np.testing.assert_allclose(host, want, atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_kv_len_tensor_of_another_kind_raises():
+    q, k, v = (torch.from_numpy(a) for a in _inputs(4, 1, 64, 4, 2, 32))
+    for bad in (torch.tensor(5, dtype=torch.int32), torch.tensor([5, 6]),
+                torch.tensor(5.0), torch.tensor(5, device="meta")):
+        with pytest.raises(ValueError, match="kv_len tensor"):
+            ops.decode_attention(q, k, v, bad)
+        with pytest.raises(ValueError, match="kv_len tensor"):
+            DA.decode_attention_plain(q, k, v, bad)
 
 
 @pytest.mark.parametrize("dtype,D,Skv,pad,form", [
@@ -262,3 +298,66 @@ def test_cuda_kernel_in_a_cuda_graph():
         torch.cuda.synchronize()
         for o, e in zip(outs, eager):
             assert torch.equal(o, e)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_reads_kv_len_from_the_device():
+    """``kv_len`` as a device int64: at Qwen2-7B's, OLMoE-1B-7B's and
+    SeamlessM4T-medium's serving shapes (kv_len 4,097 and 4,112 of 4,112),
+    at ragged lengths and split edges, and with most splits past kv_len
+    (they write no partial; the merge reads the live ones), in both forms,
+    the output equals the host-int launch's bit for bit (the same blocks
+    compute the same partials) and the plain version within ``CUDA_TOL``;
+    two calls in a row agree (every block counted in, the counters reset).
+    Then one launch captured in a CUDA graph, replayed with the device
+    kv_len set to 4,112, 1, 385 and 4,097 in turn, gives each length's
+    eager output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    dev = torch.device("cuda")
+    edge = DA.SPLIT_KEYS
+    cases = [((2, 4112, 28, 4, 128), n, "bfloat16") for n in (4097, 4112)]
+    cases += [((2, 4112, 16, 16, 128), n, "bfloat16") for n in (4097, 4112)]
+    cases += [((2, 4112, 16, 16, 64), n, "bfloat16") for n in (4097, 4112)]
+    cases += [((2, 4112, 28, 4, 128), n, "bfloat16")
+              for n in (1, edge, edge + 1, 600)]
+    cases += [((1, 640, 8, 2, 64), 600, "float32"),
+              ((2, 4112, 28, 4, 128), 300, "float32"),
+              ((1, 300, 18, 1, 128), 299, "bfloat16"),
+              ((1, 100, 4, 2, 36), 77, "bfloat16")]
+    for shape, kv_len, dtype in cases:
+        q, k, v = (torch.from_numpy(a).to(dev, TORCH_DTYPE[dtype])
+                   for a in _inputs(8, *shape[:2], *shape[2:]))
+        n = torch.tensor(kv_len, device=dev)
+        got = DA.decode_attention(q, k, v, n)
+        again = DA.decode_attention(q, k, v, n)
+        host = DA.decode_attention(q, k, v, kv_len)
+        want = DA.decode_attention_plain(q, k, v, n)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again) and torch.equal(got, host), \
+            (shape, kv_len, dtype)
+        got, want = got.float(), want.float()
+        atol, rtol = CUDA_TOL[dtype]
+        if dtype == "bfloat16":
+            atol *= float(want.abs().max())
+        torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+
+    q, k, v = (torch.from_numpy(a).to(dev, torch.bfloat16)
+               for a in _inputs(9, 2, 4112, 28, 4, 128))
+    lengths = (4112, 1, 385, 4097)
+    eager = [DA.decode_attention(q, k, v, n) for n in lengths]
+    n = torch.tensor(lengths[0], device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        DA.decode_attention(q, k, v, n)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = DA.decode_attention(q, k, v, n)
+    for length, e in zip(lengths * 2, eager * 2):
+        n.fill_(length)
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, e), length

@@ -4,7 +4,8 @@
 architecture and every SHAPES entry, with the port's cache layout (one
 tensor per layer where the reference stacks ``[n_layers, ...]``; the
 hybrid's blocks a list of per-block dicts; ``pos`` a host int, 0 as the
-reference's zero stand-in)."""
+reference's zero stand-in); ``configs.cells`` and ``Model.param_count``
+against the reference's."""
 import numpy as np
 import pytest
 import torch
@@ -129,3 +130,32 @@ def _specs(tree):
     if isinstance(tree, torch.Tensor):
         return TensorSpec(tuple(tree.shape), tree.dtype)
     return tree
+
+
+@pytest.mark.parametrize("include_skipped", [False, True])
+def test_cells_match_reference(ref, include_skipped):
+    """``configs.cells``: the reference's dry-run cells in its order, with
+    the long_500k cells of the full-attention archs skipped or, with
+    ``include_skipped``, marked so."""
+    from repro_torch.configs import cells
+    _, rconfigs, _ = ref
+    want = list(rconfigs.cells(include_skipped=include_skipped))
+    got = list(cells(include_skipped=include_skipped))
+    assert got == want
+    assert len(got) == len(ARCH_IDS) * len(SHAPES) - (
+        0 if include_skipped else len(ARCH_IDS) - 2)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_param_count_matches_reference(ref, arch):
+    """``Model.param_count`` of the port's parameters at the reduced config
+    equals the reference's count of its pytree's leaves (taken from the
+    shapes its init would make), and exceeds the analytic ``n_params`` by
+    the vectors that leaves out."""
+    jax, rconfigs, build = ref
+    rmodel = build(reduced(rconfigs.get(arch)))
+    model = Model(reduced(get(arch)))
+    shapes = jax.eval_shape(rmodel.init, jax.random.PRNGKey(0))
+    got = model.param_count(model.init(0, device="cpu"))
+    assert got == rmodel.param_count(shapes)
+    assert got > model.n_params()

@@ -219,8 +219,10 @@ def test_interop_maps_biases_and_head(ref):
 
 def test_cache_is_written_in_place_and_bounded():
     """The prefill's cache is preallocated at ``max_len`` and each decode
-    step writes one position of it in place; a step past the capacity
-    raises."""
+    step writes one position of it in place, at the device position the
+    prefill left (a 0-d int64 tensor); a step past the capacity raises
+    (the cache write's index check: the host check is ``generate``'s, which
+    ``tests/test_torch_engine_exec.py`` holds)."""
     cfg = configs.reduced(configs.get("qwen2-7b"))
     m = build(cfg)
     p = m.init(seed=0, device="cpu")
@@ -229,10 +231,12 @@ def test_cache_is_written_in_place_and_bounded():
     assert [tuple(k.shape) for k in cache["k"]] == [(2, 6, 2, 32)] * 2
     k0 = cache["k"][0]
     assert torch.all(k0[:, 5:] == 0) and not torch.all(k0[:, :5] == 0)
+    assert isinstance(cache["pos"], torch.Tensor)
+    assert cache["pos"].shape == () and cache["pos"].dtype == torch.int64
     _, c2 = m.decode_step(p, torch.tensor([1, 2]), cache)
     assert c2["k"][0] is k0 and c2["pos"] == 6
     assert not torch.all(k0[:, 5] == 0)
-    with pytest.raises(ValueError, match="full"):
+    with pytest.raises(IndexError, match="out of bounds"):
         m.decode_step(p, torch.tensor([1, 2]), c2)
     with pytest.raises(ValueError, match="max_len"):
         m.prefill(p, toks, max_len=4)
