@@ -1329,10 +1329,7 @@ def serve(device, phase, arch, prefix, kernels, logits_rel_tol,
 
     warm_prefill = [q["prefill_s"] for q in warms]
     warm_decode = [q["decode_s"] for q in warms]
-    profile = serve_profile(kmodel, params, tokens, max_len,
-                            prefill_s=min(warm_prefill),
-                            decode_step_s=min(warm_decode) / (SERVE_NEW - 1),
-                            embeds=frames)
+    profile = serve_profile(kmodel, params, tokens, max_len, embeds=frames)
     emit(phase, arch=cfg.arch_id, n_params=build(cfg).n_params(),
          init=init, dtype=cfg.dtype, batch=SERVE_BATCH, prompt=SERVE_SEQ,
          max_new=SERVE_NEW, requests=len(requests),
@@ -1373,8 +1370,8 @@ def decode_graph(engine, app, cfg, tokens, phase):
     ``failures``): the graph's tokens and every step's logits equal the
     eager ones bit for bit, and the graph's launches by kernel and form
     per step equal the eager step's. Also: the entry's capture seconds,
-    the ms a step of each, the device ms a step and idle share of the
-    graph (torch.profiler over its replays), the ms of copying a prefill's
+    the ms a step of each, the device ms a step of the graph
+    (torch.profiler over its replays), the ms of copying a prefill's
     state into the entry's (what each request's prefill does) and the
     state's bytes. The launches here are not the serving path's: the
     counters are put back after."""
@@ -1465,8 +1462,6 @@ def decode_graph(engine, app, cfg, tokens, phase):
                eager_launches_per_step=eager_launches,
                graph_launches_per_step=graph_launches,
                graph_device_ms_per_step=dev_step,
-               graph_idle_share=None if dev_step is None else
-               1.0 - sum(dev_step.values()) / graph_ms,
                state_copy_ms=copy_ms, state_bytes=state_bytes,
                gates_failed=failures)
     emit("decode_graph", **out)
@@ -1601,13 +1596,10 @@ def device_ms(run, counts=None, names=None):
     return by_class or None
 
 
-def serve_profile(model, params, tokens, max_len, *, prefill_s,
-                  decode_step_s, embeds=None):
+def serve_profile(model, params, tokens, max_len, *, embeds=None):
     """Device time by kernel class (torch.profiler) of one prefill and of
-    four decode steps, and the device's idle share against the wall
-    seconds of the same work in the unprofiled stream (the profiler slows
-    the host, so its own wall clock is not used). Device times are null
-    where the profiler records no device events."""
+    four decode steps; null where the profiler records no device
+    events."""
     import torch
 
     steps = 4
@@ -1625,14 +1617,9 @@ def serve_profile(model, params, tokens, max_len, *, prefill_s,
                                                        state["cache"])
                 state["tok"] = lg.argmax(-1)
         dec = device_ms(decode)
-    out = {"prefill_device_ms": pre, "decode_step_device_ms": None,
-           "prefill_idle_share": None, "decode_idle_share": None}
-    if pre:
-        out["prefill_idle_share"] = 1.0 - sum(pre.values()) / 1e3 / prefill_s
+    out = {"prefill_device_ms": pre, "decode_step_device_ms": None}
     if dec:
         out["decode_step_device_ms"] = {k: v / steps for k, v in dec.items()}
-        out["decode_idle_share"] = \
-            1.0 - sum(dec.values()) / steps / 1e3 / decode_step_s
     return out
 
 

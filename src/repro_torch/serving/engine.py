@@ -22,6 +22,10 @@ every request. The entry shares with the others of its arch what the port
 shares anyway: the built ``Model`` and the kernels' builds. On the CPU an
 entry runs the same steps eagerly.
 
+Under a running profiler, ``load`` and ``generate``'s prefill and decode
+(and a capture within the decode) are named ranges of its trace
+(:mod:`.spans`), each closed after the phase's synchronisation.
+
 Every family serves: dense (Qwen2; a VLM backbone serves text only, as in
 the reference), MoE (OLMoE), encoder-decoder (SeamlessM4T, whose encoder
 gets the reference's frontend stub: zero frames), hybrid (RecurrentGemma)
@@ -50,6 +54,7 @@ from ..kernels import decode_attention, flash_attention, rglru_scan, ssd_scan
 from ..models import Model, build
 from ..models.layers import compute_dtype, fp32_at_use
 from .registry import Registry
+from .spans import span
 
 __all__ = ["ServeEngine", "Executable"]
 
@@ -220,7 +225,8 @@ class Executable:
                 self.graph.replay()
                 _add_launches(self._per_replay)
             elif self.device.type == "cuda":
-                self._capture()
+                with span("serve.capture"):
+                    self._capture()
             else:
                 self.logits = self._step()
             return self.token.clone()
@@ -316,15 +322,16 @@ class ServeEngine:
         # depends on them
         t0 = time.perf_counter()
         ep = self.registry.get(app_id)
-        self._drop_executables(app_id)       # they read the old copy
-        if app_id not in self._weights:
-            params = self._model(ep.cfg).init(ep.seed, device=self.device,
-                                              scheme=ep.init)
-            self._weights[app_id] = _to_host(
-                params, pin=self.device.type == "cuda")
-        self._loaded[app_id] = _placed(self._weights[app_id], self.device,
-                                       compute_dtype(ep.cfg))
-        self._sync()
+        with span("serve.load"):
+            self._drop_executables(app_id)       # they read the old copy
+            if app_id not in self._weights:
+                params = self._model(ep.cfg).init(ep.seed, device=self.device,
+                                                  scheme=ep.init)
+                self._weights[app_id] = _to_host(
+                    params, pin=self.device.type == "cuda")
+            self._loaded[app_id] = _placed(self._weights[app_id],
+                                           self.device, compute_dtype(ep.cfg))
+            self._sync()
         # repro-lint: ignore[nondeterminism] -- end of the load measurement
         return time.perf_counter() - t0
 
@@ -386,14 +393,17 @@ class ServeEngine:
         capture = self.device.type == "cuda" and entry.graph is None \
             and max_new > 1
         with torch.inference_mode():
-            outs = [entry.prefill(tokens, self._frontend(ep.cfg, tokens))]
-            self._sync()
+            with span("serve.prefill"):
+                embeds = self._frontend(ep.cfg, tokens)
+                outs = [entry.prefill(tokens, embeds)]
+                self._sync()
             # repro-lint: ignore[nondeterminism] -- prefill/decode split
             t1 = time.perf_counter()
-            for _ in range(max_new - 1):
-                outs.append(entry.decode())
-            result = torch.stack(outs, dim=1)
-            self._sync()
+            with span("serve.decode"):
+                for _ in range(max_new - 1):
+                    outs.append(entry.decode())
+                result = torch.stack(outs, dim=1)
+                self._sync()
         # repro-lint: ignore[nondeterminism] -- end of the measurement
         t2 = time.perf_counter()
         capture_s = entry.capture_s if capture else 0.0

@@ -27,6 +27,7 @@ from typing import Dict, Optional, Tuple
 from ..core import policy_math
 from ..core.policy import Policy, PolicyWindows
 from .registry import Registry
+from .spans import span
 
 MINUTE = 60.0
 
@@ -148,60 +149,65 @@ class WarmPool:
         at ``now``, so pre-warms do not force spurious evictions), then due
         pre-warms fire in scheduled-time order.
         """
-        items = list(self.state.items())
-        for app_id, st in items:
-            if st.loaded and now >= st.unload_at:
-                self._unload(app_id, now)
-        due = [(st.prewarm_at, app_id, st) for app_id, st in items
-               if not st.loaded and now >= st.prewarm_at]
-        for _, app_id, st in sorted(due, key=lambda d: (d[0], d[1])):
-            self._load(app_id, now)
-            st.prewarm_at = float("inf")
-            w = st.windows or self.policy.windows(app_id)
-            st.unload_at = now + w.keep_alive * MINUTE
-            self.stats.prewarms += 1
+        with span("pool.tick"):
+            items = list(self.state.items())
+            for app_id, st in items:
+                if st.loaded and now >= st.unload_at:
+                    self._unload(app_id, now)
+            due = [(st.prewarm_at, app_id, st) for app_id, st in items
+                   if not st.loaded and now >= st.prewarm_at]
+            for _, app_id, st in sorted(due, key=lambda d: (d[0], d[1])):
+                self._load(app_id, now)
+                st.prewarm_at = float("inf")
+                w = st.windows or self.policy.windows(app_id)
+                st.unload_at = now + w.keep_alive * MINUTE
+                self.stats.prewarms += 1
 
     def on_request(self, app_id: str, now: float) -> Tuple[bool, float]:
         """A request arrives. Returns (was_cold, startup_latency_s)."""
-        self.tick(now)
-        st = self._st(app_id)
-        st.requests += 1
-        cold = not st.loaded
-        lat = self._load(app_id, now) if cold else 0.0
-        if cold:
-            st.cold_starts += 1
-            self.stats.cold_starts += 1
-        else:
-            self.stats.warm_starts += 1
-        st.prewarm_at = float("inf")    # a real request supersedes pre-warm
-        st.unload_at = float("inf")
-        st.pinned = True                # pinned while executing
-        return cold, lat
+        with span("pool.on_request"):
+            self.tick(now)
+            st = self._st(app_id)
+            st.requests += 1
+            cold = not st.loaded
+            lat = self._load(app_id, now) if cold else 0.0
+            if cold:
+                st.cold_starts += 1
+                self.stats.cold_starts += 1
+            else:
+                self.stats.warm_starts += 1
+            st.prewarm_at = float("inf")  # a real request supersedes pre-warm
+            st.unload_at = float("inf")
+            st.pinned = True              # pinned while executing
+            return cold, lat
 
     def on_request_end(self, app_id: str, now: float) -> None:
         """Request finished: record IT, get fresh windows, schedule actions."""
-        st = self._st(app_id)
-        # Computed as a difference of end-times-in-minutes (not a difference
-        # of seconds divided by 60) so the scalar oracle sees bit-identical
-        # idle values to the vectorized cluster engine, which scans columns
-        # of end times already expressed in minutes.
-        idle_min = ((now / MINUTE - st.last_end / MINUTE)
-                    if st.last_end >= 0 else None)
-        st.last_end = now
-        st.pinned = False
-        w = self.policy.on_invocation(app_id, idle_min)
-        st.windows = w
-        # The residency schedule comes from the same single-source bounds the
-        # simulators use: resident on [load_at, unload_at] from the gap start.
-        load_at, unload_at = policy_math.window_bounds(w.prewarm, w.keep_alive)
-        if load_at <= 0.0:
-            st.unload_at = now + float(unload_at) * MINUTE
-            st.prewarm_at = float("inf")
-        else:
-            # unload immediately; reload right before the predicted arrival
-            self._unload(app_id, now)
-            st.prewarm_at = now + float(load_at) * MINUTE
-            st.unload_at = float("inf")
+        with span("pool.on_request_end"):
+            st = self._st(app_id)
+            # Computed as a difference of end-times-in-minutes (not a
+            # difference of seconds divided by 60) so the scalar oracle sees
+            # bit-identical idle values to the vectorized cluster engine,
+            # which scans columns of end times already expressed in minutes.
+            idle_min = ((now / MINUTE - st.last_end / MINUTE)
+                        if st.last_end >= 0 else None)
+            st.last_end = now
+            st.pinned = False
+            w = self.policy.on_invocation(app_id, idle_min)
+            st.windows = w
+            # The residency schedule comes from the same single-source
+            # bounds the simulators use: resident on [load_at, unload_at]
+            # from the gap start.
+            load_at, unload_at = policy_math.window_bounds(w.prewarm,
+                                                           w.keep_alive)
+            if load_at <= 0.0:
+                st.unload_at = now + float(unload_at) * MINUTE
+                st.prewarm_at = float("inf")
+            else:
+                # unload now; reload right before the predicted arrival
+                self._unload(app_id, now)
+                st.prewarm_at = now + float(load_at) * MINUTE
+                st.unload_at = float("inf")
 
     # -- reporting ------------------------------------------------------------
 
