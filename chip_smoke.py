@@ -1294,8 +1294,11 @@ def serve(device, phase, arch, prefix, kernels, logits_rel_tol,
         if ep.app_id != app:
             engine.unload(ep.app_id)
     torch.cuda.empty_cache()
-    from repro_torch.serving.engine import _placed
-    params32 = _placed(engine._weights[app], device, torch.float32)
+    # drawn again as the engine's first load draws them: its host store
+    # holds them in bf16
+    ep = reg.get(app)
+    params32 = engine._model(cfg).init(ep.seed, device=device,
+                                       scheme=ep.init)
     model32 = build(cfg.with_(use_kernels=False, dtype="float32"))
     with torch.inference_mode():
         ref32, _ = model32.prefill(params32, tokens, max_len,

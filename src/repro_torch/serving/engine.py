@@ -1,11 +1,12 @@
 """Serve engine: runs real model steps for loaded endpoints.
 
-The port of ``repro/serving/engine.py``: a per-app host weight store (fp32,
-made from the endpoint's seed at first load), the device copies of the
-loaded apps, an executable cache, and greedy batched decode. A cold start
-is the weights' trip to the device (plus, at an app's first load, their
-initialisation), and the first request of each (app, ``max_len``, batch)
-after a load pays its entry's capture.
+The port of ``repro/serving/engine.py``: a per-app host weight store (made
+from the endpoint's seed at first load, each parameter in the dtype it is
+served in), the device copies of the loaded apps, an executable cache, and
+greedy batched decode. A cold start is the weights' trip to the device
+(plus, at an app's first load, their initialisation), and the first
+request of each (app, ``max_len``, batch) after a load pays its entry's
+capture.
 
 The executable cache (the reference's ``_executables``, a ``jax.jit`` of
 prefill and decode per arch and ``max_len``): an :class:`Executable` per
@@ -29,20 +30,29 @@ Under a running profiler, ``load`` and ``generate``'s prefill and decode
 Every family serves: dense (Qwen2; a VLM backbone serves text only, as in
 the reference), MoE (OLMoE), encoder-decoder (SeamlessM4T, whose encoder
 gets the reference's frontend stub: zero frames), hybrid (RecurrentGemma)
-and SSM (Mamba-2). The device copy is cast once at load to the activation
-dtype, except the parameters the model keeps in fp32 at use
-(``layers.FP32_AT_USE``: the ``rmsnorm`` scales, the RG-LRU ``lam``,
-Mamba-2's ``A_log`` and ``dt_bias``, the MoE router's ``router.w``).
-Casting every other parameter at use, as the reference does, gives the same numbers; casting once avoids
-re-reading the fp32 weights (11.6 GB for RecurrentGemma-2B, 10.8 GB for
-Mamba-2-2.7B, 30.5 GB for Qwen2-7B) on every decode step, and matches the registry's cost
-model, which counts ``2 * n_params`` bytes per image.
+and SSM (Mamba-2). Each parameter is served in the activation dtype,
+except those the model keeps in fp32 at use (``layers.FP32_AT_USE``: the
+``rmsnorm`` scales, the RG-LRU ``lam``, Mamba-2's ``A_log`` and
+``dt_bias``, the MoE router's ``router.w``). Casting every other parameter
+at use, as the reference does, gives the same numbers; casting once avoids
+re-reading fp32 weights on every decode step, and matches the registry's
+cost model, which counts ``2 * n_params`` bytes per image.
+
+The host store holds each parameter in that served dtype too, so a reload
+copies only the bytes the device keeps (15.2 GB for Qwen2-7B in bf16,
+against 30.5 GB of fp32): the engine's own draw is cast on its device
+before it goes to the host, and an fp32 image handed in (``_weights[app]``
+set from outside) is narrowed at its app's next ``load``, from the device
+copy that load made. The fp32 to bf16 cast rounds to nearest even on
+either side, so the device weights are the same bit for bit.
+``last_load_bytes`` holds the host bytes the last ``load`` copied.
 """
 from __future__ import annotations
 
 import copy
+import math
 import time
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -102,20 +112,55 @@ def _host_layout(sizes, chunk_bytes: int = HOST_CHUNK_BYTES):
     return chunks, where
 
 
-def _to_host(params: nn.Module, pin: bool) -> nn.Module:
-    """Move ``params`` to host memory in place, each parameter a view into
-    a host chunk laid out by :func:`_host_layout` (pinned when ``pin``, so
-    the reloads copy at the bus's full rate)."""
-    moved = [p for p in params.parameters() if p.device.type != "cpu"]
-    sizes = [p.numel() * p.element_size() for p in moved]
+def _host_views(specs, pin: bool):
+    """Views of new host chunks laid out by :func:`_host_layout` (pinned
+    when ``pin``), one of each (shape, dtype) of ``specs``."""
+    sizes = [math.prod(shape) * dt.itemsize for shape, dt in specs]
     chunks, where = _host_layout(sizes)
     bufs = [torch.empty(n, dtype=torch.uint8, pin_memory=pin)
             for n in chunks]
+    return [bufs[c][off:off + n].view(dt).view(shape)
+            for (shape, dt), n, (c, off) in zip(specs, sizes, where)]
+
+
+def _to_host(params: nn.Module, pin: bool,
+             dtype: Optional[torch.dtype] = None) -> nn.Module:
+    """Move ``params`` to host memory in place, each parameter a view into
+    a host chunk laid out by :func:`_host_layout` (pinned when ``pin``, so
+    the reloads copy at the bus's full rate). With ``dtype``, each
+    parameter is first cast on its own device to the dtype :func:`_placed`
+    gives it, so the host holds the served bytes."""
+    moved, dts = [], []
+    for name, p in params.named_parameters():
+        dt = p.dtype if dtype is None or fp32_at_use(name) else dtype
+        if p.device.type != "cpu" or dt != p.dtype:
+            moved.append(p)
+            dts.append(dt)
+    views = _host_views([(p.shape, dt) for p, dt in zip(moved, dts)], pin)
     with torch.no_grad():
-        for p, n, (c, off) in zip(moved, sizes, where):
-            host = bufs[c][off:off + n].view(p.dtype)
-            p.data = host.view(p.shape).copy_(p.data)
+        for p, dt, host in zip(moved, dts, views):
+            p.data = host.copy_(p.data.to(dt))
     return params
+
+
+def _narrow(params: nn.Module, placed: nn.Module, pin: bool) -> None:
+    """Lay the host image ``params`` out anew in place, each parameter
+    holding its copy in ``placed`` (the device copy :func:`_placed` just
+    made of it): the image in the dtypes it is served in. The old chunks
+    are freed first, so that a card's pinned allocator reuses its cached
+    blocks for the new ones; then the cached blocks left unused go back to
+    the system."""
+    copies = dict(placed.named_parameters())
+    named = list(params.named_parameters())
+    with torch.no_grad():
+        for _, p in named:
+            p.data = torch.empty(0, dtype=p.dtype)
+        views = _host_views([(copies[n].shape, copies[n].dtype)
+                             for n, _ in named], pin)
+        for (n, p), host in zip(named, views):
+            p.data = host.copy_(copies[n])
+    if pin:
+        torch._C._host_emptyCache()
 
 
 def _placed(params: nn.Module, device: torch.device,
@@ -272,13 +317,16 @@ class ServeEngine:
         self.registry = registry
         self.device = resolve_device(device)
         self._models: Dict[str, Model] = {}          # arch key -> Model
-        self._weights: Dict[str, nn.Module] = {}     # app id -> fp32 (host)
+        #: app id -> host image, each parameter in its served dtype
+        self._weights: Dict[str, nn.Module] = {}
         self._loaded: Dict[str, nn.Module] = {}      # app id -> device copy
         #: (app id, max_len, batch) -> entry, of the loaded copy only
         self._exec_cache: Dict[Tuple[str, int, int], Executable] = {}
         #: seconds of the last ``generate``'s prefill and decode phases and,
         #: on the card, of its capture (0.0 where its entry was cached)
         self.last_times: Dict[str, float] = {}
+        #: host bytes the last ``load`` copied to the device
+        self.last_load_bytes = 0
 
     @staticmethod
     def _arch_key(cfg: ModelConfig) -> str:
@@ -316,22 +364,29 @@ class ServeEngine:
     def load(self, app_id: str) -> float:
         """Put the app's weights on the device (made from the endpoint's
         seed, drawn as its ``init`` says, into the host store first, at its
-        first load); returns the wall seconds taken."""
+        first load); returns the wall seconds taken. A host image not yet
+        in its served dtypes (an fp32 one handed in) is narrowed to them
+        after the copy, from the device copy."""
         # repro-lint: ignore[nondeterminism] -- load() measures the wall
         # seconds of a cold load; they are returned, no weight or token
         # depends on them
         t0 = time.perf_counter()
         ep = self.registry.get(app_id)
+        dtype, pin = compute_dtype(ep.cfg), self.device.type == "cuda"
         with span("serve.load"):
             self._drop_executables(app_id)       # they read the old copy
             if app_id not in self._weights:
                 params = self._model(ep.cfg).init(ep.seed, device=self.device,
                                                   scheme=ep.init)
-                self._weights[app_id] = _to_host(
-                    params, pin=self.device.type == "cuda")
-            self._loaded[app_id] = _placed(self._weights[app_id],
-                                           self.device, compute_dtype(ep.cfg))
+                self._weights[app_id] = _to_host(params, pin, dtype)
+            host = self._weights[app_id]
+            self.last_load_bytes = sum(p.numel() * p.element_size()
+                                       for p in host.parameters())
+            placed = self._loaded[app_id] = _placed(host, self.device, dtype)
             self._sync()
+            if any(p.dtype != q.dtype for p, q in zip(host.parameters(),
+                                                       placed.parameters())):
+                _narrow(host, placed, pin)
         # repro-lint: ignore[nondeterminism] -- end of the load measurement
         return time.perf_counter() - t0
 

@@ -14,12 +14,18 @@
     copy keeps the ``FP32_AT_USE`` parameters in f32 (the MoE router's
     ``router.w`` among them, not the other ``.w``) and casts the rest to
     the activation dtype;
+  * the host store in the served dtypes: an fp32 image handed in (as the
+    benchmark's harness hands one) is narrowed at its first load, the
+    engine's own draw is stored narrowed, and either gives device weights
+    equal bit for bit to ``_placed`` of the fp32 image, the same after a
+    reload; an fp32 endpoint's store is left as it was;
   * a reduced Qwen2 endpoint behind the ``WarmPool`` on the CPU, the pool's
     decisions mirrored onto the engine as ``chip_smoke.py`` does: a cold
     start, a warm start, and one engine load per cold start;
   * Qwen2-7B's cost model at full width: 15.2 GB of bf16 weights, a 0.76 s
     cold start.
 """
+import copy
 import dataclasses
 from types import SimpleNamespace
 
@@ -275,8 +281,9 @@ def test_engine_casts_once_at_load_and_keeps_norms_and_lam_fp32():
         leaf = name.rpartition(".")[2]
         want = torch.float32 if leaf in ("scale", "lam") else torch.bfloat16
         assert p.dtype == want, name
-    assert all(p.dtype == torch.float32
-               for p in eng._weights[app].parameters())
+    loaded = dict(eng._loaded[app].named_parameters())
+    for name, p in eng._weights[app].named_parameters():
+        assert p.dtype == loaded[name].dtype, name
 
 
 def test_engine_keeps_the_moe_router_fp32_and_casts_the_experts():
@@ -424,6 +431,134 @@ def test_dense_endpoint_behind_the_warm_pool():
     st = pool.stats
     assert (st.cold_starts, st.warm_starts) == (1, 1)
     assert len(loads) == st.cold_starts + st.prewarms == 1
+
+
+NARROWED = ["qwen2-7b", "olmoe-1b-7b", "mamba2-2.7b"]
+
+
+def _bf16_engine(arch, seed=6, device="cpu"):
+    cfg = port_configs.reduced(port_configs.get(arch)).with_(
+        dtype="bfloat16")
+    reg = port_registry.Registry()
+    reg.register(port_registry.ModelEndpoint("a", cfg, seed=seed))
+    return cfg, port_engine.ServeEngine(reg, device=device)
+
+
+def _nbytes(params):
+    return sum(p.numel() * p.element_size() for p in params.parameters())
+
+
+def _equal_params(a, b):
+    b = dict(b.named_parameters())
+    return all(p.dtype == b[n].dtype and torch.equal(p, b[n])
+               for n, p in a.named_parameters())
+
+
+@pytest.mark.parametrize("arch", NARROWED)
+def test_engine_narrows_a_handed_in_fp32_image_at_its_first_load(arch):
+    """An fp32 image handed in, as the benchmark's harness hands one: the
+    first load serves it and narrows the store in place to the served
+    dtypes (bf16, the ``fp32_at_use`` leaves fp32); a reload copies those
+    bytes, about half, and both loads' device weights equal ``_placed`` of
+    the fp32 image bit for bit, with the same tokens."""
+    from repro_torch.models.layers import fp32_at_use
+    cfg, eng = _bf16_engine(arch)
+    image = eng._model(cfg).init(6, device="cpu")
+    kept = copy.deepcopy(image)
+    eng._weights["a"] = image
+    fp32_bytes = _nbytes(image)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (1, 16)))
+    eng.load("a")
+    assert eng.last_load_bytes == fp32_bytes
+    first = copy.deepcopy(eng._loaded["a"])
+    before, _ = eng.generate("a", toks, max_new=4)
+    assert eng._weights["a"] is image
+    for name, p in image.named_parameters():
+        want = torch.float32 if fp32_at_use(name) else torch.bfloat16
+        assert p.dtype == want, name
+    eng.unload("a")
+    eng.load("a")
+    assert eng.last_load_bytes == _nbytes(image)
+    assert 0.45 * fp32_bytes < eng.last_load_bytes < 0.55 * fp32_bytes
+    assert _equal_params(eng._loaded["a"], first)
+    assert _equal_params(eng._loaded["a"], port_engine._placed(
+        kept, torch.device("cpu"), torch.bfloat16))
+    after, _ = eng.generate("a", toks, max_new=4)
+    assert torch.equal(before, after)
+
+
+@pytest.mark.parametrize("arch", NARROWED)
+def test_engine_stores_its_own_draw_in_the_served_dtypes(arch):
+    """The engine's own first-load draw goes to the host already narrowed:
+    its device weights equal ``_placed`` of the same fp32 draw bit for bit,
+    and every load copies the narrowed store's bytes."""
+    cfg, eng = _bf16_engine(arch, seed=8)
+    eng.load("a")
+    store = eng._weights["a"]
+    assert eng.last_load_bytes == _nbytes(store)
+    want = port_engine._placed(eng._model(cfg).init(8, device="cpu"),
+                               torch.device("cpu"), torch.bfloat16)
+    assert _equal_params(eng._loaded["a"], want)
+    assert _equal_params(store, want)
+    eng.unload("a")
+    eng.load("a")
+    assert eng._weights["a"] is store
+    assert eng.last_load_bytes == _nbytes(store)
+    assert _equal_params(eng._loaded["a"], want)
+
+
+def test_engine_leaves_an_fp32_endpoints_store_as_it_was():
+    """An endpoint served in fp32 keeps its fp32 store: the same module,
+    the same tensors, the same values, through a load and a reload."""
+    cfg = port_configs.reduced(port_configs.get("qwen2-7b"))
+    reg = port_registry.Registry()
+    reg.register(port_registry.ModelEndpoint("a", cfg, seed=6))
+    eng = port_engine.ServeEngine(reg, device="cpu")
+    image = eng._model(cfg).init(6, device="cpu")
+    kept = copy.deepcopy(image)
+    ptrs = [p.data_ptr() for p in image.parameters()]
+    eng._weights["a"] = image
+    for _ in range(2):
+        eng.load("a")
+        eng.unload("a")
+    assert eng._weights["a"] is image
+    assert [p.data_ptr() for p in image.parameters()] == ptrs
+    assert _equal_params(image, kept)
+    assert eng.last_load_bytes == _nbytes(kept)
+
+
+@pytest.mark.gpu
+def test_engine_narrowed_store_is_pinned_and_reloads_bit_for_bit():
+    """On the card: an fp32 image handed in through ``_to_host`` (pinned,
+    as the benchmark's harness makes it) and the engine's own draw both
+    end as pinned stores in the served dtypes, half the bytes; a reload
+    gives the first load's device weights bit for bit, which equal
+    ``_placed`` of the fp32 image."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the store is pinned there only")
+    dev = torch.device("cuda")
+    for arch in NARROWED:
+        cfg, eng = _bf16_engine(arch, device=dev)
+        image = eng._model(cfg).init(6, device=dev)
+        kept = copy.deepcopy(image)
+        eng._weights["a"] = port_engine._to_host(image, pin=True)
+        fp32_bytes = _nbytes(image)
+        eng.load("a")
+        first = copy.deepcopy(eng._loaded["a"])
+        assert _equal_params(first, port_engine._placed(kept, dev,
+                                                        torch.bfloat16))
+        eng.unload("a")
+        eng.load("a")
+        assert 0.45 * fp32_bytes < eng.last_load_bytes < 0.55 * fp32_bytes
+        assert _equal_params(eng._loaded["a"], first), arch
+        assert all(p.is_pinned() for p in image.parameters()), arch
+        eng.unload("a")
+        eng._weights.clear()
+        eng.load("a")                                # the engine's own draw
+        assert all(p.is_pinned() for p in eng._weights["a"].parameters())
+        assert _equal_params(eng._loaded["a"], first), arch
+        eng.unload("a")
 
 
 @pytest.mark.parametrize("sizes,chunk,want_chunks", [
