@@ -3,7 +3,10 @@
 Every assigned architecture is expressed as a :class:`ModelConfig`; the four
 assigned input shapes are :class:`ShapeConfig` instances. ``reduced()``
 produces the small same-family config used by CPU tests. Same fields,
-defaults and reductions as the reference's ``configs/base.py``.
+defaults and reductions as the reference's ``configs/base.py``, plus the
+fields of the port's own Nemotron-H family (``ssm_heads`` to
+``experts_held``), whose defaults leave every other config as the
+reference's.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ __all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "reduced"]
 class ModelConfig:
     arch_id: str
     family: str                   # dense | moe | ssm | hybrid | encdec
+                                  # | nemotron_h
     n_layers: int
     d_model: int
     n_heads: int
@@ -42,6 +46,22 @@ class ModelConfig:
     ssm_expand: int = 2
     ssm_chunk: int = 256
     conv_width: int = 4
+    ssm_heads: int = 0            # 0 -> d_inner // ssm_head_dim, d_inner
+                                  # = ssm_expand * d_model; else the heads
+                                  # set d_inner = ssm_heads * ssm_head_dim
+    ssm_groups: int = 1           # B/C groups; head i reads group
+                                  # i // (heads / groups)
+    ssm_norm: str = "norm_gate"   # norm_gate: rmsnorm over d_inner, then
+                                  # times silu(z); gate_norm: times silu(z),
+                                  # then rmsnorm over each group's channels
+    # --- Mamba-2 / attention / MoE in one stack (Nemotron-H) ---
+    layer_pattern: str = ""       # one mixer a layer: M (Mamba-2), E
+                                  # (MoE), * (attention); "" = the family's
+    use_rope: bool = True         # rotary embedding on self-attention
+    routed_scaling: float = 1.0   # the chosen sigmoid weights' scale
+    d_shared_expert: int = 0      # width of the always-on shared expert
+    experts_held: int = 0         # routed experts on this device (0: all);
+                                  # it holds experts 0 .. experts_held - 1
     # --- hybrid (RecurrentGemma) ---
     attn_window: int = 0          # local attention window (0 = full/global)
     block_pattern: Tuple[str, ...] = ()   # e.g. ("rec", "rec", "attn")
@@ -70,11 +90,18 @@ class ModelConfig:
 
     @property
     def d_inner(self) -> int:
+        if self.ssm_heads:
+            return self.ssm_heads * self.ssm_head_dim
         return self.ssm_expand * self.d_model
 
     @property
     def n_ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim
+
+    @property
+    def n_held(self) -> int:
+        """Routed experts this device holds (the first ``n_held``)."""
+        return self.experts_held or self.n_experts
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -122,6 +149,13 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     if cfg.family == "hybrid":
         kw.update(attn_window=16, block_pattern=("rec", "rec", "attn"),
                   n_layers=3, rglru_d_rnn=0)
+    if cfg.family == "nemotron_h":
+        # every kind of layer twice, 2 B/C groups, 4 of 8 experts held
+        kw.update(layer_pattern="ME*EM*", n_layers=6, d_model=64,
+                  n_heads=4, n_kv_heads=2, head_dim=16, ssm_heads=4,
+                  ssm_head_dim=16, ssm_groups=2, ssm_state=16, ssm_chunk=16,
+                  n_experts=8, top_k=2, experts_held=4, d_expert=32,
+                  d_shared_expert=48)
     if cfg.family == "encdec":
         kw.update(n_encoder_layers=2)
     if cfg.frontend != "none":

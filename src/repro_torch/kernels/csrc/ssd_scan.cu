@@ -2,9 +2,11 @@
 //
 // Replaces the TPU kernel repro/kernels/ssd_scan.py::_ssd_kernel
 // (ssd_scan_pallas). It computes what repro/models/mamba2.py::ssd_reference
-// computes, for x [b,l,h,p], dt [b,l,h] f32, A [h] f32, B and C [b,l,n]
-// (shared by the heads) and an optional initial state [b,h,n,p] f32: with
-// cum the running sum of dt*A inside a chunk of Q steps,
+// computes, for x [b,l,h,p], dt [b,l,h] f32, A [h] f32, B and C [b,l,g,n]
+// (g groups, each shared by h/g heads: head i reads group i / (h/g); the
+// reference's Mamba-2 has g = 1) and an optional initial state
+// [b,h,n,p] f32: with cum the running sum of dt*A inside a chunk of Q steps
+// and B, C those of the head's group,
 //   y_i = sum_{j<=i in the chunk} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j
 //         + exp(cum_i) C_i . S_in,
 //   S_out = exp(cum_last) S_in + sum_j exp(cum_last - cum_j) dt_j B_j x_j^T,
@@ -15,13 +17,17 @@
 // last chunk may be short (the TPU kernel visits only l / Q whole chunks,
 // and at l = 384 with Q = 256 leaves NaN in y). Q <= 256.
 //
-// Bound on an H100 at the serving path's shape (b=2, l=4096, h=80, p=64,
-// n=128, Q=256, bf16): bytes. The least work is C_i . B_j over the live
-// pairs j <= i of each chunk once per batch row (0.27 GFLOP), and per head
-// the masked product with x over the same pairs (10.8 GFLOP), C S_in and
-// the chunk states (2 l n p each, 21.5 GFLOP): 32.5 GFLOP, 0.033 ms at the
-// bf16 tensor cores' 989 TFLOP/s (0.49 ms at the CUDA cores' 67 TFLOP/s);
-// x, y, dt, B, C and the final state are 180 MB, 0.054 ms at 3.35 TB/s.
+// Bound on an H100 at the serving path's shape, Nemotron-3-Nano's Mamba-2
+// layers (b=1, l up to 4096, h=64, p=64, g=8, n=128, Q=128, bf16): bytes.
+// The least work is C_i . B_j over the live pairs j <= i of each chunk
+// once per batch row and group (2 n g Q(Q+1)/2 a chunk: 0.54 GFLOP at
+// l = 4096), and per head the masked product with x over the same pairs
+// (2 p h Q(Q+1)/2 a chunk: 2.16 GFLOP), C S_in and the chunk states (2 l n
+// p each a head: 8.59 GFLOP): 11.3 GFLOP, 0.0114 ms at the bf16 tensor
+// cores' 989 TFLOP/s; x, y (l h p each), dt (l h, f32), B, C (l g n each)
+// and the final state (h n p, f32) are 87.0 MB, 0.026 ms at 3.35 TB/s.
+// (Mamba-2-2.7B's shape, b=2, l=4096, h=80, p=64, g=1, n=128, Q=256: 32.5
+// GFLOP, 180 MB, 0.054 ms.)
 //
 // bf16 inputs (the serving path): two kernels, wgmma with f32
 // accumulation, operands brought by TMA into 128-byte swizzled rings.
@@ -33,7 +39,8 @@
 //      never make another trip: the TPU kernel keeps the state in VMEM
 //      across a sequential grid; here the sequential walk is inside the
 //      block.
-//   2. ssd_out_bf16, per (b, chunk, 64-row tile, p tile, group of heads),
+//   2. ssd_out_bf16, per (b, chunk, 64-row tile, p tile, group of heads;
+//      a group of heads lies inside one B/C group),
 //      two warpgroups and a producer warp that keeps the TMA ring full
 //      (full and empty mbarriers, so the warpgroups meet only at the end
 //      of a head): C B^T of its rows once (B and C are exact in bf16),
@@ -97,15 +104,16 @@ enum : int { kErrShape = -1, kErrDtype = -2, kErrNoEncoder = -3,
 
 struct Dims {
   int b, l, h, p, n, Q, nc;
+  int g, hpg;              // B/C groups, heads a group
   int64_t sxb, sxl, sxh;   // x [b, l, h, p], p contiguous
   int64_t sdb, sdl;        // dt [b, l, h], h contiguous
-  int64_t sbb, sbl;        // B [b, l, n], n contiguous
-  int64_t scb, scl;        // C [b, l, n], n contiguous
+  int64_t sbb, sbl, sbg;   // B [b, l, g, n], n contiguous
+  int64_t scb, scl, scg;   // C [b, l, g, n], n contiguous
 };
 
 // Scratch layout (floats).
 struct Scratch {
-  float* cb;    // [b, nc, Q, Q]
+  float* cb;    // [b, nc, g, Q, Q]
   float* cum;   // [b, nc, h, Q]
   float* dec;   // [b, nc, h]
   float* st;    // [b, nc, h, n, p]
@@ -136,7 +144,8 @@ __device__ __forceinline__ void mac_tile(float (&acc)[4][4],
   }
 }
 
-// Pass 1: CB[b, c, i, j] = C_i . B_j for the tiles with j-tile <= i-tile.
+// Pass 1: CB[b, c, g, i, j] = C_i . B_j of each group for the tiles with
+// j-tile <= i-tile.
 __global__ void __launch_bounds__(kThreads)
     ssd_cb(const float* __restrict__ B, const float* __restrict__ C,
            Scratch s, Dims d) {
@@ -146,13 +155,14 @@ __global__ void __launch_bounds__(kThreads)
   int blk = blockIdx.x;
   const int tj = blk % nt; blk /= nt;
   const int ti = blk % nt; blk /= nt;
+  const int grp = blk % d.g; blk /= d.g;
   const int c = blk % d.nc, bb = blk / d.nc;
   const int t0 = c * d.Q, qlen = min(d.Q, d.l - t0);
   const int i0 = ti * kTile, j0 = tj * kTile;
   if (tj > ti || i0 >= qlen) return;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const float* Cb = C + bb * d.scb + (int64_t)t0 * d.scl;
-  const float* Bb = B + bb * d.sbb + (int64_t)t0 * d.sbl;
+  const float* Cb = C + bb * d.scb + grp * d.scg + (int64_t)t0 * d.scl;
+  const float* Bb = B + bb * d.sbb + grp * d.sbg + (int64_t)t0 * d.sbl;
   float acc[4][4] = {};
   for (int k0 = 0; k0 < d.n; k0 += kK) {
     #pragma unroll 4
@@ -167,7 +177,7 @@ __global__ void __launch_bounds__(kThreads)
     mac_tile(acc, Cs, Bs, ty, tx);
     __syncthreads();
   }
-  float* out = s.cb + ((int64_t)bb * d.nc + c) * d.Q * d.Q;
+  float* out = s.cb + (((int64_t)bb * d.nc + c) * d.g + grp) * d.Q * d.Q;
 #pragma unroll
   for (int r = 0; r < 4; ++r)
 #pragma unroll
@@ -241,7 +251,8 @@ __global__ void __launch_bounds__(kThreads)
                qlen, cum_s, w_s, s, bch, d.Q, nt == 0 && pt == 0);
 
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const float* Bb = B + bb * d.sbb + (int64_t)t0 * d.sbl;
+  const float* Bb = B + bb * d.sbb + (hh / d.hpg) * d.sbg +
+                    (int64_t)t0 * d.sbl;
   const float* xb = x + bb * d.sxb + (int64_t)t0 * d.sxl + hh * d.sxh;
   float acc[4][4] = {};
   for (int j0 = 0; j0 < qlen; j0 += kK) {
@@ -331,7 +342,9 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const float* cb = s.cb + ((int64_t)bb * d.nc + c) * d.Q * d.Q;
+  const int grp = hh / d.hpg;
+  const float* cb =
+      s.cb + (((int64_t)bb * d.nc + c) * d.g + grp) * d.Q * d.Q;
   const float* xb = x + bb * d.sxb + (int64_t)t0 * d.sxl + hh * d.sxh;
   float acc[4][4] = {};
   // intra-chunk: M[i, j] = CB[i, j] exp(cum_i - cum_j) dt_j for j <= i
@@ -357,7 +370,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
   }
   // inter-chunk: exp(cum_i) C_i . S_in
-  const float* Cb = C + bb * d.scb + (int64_t)t0 * d.scl;
+  const float* Cb = C + bb * d.scb + grp * d.scg + (int64_t)t0 * d.scl;
   const float* sin = s.st + bch * d.n * d.p;
   for (int k0 = 0; k0 < d.n; k0 += kK) {
     #pragma unroll 4
@@ -594,7 +607,8 @@ __global__ void __launch_bounds__(kStates)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const float a = A[hh];
-  const bf16* Bb = B + bb * d.sbb + n0;
+  const int grp = hh / d.hpg;
+  const bf16* Bb = B + bb * d.sbb + grp * d.sbg + n0;
   const bf16* xb = x + bb * d.sxb + hh * d.sxh + p0;
   const float* dtb = dt + bb * d.sdb + hh;
   const int64_t np = (int64_t)d.n * s.pp;
@@ -627,7 +641,7 @@ __global__ void __launch_bounds__(kStates)
       if (threadIdx.x == 0) {
         const uint32_t bar = smem_u32(&full[st % kStatesStages]);
         hopper::mbar_expect_tx(bar, 2 * kTileBytes);
-        hopper::tma_load_3d(smem_u32(tB), &tb, bar, n0, row, bb);
+        hopper::tma_load_4d(smem_u32(tB), &tb, bar, n0, grp, row, bb);
         hopper::tma_load_4d(smem_u32(tX), &tx, bar, p0, hh, row, bb);
       }
     } else {
@@ -798,18 +812,22 @@ __global__ void __launch_bounds__(kOutThreads, 1)
   const uint32_t bars = smem_u32(smem + m.bar);
 
   const int nti = cdiv(d.Q, kOutRows), ntp = cdiv(d.p, 64);
-  const int ng = cdiv(d.h, heads_per_block);
+  // the blocks' groups of heads, cdiv(hpg, heads_per_block) in each B/C
+  // group
+  const int ngp = cdiv(d.hpg, heads_per_block);
+  const int ng = d.g * ngp;
   int blk = blockIdx.x;
   const int it = nti - 1 - blk % nti; blk /= nti;
   const int pt = blk % ntp; blk /= ntp;
   const int hg = blk % ng; blk /= ng;
+  const int grp = hg / ngp;
   const int c = blk % d.nc, bb = blk / d.nc;
   const int t0 = c * d.Q, qlen = min(d.Q, d.l - t0);
   const int i0 = it * kOutRows, p0 = pt * 64;
   if (i0 >= qlen) return;
   const int jmax = min(qlen, i0 + kOutRows);
-  const int h0 = hg * heads_per_block;
-  const int h1 = min(d.h, h0 + heads_per_block);
+  const int h0 = grp * d.hpg + (hg % ngp) * heads_per_block;
+  const int h1 = min((grp + 1) * d.hpg, h0 + heads_per_block);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int rg = warp & 3, kh = warp >> 2;          // warpgroup kh
@@ -828,8 +846,9 @@ __global__ void __launch_bounds__(kOutThreads, 1)
   // C of the tile's rows, whole n (zeros past qlen and n)
   // 16-byte loads of C and B rows: strides of whole pieces and n of them
   const bool vec = tma && d.n % 8 == 0;
-  const bf16* Cb = C + bb * d.scb + (int64_t)(t0 + i0) * d.scl;
-  const bf16* Bb = B + bb * d.sbb + (int64_t)t0 * d.sbl;
+  const bf16* Cb =
+      C + bb * d.scb + grp * d.scg + (int64_t)(t0 + i0) * d.scl;
+  const bf16* Bb = B + bb * d.sbb + grp * d.sbg + (int64_t)t0 * d.sbl;
   auto stage_rows = [&](bf16* dst, const bf16* src, int64_t rs, int rlim) {
     const int cw = m.npad / 8;
     for (int e = threadIdx.x; e < kOutRows * cw; e += kOutThreads) {
@@ -1085,9 +1104,10 @@ __global__ void __launch_bounds__(kOutThreads, 1)
   for (int q = 0; q < iters; ++q) step(q);
 }
 
-Dims make_dims(int b, int l, int h, int p, int n, int chunk) {
+Dims make_dims(int b, int l, int h, int p, int n, int chunk, int g) {
   Dims d{};
   d.b = b; d.l = l; d.h = h; d.p = p; d.n = n;
+  d.g = g; d.hpg = h / g;
   d.Q = chunk < l ? chunk : l;
   d.nc = cdiv(l, d.Q);
   return d;
@@ -1098,7 +1118,7 @@ Scratch carve(float* base, const Dims& d) {
   Scratch s;
   s.st = base;                     // first: 16-byte aligned for float4 loads
   s.cb = s.st + bnc * d.h * d.n * d.p;
-  s.cum = s.cb + bnc * d.Q * d.Q;
+  s.cum = s.cb + bnc * d.g * d.Q * d.Q;
   s.dec = s.cum + bnc * d.h * d.Q;
   return s;
 }
@@ -1117,7 +1137,7 @@ Bf16Scratch carve_bf16(void* base, const Dims& d) {
 int64_t scratch_bytes(int dtype, const Dims& d) {
   const int64_t bnc = (int64_t)d.b * d.nc;
   if (dtype == 0)
-    return 4 * bnc * ((int64_t)d.Q * d.Q + (int64_t)d.h * (d.Q + 1) +
+    return 4 * bnc * ((int64_t)d.g * d.Q * d.Q + (int64_t)d.h * (d.Q + 1) +
                       (int64_t)d.h * d.n * d.p);
   return 2 * 2 * bnc * d.h * d.n * round_up(d.p, 8) +
          4 * bnc * d.h * 2 * round_up(d.Q, 4);
@@ -1178,9 +1198,11 @@ extern "C" {
 // Bytes of scratch ssd_scan_fwd needs for these sizes and dtype (0 = f32,
 // 1 = bf16).
 int64_t ssd_scan_scratch_bytes(int dtype, int b, int l, int h, int p, int n,
-                               int chunk) {
-  if (b < 1 || l < 1 || h < 1 || p < 1 || n < 1 || chunk < 1) return 0;
-  return scratch_bytes(dtype, make_dims(b, l, h, p, n, chunk));
+                               int chunk, int g) {
+  if (b < 1 || l < 1 || h < 1 || p < 1 || n < 1 || chunk < 1 || g < 1 ||
+      h % g)
+    return 0;
+  return scratch_bytes(dtype, make_dims(b, l, h, p, n, chunk, g));
 }
 
 // The widest state (n) the bf16 form takes: its output kernel holds C of
@@ -1192,30 +1214,31 @@ int ssd_scan_bf16_max_state() {
   return n;
 }
 
-// dtype: 0 = f32, 1 = bf16 (of x, B, C and y). init may be null (zero
-// state). Strides in elements. Returns 0, a CUDA error code, kErrShape or
-// kErrDtype.
+// dtype: 0 = f32, 1 = bf16 (of x, B, C and y). g B/C groups (h % g == 0),
+// B and C [b, l, g, n]. init may be null (zero state). Strides in elements. Returns 0, a CUDA error code,
+// kErrShape or kErrDtype.
 int ssd_scan_fwd(const void* x, const float* dt, const float* A,
                  const void* B, const void* C, const float* init, void* y,
                  float* final_state, void* scratch, int dtype, int b, int l,
-                 int h, int p, int n, int chunk, int64_t sxb, int64_t sxl,
-                 int64_t sxh, int64_t sdb, int64_t sdl, int64_t sbb,
-                 int64_t sbl, int64_t scb, int64_t scl, void* stream) {
+                 int h, int p, int n, int chunk, int g, int64_t sxb,
+                 int64_t sxl, int64_t sxh, int64_t sdb, int64_t sdl,
+                 int64_t sbb, int64_t sbl, int64_t sbg, int64_t scb,
+                 int64_t scl, int64_t scg, void* stream) {
   if (b < 1 || l < 1 || h < 1 || p < 1 || n < 1 || chunk < 1 ||
-      chunk > kMaxChunk)
+      chunk > kMaxChunk || g < 1 || h % g)
     return kErrShape;
-  Dims d = make_dims(b, l, h, p, n, chunk);
+  Dims d = make_dims(b, l, h, p, n, chunk, g);
   d.sxb = sxb; d.sxl = sxl; d.sxh = sxh;
   d.sdb = sdb; d.sdl = sdl;
-  d.sbb = sbb; d.sbl = sbl;
-  d.scb = scb; d.scl = scl;
+  d.sbb = sbb; d.sbl = sbl; d.sbg = sbg;
+  d.scb = scb; d.scl = scl; d.scg = scg;
   if (dtype != 0 && dtype != 1) return kErrDtype;
   cudaStream_t st = (cudaStream_t)stream;
   const int nt = cdiv(d.Q, kTile), ntp = cdiv(d.p, kTile);
   const int64_t bnc = (int64_t)d.b * d.nc;
   if (dtype == 0) {
     const Scratch s = carve(static_cast<float*>(scratch), d);
-    const unsigned grid_cb = (unsigned)(bnc * nt * nt);
+    const unsigned grid_cb = (unsigned)(bnc * d.g * nt * nt);
     const unsigned grid_state =
         (unsigned)(bnc * d.h * cdiv(d.n, kTile) * ntp);
     const unsigned grid_out = (unsigned)(bnc * nt * ntp * d.h);
@@ -1242,8 +1265,8 @@ int ssd_scan_fwd(const void* x, const float* dt, const float* A,
   // staged element by element. The chunk states always go by TMA.
   auto al16 = [](const void* q) { return ((uintptr_t)q & 15) == 0; };
   const bool tma = al16(x) && al16(B) && al16(C) &&
-                   (d.sxb | d.sxl | d.sxh | d.sbb | d.sbl | d.scb | d.scl) %
-                           8 == 0;
+                   (d.sxb | d.sxl | d.sxh | d.sbb | d.sbl | d.sbg | d.scb |
+                    d.scl | d.scg) % 8 == 0;
   EncodeTiled enc = encoder();
   if (enc == nullptr) return kErrNoEncoder;
   // boxes of 32 rows (ssd_states_bf16's steps) and 64 (ssd_out_bf16's)
@@ -1260,31 +1283,33 @@ int ssd_scan_fwd(const void* x, const float* dt, const float* A,
     const int64_t xd[4] = {d.p, d.h, d.l, d.b};
     const int64_t xs[3] = {d.sxh, d.sxl, d.sxb};
     const int xbox[4] = {64, 1, kKs, 1}, xbox2[4] = {64, 1, kKo, 1};
-    const int64_t bd[3] = {d.n, d.l, d.b};
-    const int64_t bs[2] = {d.sbl, d.sbb};
-    const int bbox[3] = {64, kKs, 1};
+    const int64_t bd[4] = {d.n, d.g, d.l, d.b};
+    const int64_t bs[3] = {d.sbg, d.sbl, d.sbb};
+    const int bbox[4] = {64, 1, kKs, 1};
     if (!make_map(enc, &mx, x, 4, xd, xs, xbox) ||
         !make_map(enc, &mx2, x, 4, xd, xs, xbox2) ||
-        !make_map(enc, &mb, B, 3, bd, bs, bbox))
+        !make_map(enc, &mb, B, 4, bd, bs, bbox))
       return kErrTensorMap;
   }
   const unsigned grid_states =
       (unsigned)((int64_t)d.b * d.h * cdiv(d.n, 64) * ntp);
   ssd_states_bf16<<<grid_states, kStates, 0, st>>>(
       mb, mx, xb, dt, A, Bb, init, final_state, s, d, tma);
-  // heads per output block: about four blocks an SM in all
+  // heads per output block: about four blocks an SM in all, each block's
+  // heads inside one B/C group
   int dev = 0, sms = 132;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const int64_t tiles = bnc * cdiv(d.Q, kOutRows) * ntp;
+  const int64_t tg = tiles * d.g;
   const int groups =
-      (int)std::max<int64_t>(1, std::min<int64_t>(d.h, (4 * sms + tiles - 1) /
-                                                           tiles));
-  const int hpb = cdiv(d.h, groups);
+      (int)std::max<int64_t>(1, std::min<int64_t>(d.hpg, (4 * sms + tg - 1) /
+                                                             tg));
+  const int hpb = cdiv(d.hpg, groups);
   cudaError_t e = cudaFuncSetAttribute(
       ssd_out_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, m.total);
   if (e != cudaSuccess) return (int)e;
-  ssd_out_bf16<<<(unsigned)(tiles * cdiv(d.h, hpb)), kOutThreads, m.total,
+  ssd_out_bf16<<<(unsigned)(tg * cdiv(d.hpg, hpb)), kOutThreads, m.total,
                  st>>>(
       msh, msl, mx2, xb, Bb, Cb, static_cast<bf16*>(y), s, d, hpb, tma);
   return (int)cudaGetLastError();
@@ -1292,8 +1317,9 @@ int ssd_scan_fwd(const void* x, const float* dt, const float* A,
 
 const char* ssd_scan_error_string(int code) {
   if (code == kErrShape)
-    return "bad shape (b, l, h, p, n >= 1, 1 <= chunk <= 256, and for bf16 "
-           "n at most ssd_scan_bf16_max_state())";
+    return "bad shape (b, l, h, p, n, g >= 1, h a multiple of g, "
+           "1 <= chunk <= 256, and for bf16 n at most "
+           "ssd_scan_bf16_max_state())";
   if (code == kErrDtype) return "dtype must be 0 (float32) or 1 (bfloat16)";
   if (code == kErrNoEncoder)
     return "the driver has no cuTensorMapEncodeTiled";

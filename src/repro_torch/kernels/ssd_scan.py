@@ -13,6 +13,10 @@ tensors it runs
 are off (the port of ``repro/models/mamba2.py::ssd_reference``). There is
 no fallback: a CUDA tensor either reaches the kernel or the call raises.
 
+B and C are ``[b, l, g, n]``: g groups, head ``i`` reading group ``i //
+(h // g)`` (Nemotron-H's 8 groups), or ``[b, l, n]``, shared by every head
+(Mamba-2), which both versions take as one group.
+
 Unlike the TPU kernel, which visits only ``l // min(chunk, l)`` whole
 chunks, both versions take any length: the plain version shrinks the chunk
 to a divisor of ``l`` as the reference does, the kernel keeps ``chunk`` and
@@ -61,59 +65,71 @@ def _effective_chunk(l: int, chunk: int) -> int:
     return max(c, 1)
 
 
+def _grouped(B, C):
+    """B and C as ``[b, l, g, n]``: a ``[b, l, n]`` pair is one group."""
+    if B.dim() == 3:
+        return B.unsqueeze(2), C.unsqueeze(2)
+    return B, C
+
+
 def ssd_scan_plain(x, dt, A, B, C, chunk: int, initial_state=None):
     """The chunked SSD scan in f32.
 
     x [b, l, h, p], dt [b, l, h] (positive steps), A [h] (negative rates),
-    B and C [b, l, n] (shared by the heads); ``initial_state`` [b, h, n, p]
-    is the state before step 0 (zero if None). Returns (y [b, l, h, p],
-    final state [b, h, n, p]), both f32. Within a chunk of Q tokens
-    ``y_i = sum_{j<=i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j`` with
-    ``cum`` the running sum of ``dt A``; across chunks a ``[h, n, p]``
-    state is carried."""
+    B and C [b, l, n] (shared by the heads) or [b, l, g, n] (head ``i``
+    reads group ``i // (h // g)``); ``initial_state`` [b, h, n, p] is the
+    state before step 0 (zero if None). Returns (y [b, l, h, p], final
+    state [b, h, n, p]), both f32. Within a chunk of Q tokens ``y_i =
+    sum_{j<=i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j`` with ``cum`` the
+    running sum of ``dt A``; across chunks a ``[h, n, p]`` state is
+    carried. The heads are taken as (group, head in the group)."""
+    B, C = _grouped(B, C)
     x, dt, A, B, C = (v.float() for v in (x, dt, A, B, C))
     b, l, h, p = x.shape
-    n = B.shape[-1]
+    g, n = B.shape[2], B.shape[3]
+    r = h // g
     q = _effective_chunk(l, chunk)
     nc = l // q
-    xb = x.reshape(b, nc, q, h, p)
-    dtb = dt.reshape(b, nc, q, h)
-    Bb = B.reshape(b, nc, q, n)
-    Cb = C.reshape(b, nc, q, n)
+    xb = x.reshape(b, nc, q, g, r, p)
+    dtb = dt.reshape(b, nc, q, g, r)
+    Bb = B.reshape(b, nc, q, g, n)
+    Cb = C.reshape(b, nc, q, g, n)
 
-    cum = torch.cumsum(dtb * A, dim=2)                    # [b,nc,q,h]
+    cum = torch.cumsum(dtb * A.view(g, r), dim=2)         # [b,nc,q,g,r]
     # intra-chunk: M[i,j] = C_i . B_j * exp(cum_i - cum_j) * dt_j (j <= i)
-    CB = torch.einsum("bcin,bcjn->bcij", Cb, Bb)
-    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # [b,nc,i,j,h]
+    CB = torch.einsum("bcign,bcjgn->bcijg", Cb, Bb)
+    seg = cum[:, :, :, None] - cum[:, :, None]            # [b,nc,i,j,g,r]
     causal = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()
     # masked before the exp: exp(seg) of the upper triangle overflows to
     # inf, and masking after it leaves inf * 0 = NaN in the backward (the
     # reference's order, ROADMAP Queue C); the values are the same
-    decay = torch.exp(torch.where(causal[:, :, None], seg, -math.inf))
+    decay = torch.exp(torch.where(causal[:, :, None, None], seg, -math.inf))
     M = CB[..., None] * decay
-    y_intra = torch.einsum("bcijh,bcjhp->bcihp", M, xb * dtb[..., None])
+    y_intra = torch.einsum("bcijgr,bcjgrp->bcigrp", M, xb * dtb[..., None])
 
     # chunk-local states: S_c = sum_j exp(cum_last - cum_j) dt_j B_j x_j
-    last = cum[:, :, -1:, :]
-    w = torch.exp(last - cum) * dtb                       # [b,nc,q,h]
-    S_loc = torch.einsum("bcjn,bcjhp->bchnp", Bb, xb * w[..., None])
+    last = cum[:, :, -1:]
+    w = torch.exp(last - cum) * dtb                       # [b,nc,q,g,r]
+    S_loc = torch.einsum("bcjgn,bcjgrp->bcgrnp", Bb, xb * w[..., None])
 
     # inter-chunk recurrence, emitting the state entering each chunk
-    chunk_decay = torch.exp(last[:, :, 0, :])             # [b,nc,h]
-    S = (torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
-         if initial_state is None else initial_state.float())
+    chunk_decay = torch.exp(last[:, :, 0])                # [b,nc,g,r]
+    S = (torch.zeros((b, g, r, n, p), dtype=torch.float32, device=x.device)
+         if initial_state is None
+         else initial_state.float().reshape(b, g, r, n, p))
     S_in = []
     for c in range(nc):
         S_in.append(S)
-        S = S * chunk_decay[:, c, :, None, None] + S_loc[:, c]
-    S_in = torch.stack(S_in, dim=1)                       # [b,nc,h,n,p]
-    y_inter = torch.einsum("bcin,bchnp->bcihp", Cb, S_in) * \
+        S = S * chunk_decay[:, c, ..., None, None] + S_loc[:, c]
+    S_in = torch.stack(S_in, dim=1)                       # [b,nc,g,r,n,p]
+    y_inter = torch.einsum("bcign,bcgrnp->bcigrp", Cb, S_in) * \
         torch.exp(cum)[..., None]
-    return (y_intra + y_inter).reshape(b, l, h, p), S
+    return (y_intra + y_inter).reshape(b, l, h, p), S.reshape(b, h, n, p)
 
 
 def _check_cuda_args(x, dt, A, B, C, chunk, initial_state) -> None:
     """Raise ``ValueError`` on what the kernel does not take."""
+    B, C = _grouped(B, C)
     if x.dim() != 4:
         raise ValueError(f"ssd_scan: x must be [b, l, h, p], got "
                          f"{tuple(x.shape)}")
@@ -123,11 +139,13 @@ def _check_cuda_args(x, dt, A, B, C, chunk, initial_state) -> None:
     if x.dtype not in _DTYPES:
         raise ValueError(f"ssd_scan: x must be float32 or bfloat16, got "
                          f"{x.dtype}")
-    if B.dim() != 3 or B.shape[:2] != (b, l) or B.shape != C.shape \
-            or B.shape[2] < 1:
+    if B.dim() != 4 or B.shape[:2] != (b, l) \
+            or B.shape != C.shape or min(B.shape[2:]) < 1 \
+            or h % B.shape[2]:
         raise ValueError(f"ssd_scan: B {tuple(B.shape)} and C "
-                         f"{tuple(C.shape)} must both be [b, l, n] with "
-                         f"(b, l) = {(b, l)}")
+                         f"{tuple(C.shape)} must both be [b, l, n] or "
+                         f"[b, l, g, n] with (b, l) = {(b, l)} and g "
+                         f"dividing h = {h}")
     if B.dtype != x.dtype or C.dtype != x.dtype:
         raise ValueError(f"ssd_scan: x, B and C must share a dtype, got "
                          f"{x.dtype}, {B.dtype}, {C.dtype}")
@@ -141,12 +159,13 @@ def _check_cuda_args(x, dt, A, B, C, chunk, initial_state) -> None:
         if t.stride(-1) != 1 and t.shape[-1] > 1:
             raise ValueError(f"ssd_scan: the last dimension of {name} must "
                              f"be contiguous, got strides {t.stride()}")
+    n = B.shape[-1]
     if initial_state is not None and (
-            tuple(initial_state.shape) != (b, h, B.shape[2], p)
+            tuple(initial_state.shape) != (b, h, n, p)
             or initial_state.dtype != torch.float32
             or not initial_state.is_contiguous()):
         raise ValueError(f"ssd_scan: initial_state must be a contiguous "
-                         f"float32 {(b, h, B.shape[2], p)}, got "
+                         f"float32 {(b, h, n, p)}, got "
                          f"{initial_state.dtype} "
                          f"{tuple(initial_state.shape)}")
     devices = {t.device for t in (x, dt, A, B, C)}
@@ -157,9 +176,9 @@ def _check_cuda_args(x, dt, A, B, C, chunk, initial_state) -> None:
     if not 1 <= chunk <= MAX_CHUNK:
         raise ValueError(f"ssd_scan: chunk must be in [1, {MAX_CHUNK}], "
                          f"got {chunk}")
-    if x.dtype == torch.bfloat16 and B.shape[2] > MAX_BF16_STATE:
+    if x.dtype == torch.bfloat16 and n > MAX_BF16_STATE:
         raise ValueError(f"ssd_scan: a bf16 state is at most "
-                         f"{MAX_BF16_STATE} wide, got n = {B.shape[2]}")
+                         f"{MAX_BF16_STATE} wide, got n = {n}")
 
 
 def _lib() -> ctypes.CDLL:
@@ -167,11 +186,11 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("ssd_scan")
     if not getattr(lib, "_typed", False):
         i32, i64, ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
-        lib.ssd_scan_scratch_bytes.argtypes = [i32] * 7
+        lib.ssd_scan_scratch_bytes.argtypes = [i32] * 8
         lib.ssd_scan_scratch_bytes.restype = i64
         lib.ssd_scan_bf16_max_state.argtypes = []
         lib.ssd_scan_bf16_max_state.restype = i32
-        lib.ssd_scan_fwd.argtypes = [ptr] * 9 + [i32] * 7 + [i64] * 9 + [ptr]
+        lib.ssd_scan_fwd.argtypes = [ptr] * 9 + [i32] * 8 + [i64] * 11 + [ptr]
         lib.ssd_scan_fwd.restype = i32
         lib.ssd_scan_error_string.argtypes = [i32]
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
@@ -200,25 +219,26 @@ def release_scratch(device=None) -> None:
 
 def _launch(x, dt, A, B, C, chunk, initial_state):
     global LAUNCHES
+    B, C = _grouped(B, C)
     _check_cuda_args(x, dt, A, B, C, chunk, initial_state)
     lib = _lib()
     b, l, h, p = x.shape
-    n = B.shape[2]
+    g, n = B.shape[2], B.shape[3]
     dev = x.device
     y = torch.empty((b, l, h, p), dtype=x.dtype, device=dev)
     final = torch.empty((b, h, n, p), dtype=torch.float32, device=dev)
     scratch = _scratch(dev, lib.ssd_scan_scratch_bytes(
-        _DTYPES[x.dtype], b, l, h, p, n, chunk))
+        _DTYPES[x.dtype], b, l, h, p, n, chunk, g))
     init_ptr = 0 if initial_state is None else initial_state.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.ssd_scan_fwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(), init_ptr, y.data_ptr(), final.data_ptr(),
-            scratch.data_ptr(), _DTYPES[x.dtype], b, l, h, p, n, chunk,
+            scratch.data_ptr(), _DTYPES[x.dtype], b, l, h, p, n, chunk, g,
             x.stride(0), x.stride(1), x.stride(2), dt.stride(0),
-            dt.stride(1), B.stride(0), B.stride(1), C.stride(0), C.stride(1),
-            stream)
+            dt.stride(1), B.stride(0), B.stride(1), B.stride(2), C.stride(0),
+            C.stride(1), C.stride(2), stream)
     if rc != 0:
         raise RuntimeError("ssd_scan launch failed: "
                            + lib.ssd_scan_error_string(rc).decode())
@@ -228,8 +248,9 @@ def _launch(x, dt, A, B, C, chunk, initial_state):
 
 def ssd_scan(x, dt, A, B, C, *, chunk: int = 256, initial_state=None):
     """x [b, l, h, p] (f32 or bf16), dt [b, l, h] f32, A [h] f32, B and C
-    [b, l, n] in x's dtype (each read through its strides, the last
-    dimension contiguous), ``initial_state`` None or [b, h, n, p] f32 ->
+    [b, l, n] or [b, l, g, n] in x's dtype (each read through its strides,
+    the last dimension contiguous), ``initial_state`` None or [b, h, n, p]
+    f32 ->
     (y [b, l, h, p] in x's dtype, final state [b, h, n, p] f32).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel (and

@@ -12,20 +12,23 @@ from __future__ import annotations
 import re
 
 
-def ssd_inputs(b, l, h, p, n, dtype, device, seed, model_like):
-    """x, B and C as views into one [b, l, h*p + 2n] tensor in ``dtype``, as
-    the model hands them over (its conv output), dt [b, l, h] and A [h]
-    f32. ``model_like``: dt = softplus(normal - 1) and A = -linspace(1, 16,
-    h), as the model's init gives; else the reference tests' dt =
-    0.1 |normal| and A = -|normal|, whose slow decays keep the carried
-    state large."""
+def ssd_inputs(b, l, h, p, n, dtype, device, seed, model_like, groups=None):
+    """x, B and C as views into one [b, l, h*p + 2 G n] tensor in ``dtype``,
+    as the model hands them over (its conv output), dt [b, l, h] and A [h]
+    f32. B and C are [b, l, n] (G = 1) where ``groups`` is None, else [b,
+    l, groups, n]. ``model_like``: dt = softplus(normal - 1) and A =
+    -linspace(1, 16, h), as the model's init gives; else the reference
+    tests' dt = 0.1 |normal| and A = -|normal|, whose slow decays keep the
+    carried state large."""
     import torch
     import torch.nn.functional as F
     g = torch.Generator(device=device).manual_seed(seed)
-    di = h * p
-    xbc = torch.randn(b, l, di + 2 * n, generator=g, device=device).to(dtype)
+    di, gn = h * p, (groups or 1) * n
+    xbc = torch.randn(b, l, di + 2 * gn, generator=g, device=device).to(dtype)
     x = xbc[..., :di].reshape(b, l, h, p)
-    B, C = xbc[..., di:di + n], xbc[..., di + n:]
+    B, C = xbc[..., di:di + gn], xbc[..., di + gn:]
+    if groups is not None:
+        B, C = B.unflatten(-1, (groups, n)), C.unflatten(-1, (groups, n))
     if model_like:
         dt = F.softplus(torch.randn(b, l, h, generator=g, device=device) - 1)
         A = -torch.linspace(1.0, 16.0, h, device=device)

@@ -4,7 +4,13 @@ The port of ``repro/models/mamba2.py``.
 Each layer: rmsnorm, one input projection into ``z`` (gate), ``xBC``
 (inputs and the B and C projections, shared by the heads) and ``dt``
 (per-head steps), a causal depthwise conv over ``xBC``, the SSD scan, a
-skip through ``D``, a gated rmsnorm and the output projection. The
+skip through ``D``, a gated rmsnorm and the output projection.
+Nemotron-H's Mamba-2 layers (``models.nemotron_h``) set three options
+whose defaults give the layer above: ``cfg.ssm_groups`` B/C groups (head
+``i`` reads group ``i // (heads / groups)``), ``cfg.ssm_heads`` heads
+whatever ``d_model`` is, and ``cfg.ssm_norm == "gate_norm"``, the
+published ``MambaRMSNormGated(norm_before_gate=False)``: ``y * silu(z)``
+first, then an rmsnorm over each group's ``d_inner / groups`` channels. The
 reference's stacked ``[n_layers, ...]`` parameters are unrolled into a
 ``ModuleList`` of layers, and the decode state holds one tensor per layer.
 
@@ -39,12 +45,17 @@ __all__ = ["ssd_decode_step", "Mamba2Block", "SSMParams", "init",
 
 def ssd_decode_step(S, x, dt, A, B, C):
     """One-token SSD update. S [b,h,n,p]; x [b,h,p]; dt [b,h]; A [h];
-    B, C [b,n]. Returns (y [b,h,p], new S)."""
-    a = torch.exp(dt * A[None, :])                               # [b,h]
-    S = S * a[..., None, None] + \
-        B[:, None, :, None] * (dt[..., None] * x)[:, :, None, :]
-    y = torch.einsum("bn,bhnp->bhp", C, S)
-    return y, S
+    B, C [b,g,n] (head ``i`` reads group ``i // (h // g)``) or [b,n]
+    (shared by the heads: one group). Returns (y [b,h,p], new S)."""
+    if B.dim() == 2:
+        B, C = B[:, None], C[:, None]
+    g = B.shape[1]
+    heads = lambda t: t.unflatten(1, (g, -1))              # h -> (g, h/g)
+    a = heads(torch.exp(dt * A[None, :]))                  # [b,g,r]
+    S = heads(S) * a[..., None, None] + \
+        B[:, :, None, :, None] * heads(dt[..., None] * x)[:, :, :, None, :]
+    y = torch.einsum("bgn,bgrnp->bgrp", C, S)
+    return y.flatten(1, 2), S.flatten(1, 2)
 
 
 # ---------------------------------------------------------------------------
@@ -55,10 +66,11 @@ def ssd_decode_step(S, x, dt, A, B, C):
 class Mamba2Block(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        D, DI, N, H = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
+        D, DI, H = cfg.d_model, cfg.d_inner, cfg.n_ssm_heads
+        N = cfg.ssm_groups * cfg.ssm_state
         conv_dim = DI + 2 * N
         self.ln = L.RMSNorm(D)
-        # in_proj -> [z (DI), xBC (DI + 2N), dt (H)]
+        # in_proj -> [z (DI), xBC (DI + 2 G N), dt (H)]
         self.in_proj = L.Linear(D, 2 * DI + 2 * N + H)
         self.conv_w = nn.Parameter(torch.empty(cfg.conv_width, conv_dim))
         self.conv_b = nn.Parameter(torch.zeros(conv_dim))
@@ -127,9 +139,33 @@ def init(cfg: ModelConfig, seed: int = 0, device=None) -> SSMParams:
 
 
 def _split_proj(cfg: ModelConfig, proj):
-    DI, N = cfg.d_inner, cfg.ssm_state
+    DI, N = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state
     return proj[..., :DI], proj[..., DI: 2 * DI + 2 * N], \
         proj[..., 2 * DI + 2 * N:]
+
+
+def _bc(cfg: ModelConfig, xBC, DI: int):
+    """B and C of the conv output ``xBC`` [..., DI + 2 G N]: views [..., N]
+    where one group serves every head, else [..., G, N]."""
+    G, N = cfg.ssm_groups, cfg.ssm_state
+    Bm, Cm = xBC[..., DI: DI + G * N], xBC[..., DI + G * N:]
+    if G == 1:
+        return Bm, Cm
+    return (Bm.unflatten(-1, (G, N)), Cm.unflatten(-1, (G, N)))
+
+
+def _gated_norm(cfg: ModelConfig, p: "Mamba2Block", y, z):
+    """The gated rmsnorm of ``cfg.ssm_norm``: ``norm_gate`` (rmsnorm over
+    the whole width, then times silu(z)) or ``gate_norm`` (times silu(z),
+    then an rmsnorm over each group's channels; the product and the norm
+    in f32, as the published ``MambaRMSNormGated`` computes them)."""
+    if cfg.ssm_norm == "norm_gate":
+        return L.rmsnorm(p.norm, y, cfg.norm_eps) * F.silu(z)
+    if cfg.ssm_norm != "gate_norm":
+        raise ValueError(f"unknown ssm_norm {cfg.ssm_norm!r}")
+    g = (y.float() * F.silu(z.float())).unflatten(-1, (cfg.ssm_groups, -1))
+    g = g * torch.rsqrt(g.square().mean(-1, keepdim=True) + cfg.norm_eps)
+    return (g.flatten(-2) * p.norm.scale).to(y.dtype)
 
 
 def _ssd_plain(cfg: ModelConfig, xs, dts, A, Bm, Cm):
@@ -140,7 +176,7 @@ def _ssd_plain(cfg: ModelConfig, xs, dts, A, Bm, Cm):
         return ssd_scan_plain(xs, dts, A, Bm, Cm, cfg.ssm_chunk)
     hs = ctx.spec(xs.shape, "data", None, "model", None)
     ss = ctx.spec(dts.shape, "data", None, "model")
-    bs = ctx.spec(Bm.shape, "data", None, None)
+    bs = ctx.spec(Bm.shape, "data", *(None,) * (Bm.dim() - 1))
     return compat.per_shard(
         lambda *a: ssd_scan_plain(*a, cfg.ssm_chunk),
         (hs, ss, ctx.spec(A.shape, "model"), bs, bs),
@@ -154,8 +190,7 @@ def block_apply(cfg: ModelConfig, p: Mamba2Block, x, state=None,
     and returns the state after it; else one decode step from
     ``state = dict(ssm [B,H,N,P] fp32, conv [B,W-1,DI+2N])``."""
     B_, Lq, _ = x.shape
-    DI, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, \
-        cfg.ssm_head_dim
+    DI, H, P = cfg.d_inner, cfg.n_ssm_heads, cfg.ssm_head_dim
     h = L.rmsnorm(p.ln, x, cfg.norm_eps)
     proj = L.linear(p.in_proj, h)
     z, xBC, dt = _split_proj(cfg, proj)
@@ -165,8 +200,7 @@ def block_apply(cfg: ModelConfig, p: Mamba2Block, x, state=None,
         xBC_raw = xBC
         xBC = F.silu(L.causal_conv(xBC, p.conv_w, p.conv_b))
         xs = xBC[..., :DI].reshape(B_, Lq, H, P)      # views: no copy
-        Bm = xBC[..., DI: DI + N]
-        Cm = xBC[..., DI + N:]
+        Bm, Cm = _bc(cfg, xBC, DI)
         dts = F.softplus(dt.float() + p.dt_bias)
         if use_kernel and cfg.use_kernels and Lq % cfg.ssm_chunk == 0:
             y, S_fin = kops.ssd_scan(xs, dts, A, Bm, Cm, chunk=cfg.ssm_chunk)
@@ -184,8 +218,7 @@ def block_apply(cfg: ModelConfig, p: Mamba2Block, x, state=None,
             + p.conv_b.to(x.dtype)
         xBC1 = F.silu(xBC1)
         xs = xBC1[..., :DI].reshape(B_, H, P)
-        Bm = xBC1[..., DI: DI + N].float()
-        Cm = xBC1[..., DI + N:].float()
+        Bm, Cm = (v.float() for v in _bc(cfg, xBC1, DI))
         dts = F.softplus(dt[:, 0].float() + p.dt_bias)
         y1, S = ssd_decode_step(state["ssm"], xs.float(), dts, A, Bm, Cm)
         y = y1[:, None].to(x.dtype)
@@ -194,7 +227,7 @@ def block_apply(cfg: ModelConfig, p: Mamba2Block, x, state=None,
 
     y = y + xs.reshape(B_, Lq, H, P) * p.D[None, None, :, None].to(x.dtype)
     y = y.reshape(B_, Lq, DI)
-    y = L.rmsnorm(p.norm, y, cfg.norm_eps) * F.silu(z)
+    y = _gated_norm(cfg, p, y, z)
     return (ctx.hint(x + L.linear(p.out_proj, y), "data", "model", None),
             new_state)
 
@@ -223,9 +256,9 @@ def loss_fn(cfg: ModelConfig, params: SSMParams, batch: Dict):
 
 def init_state(cfg: ModelConfig, batch: int, dtype, device=None) -> Dict:
     """Zero decode state: per layer ``ssm`` [B, H, N, P] fp32 and ``conv``
-    [B, W-1, DI+2N] in ``dtype``; ``pos`` 0."""
+    [B, W-1, DI+2GN] in ``dtype``; ``pos`` 0."""
     N, H, P = cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim
-    conv_dim = cfg.d_inner + 2 * N
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * N
     device = resolve_device(device)
     return {"ssm": [torch.zeros((batch, H, N, P), dtype=torch.float32,
                                 device=device)

@@ -2,7 +2,9 @@
 
 ``Model(cfg)`` exposes, for every family of ``configs.ARCHS`` (dense:
 Qwen2, SmolLM, DeepSeek, the LLaVA backbone; MoE: OLMoE, Qwen3-MoE;
-encoder-decoder: SeamlessM4T; hybrid: RecurrentGemma; SSM: Mamba-2):
+encoder-decoder: SeamlessM4T; hybrid: RecurrentGemma; SSM: Mamba-2) and of
+``configs.PORT_ARCHS`` (Nemotron-H: Mamba-2, attention and MoE layers in
+one stack):
 
   * ``init(seed, device, scheme="reference")`` — parameter module (fp32):
     the reference's distributions, or for the MoE family
@@ -35,9 +37,10 @@ import torch
 from ..configs.base import ModelConfig, ShapeConfig
 from ..device import resolve_device
 from . import layers as L
-from . import mamba2, moe, rglru, transformer
+from . import mamba2, moe, nemotron_h, rglru, transformer
 
-__all__ = ["Model", "build", "n_params", "INIT_SCHEMES", "TensorSpec"]
+__all__ = ["Model", "build", "n_params", "runs_ssd", "runs_dropless_moe",
+           "INIT_SCHEMES", "TensorSpec"]
 
 
 class TensorSpec(NamedTuple):
@@ -62,11 +65,25 @@ def _as_specs(tree):
 INIT_SCHEMES = ("reference", "depth_scaled")
 
 _FAMILIES = {"dense": transformer, "moe": moe, "encdec": transformer,
-             "hybrid": rglru, "ssm": mamba2}
+             "hybrid": rglru, "ssm": mamba2, "nemotron_h": nemotron_h}
+
+
+def runs_ssd(cfg: ModelConfig) -> bool:
+    """Whether the model has Mamba-2 layers, whose prompt pass takes the
+    SSD scan kernel on the card."""
+    return cfg.family == "ssm" or (cfg.family == "nemotron_h"
+                                   and "M" in cfg.layer_pattern)
+
+
+def runs_dropless_moe(cfg: ModelConfig) -> bool:
+    """Whether the model has dropless MoE layers (Nemotron-H's ``E``),
+    whose prompt pass counts the choices it computes on held experts."""
+    return cfg.family == "nemotron_h" and "E" in cfg.layer_pattern
 
 
 def n_params(cfg: ModelConfig, active_only: bool = False) -> int:
-    """Analytic parameter count (active = top_k experts only for MoE)."""
+    """Analytic parameter count (active = top_k experts only for MoE; the
+    held experts only where a device holds a share of them)."""
     D, V = cfg.d_model, cfg.vocab
     hd = cfg.hd
     attn = D * hd * (cfg.n_heads + 2 * cfg.n_kv_heads) + cfg.n_heads * hd * D
@@ -89,6 +106,17 @@ def n_params(cfg: ModelConfig, active_only: bool = False) -> int:
         n_super, n_tail = rglru._structure(cfg)
         total = (n_super * (2 * rec + attn + 3 * mlp) +
                  n_tail * (rec + mlp) + V * D)
+    elif cfg.family == "nemotron_h":
+        pat = nemotron_h.kinds(cfg)
+        DI, H = cfg.d_inner, cfg.n_ssm_heads
+        GN = cfg.ssm_groups * cfg.ssm_state
+        e = cfg.top_k if active_only else cfg.n_held
+        mamba = D * (2 * DI + 2 * GN + H) + DI * D
+        # relu² experts: an up and a down matrix each, no gate
+        moe_l = (e * 2 * D * cfg.d_expert + D * cfg.n_experts
+                 + 2 * D * cfg.d_shared_expert)
+        total = (pat.count("M") * mamba + pat.count("*") * attn
+                 + pat.count("E") * moe_l + 2 * V * D)
     elif cfg.family == "encdec":
         per_enc = attn + 3 * D * cfg.d_ff
         per_dec = 2 * attn + 3 * D * cfg.d_ff
@@ -214,6 +242,9 @@ class Model:
         dtype = L.compute_dtype(cfg)
         if cfg.family == "ssm":
             return _as_specs(mamba2.init_state(cfg, batch, dtype, "meta"))
+        if cfg.family == "nemotron_h":
+            return _as_specs(nemotron_h.init_state(cfg, batch, kv_len, dtype,
+                                                   "meta"))
         if cfg.family == "hybrid":
             return _as_specs(rglru.init_cache(cfg, batch, dtype, "meta"))
         kv = TensorSpec((batch, kv_len, cfg.n_kv_heads, cfg.hd), dtype)

@@ -22,6 +22,21 @@ products are plain ``torch.einsum``s, as the reference leaves them to XLA
 (it has no kernel here). Attention, the KV cache and the kernel branches
 are the dense family's (``layers.attention_apply``). Training
 (``loss_fn``) re-computes each block in the backward under ``cfg.remat``.
+
+The dropless layer (:class:`DroplessMoE`, :func:`dropless_apply`; the
+Nemotron-H family's, ``models.nemotron_h``) has no capacity: every choice is
+computed. Its router is the sigmoid one (``s = sigmoid(x W_r)`` in f32, the
+top k of ``s + e_bias`` chosen, the bias only choosing, and weights ``s /
+(sum of the chosen s + 1e-20) * cfg.routed_scaling``); its experts are relu²
+(``wo(relu(wi x)^2)``, no gate), beside an always-on shared expert of
+``cfg.d_shared_expert``. It holds the first ``cfg.n_held`` routed experts (a
+device's share under expert parallelism): the router scores all
+``n_experts`` and picks among them, and only the held experts' terms are
+added. Over a prompt it sorts the held choices by expert and runs each
+expert on its own tokens, reading the per-expert counts on the host once a
+layer (``HELD_CHOICES`` adds up the choices computed); over one token a
+sequence (decode) it runs every held expert with static shapes, the unchosen
+weighted by zero, so that a CUDA graph captures the step.
 """
 from __future__ import annotations
 
@@ -41,7 +56,14 @@ from .transformer import _init_params, _logits
 
 __all__ = ["MoEFFN", "MoEBlock", "MoEParams", "init", "depth_scale_",
            "moe_apply", "moe_block_apply", "forward", "loss_fn", "prefill",
-           "decode_step"]
+           "decode_step", "SharedExpert", "DroplessMoE", "route_topk",
+           "dropless_apply", "HELD_CHOICES"]
+
+#: Routed choices the dropless layer's prompt path computed on held experts
+#: in this process (a host count: the path reads its per-expert counts on
+#: the host anyway). The decode path's choices are not counted (it runs
+#: under a CUDA graph, where no host code runs).
+HELD_CHOICES = 0
 
 # ---------------------------------------------------------------------------
 # Parameters
@@ -372,3 +394,113 @@ def decode_step(cfg: ModelConfig, params: MoEParams, token, cache: Dict):
                                cache={"k": ck, "v": cv, "pos": pos})
     logits = _logits(cfg, params, x)[:, 0]
     return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+
+
+# ---------------------------------------------------------------------------
+# The dropless layer (sigmoid router, held share, shared expert)
+# ---------------------------------------------------------------------------
+
+
+def _relu2(x: torch.Tensor) -> torch.Tensor:
+    return torch.square(F.relu(x))
+
+
+class SharedExpert(nn.Module):
+    """The always-on expert: ``wo(relu(wi x)^2)``."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.wi = L.Linear(cfg.d_model, cfg.d_shared_expert)
+        self.wo = L.Linear(cfg.d_shared_expert, cfg.d_model)
+
+    def init_(self, gen: torch.Generator) -> None:
+        self.wi.init_(gen)
+        self.wo.init_(gen)
+
+
+class DroplessMoE(nn.Module):
+    """The router ``Linear(D, E)`` over all ``n_experts``, its correction
+    bias ``e_bias`` [E], the held experts stacked ``wi`` ``[n_held, D, F]``
+    and ``wo`` ``[n_held, F, D]``, and the shared expert where
+    ``d_shared_expert``. Its router is the sigmoid one and its experts
+    relu²: the layer has no other kind."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        E, H, D, Fe = cfg.n_experts, cfg.n_held, cfg.d_model, cfg.d_expert
+        self.router = L.Linear(D, E)
+        self.e_bias = nn.Parameter(torch.zeros(E))
+        self.wi = nn.Parameter(torch.empty(H, D, Fe))
+        self.wo = nn.Parameter(torch.empty(H, Fe, D))
+        if cfg.d_shared_expert:
+            self.shared = SharedExpert(cfg)
+
+    def init_(self, gen: torch.Generator) -> None:
+        D, Fe = self.wi.shape[1], self.wi.shape[2]
+        L.normal_(self.router.w, gen, scale=1.0 / math.sqrt(D))
+        L.normal_(self.wi, gen, scale=1.0 / math.sqrt(D))
+        L.normal_(self.wo, gen, scale=1.0 / math.sqrt(Fe))
+        if hasattr(self, "shared"):
+            self.shared.init_(gen)
+
+
+def route_topk(cfg: ModelConfig, p: DroplessMoE, x: torch.Tensor):
+    """The sigmoid router of tokens ``x`` [T, D]: (experts [T, k] int64,
+    weights [T, k] f32), the k largest of ``s + e_bias`` chosen by a stable
+    descending sort (ties to the lower expert)."""
+    s = torch.sigmoid(x.float() @ p.router.w.float())
+    _, idx = torch.sort(s + p.e_bias.float(), dim=-1, descending=True,
+                        stable=True)
+    idx = idx[..., :cfg.top_k]
+    w = torch.gather(s, -1, idx)
+    return idx, w / (w.sum(-1, keepdim=True) + 1e-20) * cfg.routed_scaling
+
+
+def _held_expert(p, x, e: int, out=None):
+    """Held expert ``e`` on tokens ``x`` [N, D] (into ``out`` when
+    given)."""
+    dt = x.dtype
+    return torch.matmul(_relu2(x @ p.wi[e].to(dt)), p.wo[e].to(dt), out=out)
+
+
+def dropless_apply(cfg: ModelConfig, p: DroplessMoE, x: torch.Tensor):
+    """x [B, S, D] -> y [B, S, D]: the held experts' weighted terms of every
+    token's top-k choices (none dropped), plus the shared expert. S > 1
+    (a prompt): the held choices sorted by expert, each held expert on its
+    rows; S == 1 (decode): every held expert on every token, static
+    shapes."""
+    global HELD_CHOICES
+    B, S, D = x.shape
+    T, k, H = B * S, cfg.top_k, cfg.n_held
+    xf = x.reshape(T, D)
+    idx, w = route_topk(cfg, p, xf)
+    held = idx < H
+    dt = x.dtype
+    if S == 1:
+        # combine weights [T, H]: a chosen held expert's weight, else 0
+        c = (F.one_hot(torch.where(held, idx, H), H + 1)[..., :H]
+             * w[..., None]).sum(1)
+        h = _relu2(torch.matmul(xf, p.wi.to(dt)))              # [H, T, F]
+        ye = torch.matmul(h, p.wo.to(dt))                      # [H, T, D]
+        y = (ye * c.t().to(dt)[..., None]).sum(0)
+    else:
+        e_all = torch.where(held, idx, H).reshape(-1)
+        order = torch.argsort(e_all, stable=True)     # held choices first
+        counts = torch.bincount(e_all, minlength=H + 1)[:H].tolist()
+        n = sum(counts)
+        HELD_CHOICES += n
+        sl = order[:n]                        # their (token, choice) slots
+        xs = xf[sl // k]
+        ys = torch.empty_like(xs)
+        start = 0
+        for e, c in enumerate(counts):
+            if c:
+                _held_expert(p, xs[start:start + c], e,
+                             out=ys[start:start + c])
+                start += c
+        slots = torch.zeros((T * k, D), dtype=dt, device=x.device)
+        slots[sl] = ys * w.reshape(-1)[sl, None].to(dt)
+        y = slots.view(T, k, D).sum(1)
+    if hasattr(p, "shared"):
+        y = y + L.linear(p.shared.wo, _relu2(L.linear(p.shared.wi, xf)))
+    return y.reshape(B, S, D)

@@ -29,8 +29,10 @@ Under a running profiler, ``load`` and ``generate``'s prefill and decode
 
 Every family serves: dense (Qwen2; a VLM backbone serves text only, as in
 the reference), MoE (OLMoE), encoder-decoder (SeamlessM4T, whose encoder
-gets the reference's frontend stub: zero frames), hybrid (RecurrentGemma)
-and SSM (Mamba-2). Each parameter is served in the activation dtype,
+gets the reference's frontend stub: zero frames), hybrid (RecurrentGemma),
+SSM (Mamba-2) and Nemotron-H (Mamba-2, attention and MoE layers in one
+stack, whose decode state holds KV caches and Mamba-2 states side by
+side; ``_tree`` walks it as it walks every family's dicts and lists). Each parameter is served in the activation dtype,
 except those the model keeps in fp32 at use (``layers.FP32_AT_USE``: the
 ``rmsnorm`` scales, the RG-LRU ``lam``, Mamba-2's ``A_log`` and
 ``dt_bias``, the MoE router's ``router.w``). Casting every other parameter
@@ -61,8 +63,9 @@ from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..distributed import ctx
 from ..kernels import decode_attention, flash_attention, rglru_scan, ssd_scan
-from ..models import Model, build
+from ..models import Model, build, moe
 from ..models.layers import compute_dtype, fp32_at_use
+from ..models.model import runs_dropless_moe, runs_ssd
 from .registry import Registry
 from .spans import span
 
@@ -323,7 +326,12 @@ class ServeEngine:
         #: (app id, max_len, batch) -> entry, of the loaded copy only
         self._exec_cache: Dict[Tuple[str, int, int], Executable] = {}
         #: seconds of the last ``generate``'s prefill and decode phases and,
-        #: on the card, of its capture (0.0 where its entry was cached)
+        #: on the card, of its capture (0.0 where its entry was cached);
+        #: counters of the same request: ``state_bytes`` (the decode state:
+        #: KV caches, SSM and conv states), and where the model has the
+        #: work, ``ssd_launches`` (SSD scan kernel calls in the prefill) and
+        #: ``held_choices`` (routed choices its prefill computed on held
+        #: experts, from the dropless layer's own host count)
         self.last_times: Dict[str, float] = {}
         #: host bytes the last ``load`` copied to the device
         self.last_load_bytes = 0
@@ -392,13 +400,14 @@ class ServeEngine:
 
     def unload(self, app_id: str) -> None:
         """Drop the app's device copy and its executable-cache entries (and
-        their graphs' memory); when the last loaded Mamba-2 (SSM) app goes,
-        the SSD scan's scratch on the device goes with it."""
+        their graphs' memory); when the last loaded app that runs the SSD
+        scan kernel goes (a Mamba-2 or Nemotron-H one), the kernel's scratch
+        on the device goes with it."""
         self._drop_executables(app_id)
         if self._loaded.pop(app_id, None) is None:
             return
-        ssm = lambda a: self.registry.get(a).cfg.family == "ssm"
-        if ssm(app_id) and not any(ssm(a) for a in self._loaded):
+        ssd = lambda a: runs_ssd(self.registry.get(a).cfg)
+        if ssd(app_id) and not any(ssd(a) for a in self._loaded):
             ssd_scan.release_scratch(self.device)
 
     def is_loaded(self, app_id: str) -> bool:
@@ -447,11 +456,14 @@ class ServeEngine:
         entry = self._executables(app_id, max_len, B)
         capture = self.device.type == "cuda" and entry.graph is None \
             and max_new > 1
+        ssd0, held0 = ssd_scan.LAUNCHES, moe.HELD_CHOICES
         with torch.inference_mode():
             with span("serve.prefill"):
                 embeds = self._frontend(ep.cfg, tokens)
                 outs = [entry.prefill(tokens, embeds)]
                 self._sync()
+                ssd_n = ssd_scan.LAUNCHES - ssd0
+                held_n = moe.HELD_CHOICES - held0
             # repro-lint: ignore[nondeterminism] -- prefill/decode split
             t1 = time.perf_counter()
             with span("serve.decode"):
@@ -466,4 +478,22 @@ class ServeEngine:
                            "decode_s": t2 - t1 - capture_s}
         if self.device.type == "cuda":
             self.last_times["capture_s"] = capture_s
+        self.last_times.update(self._counters(ep.cfg, entry, ssd_n, held_n))
         return result, t2 - t0
+
+    @staticmethod
+    def _counters(cfg: ModelConfig, entry: Executable, ssd_n: int,
+                  held_n: int) -> Dict[str, int]:
+        """``last_times``' counters of the request just served, each where
+        the model has the work (host counts: nothing is read from the
+        device)."""
+        leaves = []
+        _tree(lambda t: leaves.append(t) if isinstance(
+            t, torch.Tensor) and t.dim() else None, entry.state)
+        out = {"state_bytes": sum(t.numel() * t.element_size()
+                                  for t in leaves)}
+        if runs_ssd(cfg):
+            out["ssd_launches"] = ssd_n
+        if runs_dropless_moe(cfg):
+            out["held_choices"] = held_n
+        return out
