@@ -42,8 +42,10 @@ port's main paths:
     the same launches a step by kernel and form, the two timed in turn;
   * serving OLMoE-1B-7B (phase ``serve_olmoe``, the MoE family: 64
     experts, top 8, at the ``depth_scaled`` draw, whose routing does not
-    collapse) the same way: 16 attention and 240 decode launches a
-    request, the decode kernel at group 1; beside the gates, each layer's
+    collapse) the same way: 16 attention, 240 decode and 240
+    gathered-expert launches a request (each decode step's MoE layers on
+    their chosen experts only), the decode kernel at group 1; beside the
+    gates, each layer's
     routing agreement between the kernel and plain paths, the choices
     dropped by capacity, and the prefill with the gather dispatch beside
     the einsum one;
@@ -54,9 +56,15 @@ port's main paths:
   * serving Nemotron-3-Nano-30B-A3B (phase ``serve_nemotron``: Mamba-2,
     GQA and dropless sigmoid-routed MoE layers in one stack, one card's
     share of 16 of 128 experts) the same way: 23 SSD launches with B and C
-    in 8 groups, 6 attention launches at 16 query heads a KV head, and 90
-    decode launches a request; the decode graph steps KV caches and
-    Mamba-2 states side by side;
+    in 8 groups, 6 attention launches at 16 query heads a KV head, 90
+    decode and 345 gathered-expert launches (the chosen held experts) a
+    request; the decode graph steps KV caches and Mamba-2 states side by
+    side;
+  * the gathered-expert kernel (phase ``expert_gather_parity``, after
+    the decode kernel's) against its plain version at OLMoE's and
+    Nemotron's decode shapes and a ragged f32 one, two runs bit for bit,
+    and every expert no live pair chose filled with NaN leaving the output
+    unchanged;
   * the paper's default hybrid, ARIMA on, over ``azure_like(100_000,
     days=7, seed=0)`` (phase ``arima_point``): the histogram pass, then
     the forecast post-pass of the apps the scan flags as consulting the
@@ -125,7 +133,8 @@ Then it times each kernel at its path's shapes beside its bound, its plain
 version and, where one exists, the one PyTorch call computing the same
 function (the decode kernel with ``kv_len`` on the device, as the serving
 graphs launch it, beside the host-int form; the fleet tick per call and
-back to back, the RG-LRU scan by
+back to back; the gathered-expert kernel beside ``torch.bmm`` over experts
+gathered beforehand; the RG-LRU scan by
 CUDA-graph replay and with its host work, the sweep scan's factored form
 at the sweep point beside its register form). Each phase prints one JSON
 line; any mismatch raises. The last lines are the kernel table, the
@@ -266,7 +275,8 @@ ATTN_DROPPED_TILE = 64
 # The forms every launch of the serving paths must take, and the
 # instantiations they run, which must build with no register spills.
 SERVE_FORMS = {"flash_attention": "hopper", "decode_attention": "tensor_cores",
-               "rglru_scan": "vec4"}
+               "rglru_scan": "vec4",
+               "expert_gather": {"moe": "swiglu", "nemotron_h": "relu2"}}
 NO_SPILL_KERNELS = {
     "flash_attention": ("flash_attention_hopper_kernel<256>",
                         "flash_attention_hopper_kernel<128>",
@@ -275,6 +285,9 @@ NO_SPILL_KERNELS = {
                          "decode_attention_mma_kernel<64,1,3>"),
     "policy_update": ("policy_update_kernel<4>", "policy_update_kernel<1>"),
     "rglru_scan": ("rglru_scan_kernel<4>", "rglru_scan_kernel<1>"),
+    "expert_gather": ("expert_up_kernel<bf16,2>", "expert_up_kernel<bf16,1>",
+                      "expert_down_kernel<bf16,2>",
+                      "expert_down_kernel<bf16,1>"),
     "hybrid_sweep_step": tuple(
         f"hybrid_sweep_scan_factored_kernel<{bpl},{cpl}>"
         for bpl in (2, 8) for cpl in (1, 2))}
@@ -410,6 +423,29 @@ SERVE_NEMOTRON_LOGITS_REL_TOL = None
 # right from wrong at 5%.
 SERVE_MOE_LOGITS_REL_TOL = 5e-2
 SERVE_ENCDEC_LOGITS_REL_TOL = 5e-2
+# The gathered-expert kernel (kernels/expert_gather.py): both MoE layers'
+# one-token steps on the chosen experts only, one call a MoE layer a decode
+# step (16 x 15 a serve_olmoe request, 23 x 15 a serve_nemotron one, batch
+# 2: 16 and 12 choices, fewer than the 64 experts and 16 held). Its cases
+# (T, k, E, D, F, live pairs, form, dtype): OLMoE-1B-7B at the cells'
+# batch 1 (8 live pairs) and the phases' batch 2; Nemotron-3-Nano with 1
+# live pair (about 0.75 of its top 6 fall on the 16 held experts) and with
+# 6; a ragged f32 case (tiles of 32 columns, D and F not whole tiles, a
+# dropped pair).
+EXPERT_GATHER_CASES = {
+    "olmoe": (1, 8, 64, 2048, 1024, 8, "swiglu", "bfloat16"),
+    "olmoe_b2": (2, 8, 64, 2048, 1024, 16, "swiglu", "bfloat16"),
+    "nemotron": (1, 6, 16, 2688, 1856, 1, "relu2", "bfloat16"),
+    "nemotron_6_live": (1, 6, 16, 2688, 1856, 6, "relu2", "bfloat16"),
+    "ragged_f32": (3, 3, 5, 136, 72, 8, "swiglu", "float32")}
+EXPERT_GATHER_TIMED = ("olmoe", "nemotron", "nemotron_6_live")
+# kernel vs plain version, (atol as a share of the largest |want|, rtol):
+# both accumulate in f32 and round h and y where the other does; summed in
+# other orders, an h at a rounding edge can land one bf16 step apart and y
+# one step (rtol 8e-3) apart; f32 differs by the orders alone.
+EXPERT_GATHER_TOL = {"bfloat16": (1e-3, 8e-3), "float32": (2e-6, 2e-5)}
+OLMOE_GATHER_PER_REQUEST = OLMOE_LAYERS * (SERVE_NEW - 1)
+NEMOTRON_GATHER_PER_REQUEST = 23 * (SERVE_NEW - 1)
 # The fleet's policy-update tick: one tick per event column of the scale
 # trace (1M apps, <= 64 columns), idle times in the paper's 240 one-minute
 # bins.
@@ -1315,10 +1351,13 @@ def serve(device, phase, arch, prefix, kernels, logits_rel_tol,
                for name, (mod, _) in kernels.items()
                if hasattr(mod, "LAUNCHES_BY_FORM")}
     for name, forms in by_form.items():
-        if forms.get(SERVE_FORMS[name]) != launches[name]:
+        want_form = SERVE_FORMS[name]
+        if isinstance(want_form, dict):       # the form the family takes
+            want_form = want_form[cfg.family]
+        if forms.get(want_form) != launches[name]:
             raise AssertionError(f"{name}: {forms} by form, not all "
                                  f"{launches[name]} in the "
-                                 f"{SERVE_FORMS[name]} form")
+                                 f"{want_form} form")
     st = pool.stats
     if len(loads) != st.cold_starts + st.prewarms:
         raise AssertionError(f"{len(loads)} engine loads for "
@@ -3769,6 +3808,133 @@ def time_decode(device, d=DECODE_SHAPE,
     return out
 
 
+def expert_gather_inputs(case, device, seed):
+    """A case of EXPERT_GATHER_CASES: x [T, D], ids and w [T, k] (the
+    first ``live`` pairs in row order on distinct experts with softmax
+    weights, the rest on experts past E, weight 0, as the dropless layer
+    passes a choice it does not hold), the experts at 1/sqrt(fan-in)."""
+    import torch
+    T, k, E, D, F_, live, form, dtype = EXPERT_GATHER_CASES[case]
+    g = torch.Generator(device=device).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    n_pairs = T * k
+    ids = torch.randperm(E, generator=g, device=device)[
+        torch.arange(n_pairs, device=device) % E].reshape(T, k)
+    w = torch.softmax(torch.randn(T, k, generator=g, device=device), -1)
+    dead = torch.arange(n_pairs, device=device).reshape(T, k) >= live
+    ids = torch.where(dead, E + torch.arange(n_pairs, device=device)
+                      .reshape(T, k), ids)
+    w = torch.where(dead, 0.0, w)
+    x = torch.randn(T, D, generator=g, device=device).to(dt)
+    mk = lambda a, b, fan: (torch.randn(E, a, b, generator=g, device=device)
+                            / fan ** 0.5).to(dt)
+    wi = mk(D, F_, D)
+    wg = mk(D, F_, D) if form == "swiglu" else None
+    wo = mk(F_, D, F_)
+    return x, ids, w, wi, wg, wo
+
+
+def expert_gather_parity(device):
+    """The gathered-expert kernel against its plain version at every case
+    of EXPERT_GATHER_CASES (EXPERT_GATHER_TOL), two runs bit for bit, and
+    every expert no live pair chose filled with NaN leaving y finite and
+    equal bit for bit (a dead pair's weights are never read). Returns the
+    largest error over the largest |y|."""
+    import torch
+    from repro_torch.kernels import expert_gather as EG
+    worst, lines = 0.0, {}
+    with uncounted(EG):
+        for i, case in enumerate(EXPERT_GATHER_CASES):
+            T, k, E, D, F_, live, form, dtype = EXPERT_GATHER_CASES[case]
+            x, ids, w, wi, wg, wo = expert_gather_inputs(case, device, 40 + i)
+            got = EG.expert_gather(x, ids, w, wi, wg, wo)
+            again = EG.expert_gather(x, ids, w, wi, wg, wo)
+            want = EG.expert_gather_plain(x, ids, w, wi, wg, wo).float()
+            chosen = torch.zeros(E, dtype=torch.bool, device=device)
+            chosen[ids[(w != 0) & (ids < E)]] = True
+            for t in (wi, wg, wo):
+                if t is not None:
+                    t[~chosen] = float("nan")
+            poisoned = EG.expert_gather(x, ids, w, wi, wg, wo)
+            torch.cuda.synchronize()
+            atol_share, rtol = EXPERT_GATHER_TOL[dtype]
+            scale = float(want.abs().max())
+            err = (got.float() - want).abs()
+            ok = bool((err <= atol_share * scale + rtol * want.abs()).all())
+            lines[case] = dict(max_abs_err=float(err.max()),
+                               max_abs_y=scale,
+                               median_abs_y=float(want.abs().median()),
+                               within_tol=ok,
+                               bit_equal_runs=torch.equal(got, again),
+                               nan_unchosen_bit_equal=torch.equal(
+                                   poisoned, got))
+            if not (ok and lines[case]["bit_equal_runs"]
+                    and lines[case]["nan_unchosen_bit_equal"]):
+                raise AssertionError(f"expert_gather {case}: {lines[case]}")
+            worst = max(worst, float(err.max()) / scale)
+    emit("expert_gather_parity", tol=EXPERT_GATHER_TOL, **lines)
+    return worst
+
+
+def time_expert_gather(device, ptxas):
+    """The gathered-expert kernel at EXPERT_GATHER_TIMED: device ms a call
+    by CUDA-graph replay (median of 3), ms a call with the wrapper's host
+    work, device ms by pass (profiler), its plain version, and a library
+    yardstick the port never calls: ``torch.bmm`` over the chosen experts'
+    weights gathered beforehand (outside the timing), with the activation
+    and the weighted sum; beside the bytes bound (each live pair's matrices
+    read once)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import expert_gather as EG
+    from repro_torch.kernels.timing import graph_ms, launch_ms, pass_ms
+
+    out = {}
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for i, case in enumerate(EXPERT_GATHER_TIMED):
+        T, k, E, D, F_, live, form, dtype = EXPERT_GATHER_CASES[case]
+        x, ids, w, wi, wg, wo = expert_gather_inputs(case, device, 60 + i)
+        cols = 8 * (16 // x.element_size())     # columns a block tile
+        run = lambda: EG.expert_gather(x, ids, w, wi, wg, wo)
+        with uncounted(EG):
+            graph = sorted(graph_ms(run, 20) for _ in range(3))
+            call_ms = launch_ms(run, 20)
+            passes = pass_ms(run, pattern=r"expert_\w+_kernel")
+        plain_ms = launch_ms(
+            lambda: EG.expert_gather_plain(x, ids, w, wi, wg, wo), 3)
+        sel = ids[w != 0]                      # the live pairs' experts
+        xs = x[(w != 0).nonzero()[:, 0]][:, None, :]          # [live,1,D]
+        gi, go = wi[sel].contiguous(), wo[sel].contiguous()
+        gg = None if wg is None else wg[sel].contiguous()
+        wl = w[w != 0].to(x.dtype)[:, None, None]
+
+        def yardstick():
+            u = torch.bmm(xs, gi)
+            h = torch.square(F.relu(u)) if gg is None else \
+                F.silu(torch.bmm(xs, gg)) * u
+            return (torch.bmm(h, go) * wl).sum(0)
+        library_ms = graph_ms(yardstick, 20)
+        mats = 2 if form == "relu2" else 3
+        nbytes = live * mats * D * F_ * x.element_size()
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        out[case] = dict(kernel_ms=graph[1], graph_ms_runs=graph,
+                         call_ms=call_ms, pass_device_ms=passes,
+                         plain_ms=plain_ms, library_ms=library_ms,
+                         library_note="torch.bmm over the live pairs' "
+                                      "experts gathered beforehand, with "
+                                      "the activation and weighted sum",
+                         bytes=nbytes, bound_ms=bound_ms, bound_by="bytes",
+                         share_of_bound=bound_ms / graph[1],
+                         achieved_bytes_per_s=nbytes / (graph[1] * 1e-3),
+                         up_down_splits=[EG.splits(-(-F_ // cols), D, sms),
+                                         EG.splits(-(-D // cols), F_, sms)])
+    emit("times_expert_gather", cases={c: EXPERT_GATHER_CASES[c]
+                                       for c in EXPERT_GATHER_TIMED},
+         timed_by="CUDA graph replay (device only), median of 3", **out,
+         ptxas=ptxas.get("expert_gather"))
+    return out
+
+
 def time_policy_update(columns, device, ptxas):
     """The policy-update kernel and its plain version over the scale
     trace's ticks replayed from an empty fleet: ms a tick per call (CUDA
@@ -4435,6 +4601,7 @@ def main() -> int:
     sys.path.insert(0, src)
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import expert_gather as EG
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import histogram as H
     from repro_torch.kernels import rglru_scan as R
@@ -4470,6 +4637,7 @@ def main() -> int:
     rglru_err = rglru_parity(device)
     ssd_err = ssd_parity(device)
     decode_err = decode_parity(device)
+    gather_err = expert_gather_parity(device)
     trace, launches, launches_by_form, e2e = scale_point(device)
     sweep_cols = sweep_columns(trace, device)
     max_err = max(max_err, scan_parity(sweep_cols, device))
@@ -4529,7 +4697,8 @@ def main() -> int:
     olmoe_launches, olmoe_forms, n_olmoe, f = serve(
         device, "serve_olmoe", "olmoe-1b-7b", "ol",
         {"flash_attention": (FA, OLMOE_ATTN_PER_REQUEST),
-         "decode_attention": (DA, OLMOE_DECODE_PER_REQUEST)},
+         "decode_attention": (DA, OLMOE_DECODE_PER_REQUEST),
+         "expert_gather": (EG, OLMOE_GATHER_PER_REQUEST)},
         SERVE_MOE_LOGITS_REL_TOL, decode_steps=SERVE_QWEN2_DECODE_STEPS,
         init="depth_scaled")
     serve_olmoe_s = time.perf_counter() - t_serve
@@ -4549,25 +4718,27 @@ def main() -> int:
         device, "serve_nemotron", NEMOTRON_ARCH, "nh",
         {"ssd_scan": (SS, NEMOTRON_SSD_PER_REQUEST),
          "flash_attention": (FA, NEMOTRON_ATTN_PER_REQUEST),
-         "decode_attention": (DA, NEMOTRON_DECODE_PER_REQUEST)},
+         "decode_attention": (DA, NEMOTRON_DECODE_PER_REQUEST),
+         "expert_gather": (EG, NEMOTRON_GATHER_PER_REQUEST)},
         SERVE_NEMOTRON_LOGITS_REL_TOL, decode_steps=SERVE_QWEN2_DECODE_STEPS)
     serve_nemotron_s = time.perf_counter() - t_serve
     failed += f
     release_host_memory()
     t_train = time.perf_counter()
-    train_launches, f = train_smollm(device, (H, FA, DA, R, SS))
+    train_launches, f = train_smollm(device, (H, FA, DA, R, SS, EG))
     train_s = time.perf_counter() - t_train
     failed += f
     release_host_memory()
     # the multi-device layers: the ZeRO step on a one-rank mesh (no kernel
     # of the port launches there, as in train_smollm), the dry-run's cells
     # from the host, and whether gloo can carry two ranks on the card
-    reset_counts(H, FA, DA, R, SS)
+    reset_counts(H, FA, DA, R, SS, EG)
     t_phase = time.perf_counter()
     failed += mesh_train(device)
     mesh_train_s = time.perf_counter() - t_phase
     mesh_launches = {f"{m.__name__.rsplit('.', 1)[-1]}.{k}": v
-                     for m in (H, FA, DA, R, SS) for k, v in vars(m).items()
+                     for m in (H, FA, DA, R, SS, EG)
+                     for k, v in vars(m).items()
                      if k.endswith("LAUNCHES") and isinstance(v, int)}
     if any(mesh_launches.values()):
         failed.append(f"mesh_train launched kernels {mesh_launches}")
@@ -4599,6 +4770,7 @@ def main() -> int:
                         SEAMLESS_DECODE_PER_REQUEST)
     pu_ms, pu_back_ms, pu_plain_ms, pu_bound_ms, pu_bound_by = \
         time_policy_update(policy_cols, device, ptxas)
+    eg = time_expert_gather(device, ptxas)
 
     csrc = "src/repro_torch/kernels/csrc/"
     print(json.dumps({"kernels": [{
@@ -4727,7 +4899,26 @@ def main() -> int:
         "launches": policy_launches, "max_abs_err": policy_err,
         "ms": pu_ms, "back_to_back_ms": pu_back_ms,
         "plain_ms": pu_plain_ms, "bound_ms": pu_bound_ms,
-        "bound_by": pu_bound_by, "library_ms": None}]}), flush=True)
+        "bound_by": pu_bound_by, "library_ms": None}, {
+        "name": "expert_gather", "route": "cuda",
+        "source": csrc + "expert_gather.cu",
+        "replaces": None,
+        "replaces_note": "no TPU kernel: the JAX package leaves the MoE "
+                         "layer to XLA",
+        "train_launches": train_launches["expert_gather.LAUNCHES"],
+        # the MoE serving paths' decode steps; ms, plain_ms, library_ms
+        # and bound_ms at OLMoE's batch-1 shape, Nemotron's beside them
+        "launches": olmoe_launches["expert_gather"]
+        + nemotron_launches["expert_gather"],
+        "launches_by_path": {"olmoe": olmoe_forms["expert_gather"],
+                             "nemotron": nemotron_forms["expert_gather"]},
+        "max_abs_err_share": gather_err, "ms": eg["olmoe"]["kernel_ms"],
+        "plain_ms": eg["olmoe"]["plain_ms"],
+        "bound_ms": eg["olmoe"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": eg["olmoe"]["library_ms"],
+        **{name: {k: eg[name][k] for k in (
+            "kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+           for name in ("nemotron", "nemotron_6_live")}}]}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start,
          scale_point_seconds=e2e["seconds"], serve_seconds=serve_s,
          serve_requests=n_requests, serve_mamba2_seconds=serve_mamba_s,

@@ -83,9 +83,10 @@ def graph_ms(fn, reps: int, replays: int = 5) -> float:
     return ms
 
 
-def pass_ms(fn, reps: int = 5) -> dict:
-    """Device ms per launch of each SSD kernel ``fn`` launches (a CUDA
-    function whose name holds ``ssd_<pass>``, keyed by that), from
+def pass_ms(fn, reps: int = 5, pattern: str = r"ssd_\w+") -> dict:
+    """Device ms per launch of each kernel ``fn`` launches whose CUDA
+    function name holds a match of ``pattern`` (the SSD kernels'
+    ``ssd_<pass>`` by default), keyed by that match, from
     ``torch.profiler`` over ``reps`` calls; each kernel's total over the
     launches the profiler recorded, which after a long process can be
     fewer than ``reps``. Empty where the profiler records no device
@@ -103,7 +104,7 @@ def pass_ms(fn, reps: int = 5) -> dict:
         torch.cuda.synchronize()
     us, count = {}, {}
     for e in prof.key_averages():
-        m = re.search(r"ssd_\w+", e.key)
+        m = re.search(pattern, e.key)
         if e.device_type != DeviceType.CUDA or not m:
             continue
         t = getattr(e, "self_device_time_total", None)

@@ -39,7 +39,8 @@ from ..device import resolve_device
 from . import layers as L
 from . import mamba2, moe, nemotron_h, rglru, transformer
 
-__all__ = ["Model", "build", "n_params", "runs_ssd", "runs_dropless_moe",
+__all__ = ["Model", "build", "n_params", "runs_ssd", "runs_moe",
+           "runs_dropless_moe",
            "INIT_SCHEMES", "TensorSpec"]
 
 
@@ -73,6 +74,13 @@ def runs_ssd(cfg: ModelConfig) -> bool:
     SSD scan kernel on the card."""
     return cfg.family == "ssm" or (cfg.family == "nemotron_h"
                                    and "M" in cfg.layer_pattern)
+
+
+def runs_moe(cfg: ModelConfig) -> bool:
+    """Whether the model has MoE layers (the MoE family's, Nemotron-H's
+    ``E``), whose one-token steps take the gathered-expert kernel on the
+    card (``moe.gathers``)."""
+    return cfg.family == "moe" or runs_dropless_moe(cfg)
 
 
 def runs_dropless_moe(cfg: ModelConfig) -> bool:

@@ -19,9 +19,14 @@ The router computes in f32 on an f32 weight (``layers.FP32_AT_USE`` keeps
 ``router.w`` fp32 when an engine casts the rest). Expert weights are
 stacked ``[E, d_model, d_expert]`` / ``[E, d_expert, d_model]``; the
 products are plain ``torch.einsum``s, as the reference leaves them to XLA
-(it has no kernel here). Attention, the KV cache and the kernel branches
-are the dense family's (``layers.attention_apply``). Training
-(``loss_fn``) re-computes each block in the backward under ``cfg.remat``.
+(it has no kernel here), except on a one-token step (decode) with the
+kernels on: there, where the ``B * top_k`` choices name fewer than ``E``
+experts, only the chosen experts run, in the gathered-expert kernel
+(``kernels.expert_gather``; weights ``topv`` times ``keep``, the slot loop
+skipped where capacity ``C >= T`` cannot drop a choice). Attention, the KV
+cache and the kernel branches are the dense family's
+(``layers.attention_apply``). Training (``loss_fn``) re-computes each block
+in the backward under ``cfg.remat``.
 
 The dropless layer (:class:`DroplessMoE`, :func:`dropless_apply`; the
 Nemotron-H family's, ``models.nemotron_h``) has no capacity: every choice is
@@ -34,9 +39,13 @@ device's share under expert parallelism): the router scores all
 ``n_experts`` and picks among them, and only the held experts' terms are
 added. Over a prompt it sorts the held choices by expert and runs each
 expert on its own tokens, reading the per-expert counts on the host once a
-layer (``HELD_CHOICES`` adds up the choices computed); over one token a
-sequence (decode) it runs every held expert with static shapes, the unchosen
-weighted by zero, so that a CUDA graph captures the step.
+layer (``HELD_CHOICES`` adds up the choices computed). Over one token a
+sequence (decode) it runs, with the kernels on and ``B * top_k`` below
+``n_experts`` (as the GShard layer), only the chosen held experts in the
+gathered-expert kernel (a choice of an expert not held weighted 0, and
+skipped); otherwise every held expert with static shapes, the unchosen
+weighted by zero. Neither
+reads the device from the host, so a CUDA graph captures the step.
 """
 from __future__ import annotations
 
@@ -51,13 +60,14 @@ from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig
 from ..distributed import compat, ctx
+from ..kernels.expert_gather import expert_gather
 from . import layers as L
 from .transformer import _init_params, _logits
 
 __all__ = ["MoEFFN", "MoEBlock", "MoEParams", "init", "depth_scale_",
            "moe_apply", "moe_block_apply", "forward", "loss_fn", "prefill",
            "decode_step", "SharedExpert", "DroplessMoE", "route_topk",
-           "dropless_apply", "HELD_CHOICES"]
+           "dropless_apply", "gathers", "HELD_CHOICES"]
 
 #: Routed choices the dropless layer's prompt path computed on held experts
 #: in this process (a host count: the path reads its per-expert counts on
@@ -157,26 +167,39 @@ def depth_scale_(cfg: ModelConfig, params: MoEParams) -> MoEParams:
 # ---------------------------------------------------------------------------
 
 
-def _route(cfg: ModelConfig, p: MoEFFN, xg: torch.Tensor, mean=None):
-    """Router and slot assignment for token groups ``xg`` [G, T, D]:
-    (topi [G, T, k] int64, topv [G, T, k] f32 renormalised, positions
-    [G, T, k] int64, keep [G, T, k] bool, C, the Switch aux loss).
+def _capacity(cfg: ModelConfig, T: int) -> int:
+    """Slots per expert and group of ``T`` tokens."""
+    return max(int(cfg.moe_capacity_factor * cfg.top_k * T / cfg.n_experts),
+               1)
+
+
+def _topk(cfg: ModelConfig, p: MoEFFN, xg: torch.Tensor):
+    """The router over token groups ``xg`` [G, T, D]: (gates [G, T, E] f32,
+    topi [G, T, k] int64, topv [G, T, k] f32 renormalised).
 
     The top k are the first k columns of a stable descending sort, so that
     among equal gates the lower expert comes first, as ``jax.lax.top_k``
-    orders them (``torch.topk`` promises no order among ties).
+    orders them (``torch.topk`` promises no order among ties)."""
+    k = cfg.top_k
+    logits = xg.float() @ p.router.w.float()
+    gates = torch.softmax(logits, dim=-1)                        # [G,T,E]
+    topv, topi = torch.sort(gates, dim=-1, descending=True, stable=True)
+    topv, topi = topv[..., :k], topi[..., :k]
+    return gates, topi, topv / topv.sum(-1, keepdim=True).clamp_min(1e-9)
+
+
+def _route(cfg: ModelConfig, p: MoEFFN, xg: torch.Tensor, mean=None):
+    """Router and slot assignment for token groups ``xg`` [G, T, D]:
+    (topi [G, T, k] int64, topv [G, T, k] f32 renormalised, positions
+    [G, T, k] int64, keep [G, T, k] bool, C, the Switch aux loss); the
+    top k as :func:`_topk` chooses them.
 
     ``mean`` (the per-shard routing under a mesh) turns the aux loss's two
     means over this shard's groups into means over every group."""
     G, T, _ = xg.shape
     E, k = cfg.n_experts, cfg.top_k
-    C = max(int(cfg.moe_capacity_factor * k * T / E), 1)
-
-    logits = xg.float() @ p.router.w.float()
-    gates = torch.softmax(logits, dim=-1)                        # [G,T,E]
-    topv, topi = torch.sort(gates, dim=-1, descending=True, stable=True)
-    topv, topi = topv[..., :k], topi[..., :k]
-    topv = topv / topv.sum(-1, keepdim=True).clamp_min(1e-9)
+    C = _capacity(cfg, T)
+    gates, topi, topv = _topk(cfg, p, xg)
 
     # slot positions: the k choices in priority order, each expert counting
     # the tokens it has admitted so far in the group
@@ -230,9 +253,7 @@ def _route_sharded(cfg: ModelConfig, p: MoEFFN, xg: torch.Tensor):
     topi, topv, positions, keep, aux = compat.shard_map(
         body, mesh, (gs, ctx.spec(p.router.w.shape, None, None)),
         (gs, gs, gs, gs, ctx.spec(())))(xg, p.router.w)
-    C = max(int(cfg.moe_capacity_factor * cfg.top_k * xg.shape[1]
-                / cfg.n_experts), 1)
-    return topi, topv, positions, keep, C, aux
+    return topi, topv, positions, keep, _capacity(cfg, xg.shape[1]), aux
 
 
 def _experts(p: MoEFFN, xe: torch.Tensor) -> torch.Tensor:
@@ -279,9 +300,50 @@ def _moe_gather(cfg, p, xg, topi, topv, positions, keep, C):
     return out.sum(dim=2)
 
 
-def moe_apply(cfg: ModelConfig, p: MoEFFN, x: torch.Tensor):
+def gathers(cfg: ModelConfig, x: torch.Tensor) -> bool:
+    """Whether an MoE layer over ``x`` [B, S, D] runs only its chosen
+    experts (:func:`kernels.expert_gather.expert_gather`): with the
+    kernels on, one token a sequence (decode), and fewer choices (``B *
+    top_k``) than the router's ``n_experts``; never under a mesh.
+
+    Below that count the chosen pairs read fewer experts' weights than
+    the dense products (every expert the layer holds) do. For the
+    dropless layer, holding ``n_held`` of the ``n_experts``, the pairs
+    that read a held expert's weights are about ``B * top_k * n_held /
+    n_experts`` (a choice of an expert not held reads none), below
+    ``n_held`` under the same count. The crossover is reasoned from
+    bytes, not measured."""
+    B, S, _ = x.shape
+    return cfg.use_kernels and S == 1 and B * cfg.top_k < cfg.n_experts \
+        and not isinstance(x, DTensor)
+
+
+def _moe_gathered(cfg, p, xg, need_aux: bool):
+    """The GShard layer over groups ``xg`` [G, T, D] by its chosen experts
+    alone -> (y [G * T, D], aux or None). Where capacity cannot bind (``C
+    >= T``: no expert gets more of a group's tokens than it has slots) and
+    the aux loss is not needed, only the router's top k run: every choice
+    is kept. Else :func:`_route` gives ``keep`` (and the aux loss)."""
+    G, T, D = xg.shape
+    if need_aux or _capacity(cfg, T) < T:
+        topi, topv, _, keep, _, aux = _route(cfg, p, xg)
+        topv = topv * keep
+    else:
+        _, topi, topv = _topk(cfg, p, xg)
+        aux = None
+    k, dt = cfg.top_k, xg.dtype
+    y = expert_gather(xg.reshape(G * T, D), topi.reshape(G * T, k),
+                      topv.reshape(G * T, k), p.wi.to(dt), p.wg.to(dt),
+                      p.wo.to(dt))
+    return y, aux
+
+
+def moe_apply(cfg: ModelConfig, p: MoEFFN, x: torch.Tensor,
+              need_aux: bool = True):
     """x [B, S, D] -> (y [B, S, D], aux loss), dispatched as
-    ``cfg.moe_impl`` ("einsum" or "gather") says."""
+    ``cfg.moe_impl`` ("einsum" or "gather") says, or by the chosen experts
+    alone where :func:`gathers` holds; there, without ``need_aux``, the aux
+    loss may be None."""
     impl = cfg.moe_impl
     if impl not in ("einsum", "gather"):
         raise ValueError(f"moe_apply: unknown impl {impl!r}")
@@ -289,7 +351,11 @@ def moe_apply(cfg: ModelConfig, p: MoEFFN, x: torch.Tensor):
     T = min(cfg.moe_group_size, B * S)
     G = (B * S) // T
     # groups of whole sequences: under a mesh the batch over data only
-    xg = ctx.hint(x, "data", None, None).reshape(G, T, D)
+    x = ctx.hint(x, "data", None, None)
+    xg = x.reshape(G, T, D)
+    if gathers(cfg, x):
+        y, aux = _moe_gathered(cfg, p, xg, need_aux)
+        return y.reshape(B, S, D), aux
     topi, topv, positions, keep, C, aux = _route_sharded(cfg, p, xg)
     fn = _moe_einsum if impl == "einsum" else _moe_gather
     y = _dispatch(fn, cfg, p, xg, topi, topv, positions, keep, C)
@@ -335,10 +401,12 @@ def _dispatch(fn, cfg, p, xg, topi, topv, positions, keep, C):
 
 def moe_block_apply(cfg: ModelConfig, p: MoEBlock, x, positions, cache=None):
     """One block with its residuals -> (x, aux); ``cache`` (one layer's
-    ``k``, ``v`` and ``pos``) is written in place."""
+    ``k``, ``v`` and ``pos``) is written in place. With a cache (prefill
+    and decode, which discard it) the aux loss may be None."""
     x = x + L.attention_apply(p.attn, cfg, L.rmsnorm(p.ln1, x, cfg.norm_eps),
                               positions, cache=cache)
-    h, aux = moe_apply(cfg, p.moe, L.rmsnorm(p.ln2, x, cfg.norm_eps))
+    h, aux = moe_apply(cfg, p.moe, L.rmsnorm(p.ln2, x, cfg.norm_eps),
+                       need_aux=cache is None)
     return ctx.hint(x + h, "data", "model", None), aux
 
 
@@ -467,8 +535,9 @@ def dropless_apply(cfg: ModelConfig, p: DroplessMoE, x: torch.Tensor):
     """x [B, S, D] -> y [B, S, D]: the held experts' weighted terms of every
     token's top-k choices (none dropped), plus the shared expert. S > 1
     (a prompt): the held choices sorted by expert, each held expert on its
-    rows; S == 1 (decode): every held expert on every token, static
-    shapes."""
+    rows; S == 1 (decode): where :func:`gathers` holds, the chosen held
+    experts alone, else every held expert on every token; static shapes
+    either way."""
     global HELD_CHOICES
     B, S, D = x.shape
     T, k, H = B * S, cfg.top_k, cfg.n_held
@@ -476,7 +545,10 @@ def dropless_apply(cfg: ModelConfig, p: DroplessMoE, x: torch.Tensor):
     idx, w = route_topk(cfg, p, xf)
     held = idx < H
     dt = x.dtype
-    if S == 1:
+    if gathers(cfg, x):
+        y = expert_gather(xf, idx, torch.where(held, w, 0.0), p.wi.to(dt),
+                          None, p.wo.to(dt))
+    elif S == 1:
         # combine weights [T, H]: a chosen held expert's weight, else 0
         c = (F.one_hot(torch.where(held, idx, H), H + 1)[..., :H]
              * w[..., None]).sum(1)

@@ -62,10 +62,11 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..distributed import ctx
-from ..kernels import decode_attention, flash_attention, rglru_scan, ssd_scan
+from ..kernels import (decode_attention, expert_gather, flash_attention,
+                       rglru_scan, ssd_scan)
 from ..models import Model, build, moe
 from ..models.layers import compute_dtype, fp32_at_use
-from ..models.model import runs_dropless_moe, runs_ssd
+from ..models.model import runs_dropless_moe, runs_moe, runs_ssd
 from .registry import Registry
 from .spans import span
 
@@ -75,7 +76,8 @@ __all__ = ["ServeEngine", "Executable"]
 #: where they keep one, ``LAUNCHES_BY_FORM``). A graph replay makes no
 #: Python call, so an entry takes back what its capture counted (nothing
 #: ran then) and adds it once per replay.
-_COUNTED = (flash_attention, decode_attention, rglru_scan, ssd_scan)
+_COUNTED = (flash_attention, decode_attention, rglru_scan, ssd_scan,
+            expert_gather)
 
 
 #: Most bytes of one pinned host chunk the engine packs an image's
@@ -329,9 +331,12 @@ class ServeEngine:
         #: on the card, of its capture (0.0 where its entry was cached);
         #: counters of the same request: ``state_bytes`` (the decode state:
         #: KV caches, SSM and conv states), and where the model has the
-        #: work, ``ssd_launches`` (SSD scan kernel calls in the prefill) and
+        #: work, ``ssd_launches`` (SSD scan kernel calls in the prefill),
         #: ``held_choices`` (routed choices its prefill computed on held
-        #: experts, from the dropless layer's own host count)
+        #: experts, from the dropless layer's own host count) and
+        #: ``expert_gather_launches`` (gathered-expert kernel calls: one a
+        #: MoE layer a decode step where the step takes it, graph replays
+        #: counted)
         self.last_times: Dict[str, float] = {}
         #: host bytes the last ``load`` copied to the device
         self.last_load_bytes = 0
@@ -457,6 +462,7 @@ class ServeEngine:
         capture = self.device.type == "cuda" and entry.graph is None \
             and max_new > 1
         ssd0, held0 = ssd_scan.LAUNCHES, moe.HELD_CHOICES
+        gather0 = expert_gather.LAUNCHES
         with torch.inference_mode():
             with span("serve.prefill"):
                 embeds = self._frontend(ep.cfg, tokens)
@@ -478,12 +484,13 @@ class ServeEngine:
                            "decode_s": t2 - t1 - capture_s}
         if self.device.type == "cuda":
             self.last_times["capture_s"] = capture_s
-        self.last_times.update(self._counters(ep.cfg, entry, ssd_n, held_n))
+        self.last_times.update(self._counters(
+            ep.cfg, entry, ssd_n, held_n, expert_gather.LAUNCHES - gather0))
         return result, t2 - t0
 
     @staticmethod
     def _counters(cfg: ModelConfig, entry: Executable, ssd_n: int,
-                  held_n: int) -> Dict[str, int]:
+                  held_n: int, gather_n: int) -> Dict[str, int]:
         """``last_times``' counters of the request just served, each where
         the model has the work (host counts: nothing is read from the
         device)."""
@@ -496,4 +503,6 @@ class ServeEngine:
             out["ssd_launches"] = ssd_n
         if runs_dropless_moe(cfg):
             out["held_choices"] = held_n
+        if runs_moe(cfg):
+            out["expert_gather_launches"] = gather_n
         return out

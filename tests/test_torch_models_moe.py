@@ -387,3 +387,126 @@ def test_decode_matches_forward(arch, use_kernels):
     for t in range(16, 20):
         lg, cache = model.decode_step(params, toks[:, t], cache)
         torch.testing.assert_close(lg, full[:, t], rtol=2e-2, atol=2e-2)
+
+
+# --------------------------------------------------------------------------
+# The one-token step by the chosen experts (kernels.expert_gather)
+# --------------------------------------------------------------------------
+
+
+def _layer(arch="olmoe-1b-7b", **kw):
+    cfg = configs.reduced(configs.get(arch)).with_(**kw)
+    params = build(cfg).init(seed=0, device="cpu")
+    return cfg, params.layers[0].moe
+
+
+@pytest.mark.parametrize("B", [1, 3])
+def test_gathered_experts_equal_the_dense_path_at_one_token(B):
+    """``expert_gather_plain`` over ``_route``'s choices, weighted ``topv *
+    keep``, equals the dense GShard path (``_moe_einsum``) on one token a
+    sequence, in f32: at B = 1 (capacity 1 >= T, nothing drops) and at B =
+    3 (capacity 1 < T = 3: choices drop); and ``moe_apply`` with the
+    kernels on (the gathered path) equals it with them off."""
+    from repro_torch.kernels.expert_gather import expert_gather_plain
+    cfg, p = _layer()
+    x = torch.from_numpy(np.random.default_rng(B).standard_normal(
+        (B, 1, cfg.d_model)).astype(np.float32))
+    xg = x.reshape(1, B, cfg.d_model)
+    with torch.no_grad():
+        topi, topv, positions, keep, C, _ = moe._route(cfg, p, xg)
+        assert bool(keep.all()) == (B == 1) and (C >= B) == (B == 1)
+        want = moe._moe_einsum(cfg, p, xg, topi, topv, positions, keep, C)
+        got = expert_gather_plain(xg[0], topi[0], (topv * keep)[0], p.wi,
+                                  p.wg, p.wo)
+        torch.testing.assert_close(got, want[0], atol=1e-5, rtol=1e-5)
+        for need_aux in (True, False):
+            y, _ = moe.moe_apply(cfg.with_(use_kernels=True), p, x,
+                                 need_aux=need_aux)
+            torch.testing.assert_close(y, moe.moe_apply(cfg, p, x)[0],
+                                       atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("G,T,cf", [(1, 1, 1.25), (1, 2, 8.0), (3, 4, 8.0),
+                                    (2, 64, 4.0)])
+def test_capacity_shortcut_keeps_every_choice_of_the_routers_top_k(G, T,
+                                                                   cf):
+    """Where capacity C >= T no choice can drop: ``_route`` keeps every
+    choice, and ``_topk`` (the shortcut's routing, no slot loop) gives its
+    topi and topv exactly."""
+    cfg, p = _layer(moe_capacity_factor=cf)
+    assert moe._capacity(cfg, T) >= T
+    xg = torch.from_numpy(np.random.default_rng(T).standard_normal(
+        (G, T, cfg.d_model)).astype(np.float32))
+    with torch.no_grad():
+        topi, topv, _, keep, C, _ = moe._route(cfg, p, xg)
+        _, ti, tv = moe._topk(cfg, p, xg)
+    assert C >= T and bool(keep.all())
+    assert torch.equal(ti, topi) and torch.equal(tv, topv)
+
+
+def test_one_token_step_skips_the_slot_loop_where_capacity_cannot_bind(
+        monkeypatch):
+    """A decode step (no aux loss wanted) at C >= T routes by ``_topk``
+    alone; with the aux loss wanted, or at C < T, ``_route`` runs."""
+    cfg, p = _layer(use_kernels=True)
+    calls = []
+    real = moe._route
+    monkeypatch.setattr(moe, "_route",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    with torch.no_grad():
+        for B, need_aux, routed in ((1, False, 0), (1, True, 1),
+                                    (3, False, 1)):
+            calls.clear()
+            y, aux = moe.moe_apply(cfg, p, torch.ones(B, 1, cfg.d_model),
+                                   need_aux=need_aux)
+            assert len(calls) == routed and (aux is None) == (not routed)
+
+
+def _counting(monkeypatch):
+    """Count the gathered path's calls on the CPU, where the wrapper runs
+    the plain version (the card's kernel counts its own in LAUNCHES)."""
+    from repro_torch.kernels import expert_gather as EG
+    real = EG.expert_gather_plain
+
+    def counted(*a):
+        EG.LAUNCHES += 1
+        return real(*a)
+    monkeypatch.setattr(EG, "expert_gather_plain", counted)
+    return EG
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_dense_path_runs_where_the_choices_reach_every_expert(monkeypatch,
+                                                              arch):
+    """The gathered path runs while B * top_k < E (B 1-3 of top 2 of 8),
+    and never at B * top_k >= E (B 4), with the kernels off, or over a
+    prompt: the launch counter stays still there."""
+    EG = _counting(monkeypatch)
+    cfg, p = _layer(arch, use_kernels=True)
+    with torch.no_grad():
+        for B, S, kernels, runs in ((1, 1, True, 1), (3, 1, True, 1),
+                                    (4, 1, True, 0), (5, 1, True, 0),
+                                    (1, 1, False, 0), (1, 8, True, 0)):
+            n0 = EG.LAUNCHES
+            moe.moe_apply(cfg.with_(use_kernels=kernels), p,
+                          torch.ones(B, S, cfg.d_model))
+            assert EG.LAUNCHES - n0 == runs, (B, S, kernels)
+
+
+def test_engine_counts_the_gathered_calls_of_a_request(monkeypatch):
+    """``last_times["expert_gather_launches"]``: MoE layers x decode steps
+    of the request (2 x 5 here), none in the prefill."""
+    from repro_torch.serving import engine as port_engine
+    from repro_torch.serving import registry as port_registry
+    _counting(monkeypatch)
+    cfg = configs.reduced(configs.get("olmoe-1b-7b")).with_(use_kernels=True)
+    reg = port_registry.Registry()
+    reg.register(port_registry.ModelEndpoint("app-0", cfg, seed=1))
+    eng = port_engine.ServeEngine(reg, device="cpu")
+    eng.load("app-0")
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (1, 24)))
+    for new in (6, 2):
+        eng.generate("app-0", tokens, max_new=new, max_len=32)
+        assert eng.last_times["expert_gather_launches"] == \
+            N_LAYERS * (new - 1)

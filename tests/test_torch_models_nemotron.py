@@ -179,6 +179,43 @@ def test_held_shares_add_up_to_the_uncut_layer(share):
                                    rtol=1e-5)
 
 
+def test_gathered_held_experts_equal_every_held_expert(monkeypatch):
+    """One token with the kernels on (top 2, 4 of 8 held: B * top_k < 8,
+    the router's experts, up to B = 3): ``expert_gather_plain`` in the
+    relu² form, a choice of an expert not held weighted 0, equals the
+    every-held-expert product with a one-hot combine (written out here, in
+    f32), and the layer equals the kernels-off layer; at B = 4 (8 choices,
+    not fewer than the 8 experts) the gathered path does not run."""
+    from repro_torch.kernels import expert_gather as EG
+    cfg = _small(use_kernels=True)
+    H, D = cfg.n_held, cfg.d_model
+    p = moe.DroplessMoE(cfg)
+    p.init_(torch.Generator().manual_seed(2))
+    x = torch.randn(4, 1, D, generator=torch.Generator().manual_seed(5))
+    calls = []
+    real = EG.expert_gather_plain
+    monkeypatch.setattr(EG, "expert_gather_plain",
+                        lambda *a: calls.append(1) or real(*a))
+    with torch.no_grad():
+        xf = x[:1, 0]
+        idx, w = moe.route_topk(cfg, p, xf)
+        held = idx < H
+        assert bool(held.any()) and not bool(held.all())
+        c = (torch.nn.functional.one_hot(torch.where(held, idx, H), H + 1)
+             [..., :H] * w[..., None]).sum(1)
+        h = torch.square(torch.relu(torch.matmul(xf, p.wi)))      # [H,T,F]
+        want = (torch.matmul(h, p.wo) * c.t()[..., None]).sum(0)
+        got = real(xf, idx, torch.where(held, w, 0.0), p.wi, None, p.wo)
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+        off = cfg.with_(use_kernels=False)
+        for B, runs in ((1, 1), (3, 1), (4, 0)):
+            calls.clear()
+            y = moe.dropless_apply(cfg, p, x[:B])
+            assert len(calls) == runs
+            torch.testing.assert_close(y, moe.dropless_apply(off, p, x[:B]),
+                                       atol=1e-5, rtol=1e-5)
+
+
 def _scan_inputs(b, l, h, p, g, n, seed=0):
     gen = torch.Generator().manual_seed(seed)
     x = torch.randn(b, l, h, p, generator=gen)
@@ -357,8 +394,11 @@ def test_generate_reports_the_counters():
         for t in entry.state[k])
     assert times["ssd_launches"] == 0      # the plain scan on the CPU
     # other families: the counters of the work they have
+    # one-token steps through the gathered experts: the plain version on
+    # the CPU counts no kernel call
+    assert times["expert_gather_launches"] == 0
     for other, has in (("qwen2-7b", set()), ("mamba2-2.7b", {"ssd_launches"}),
-                       ("olmoe-1b-7b", set())):
+                       ("olmoe-1b-7b", {"expert_gather_launches"})):
         cfg = configs.reduced(configs.get(other)).with_(use_kernels=True)
         eng = _engine([cfg])
         eng.load("app-0")
@@ -465,7 +505,8 @@ def test_graph_decode_equals_eager_through_the_engine():
     SSD and flash kernels run): ``generate``'s tokens, through the entry's
     captured decode graph, equal the eager greedy loop's from the same
     prefill, bit for bit, twice; the request's SSD launches are counted
-    (one a Mamba-2 layer)."""
+    (one a Mamba-2 layer), and its gathered-expert calls (one a MoE layer
+    a decode step)."""
     dev = _card()
     cfg = _small(use_kernels=True, dtype="bfloat16")
     reg = port_registry.Registry()
@@ -491,6 +532,8 @@ def test_graph_decode_equals_eager_through_the_engine():
         assert torch.equal(out, want)
         assert eng.last_times["ssd_launches"] == 2
         assert eng.last_times["held_choices"] > 0
+        # batch 1, top 2 of 4 held: each step's 2 MoE layers gathered
+        assert eng.last_times["expert_gather_launches"] == 2 * (new - 1)
     assert eng._executables("app-0", max_len, 1).graph is not None
     eng.unload("app-0")
     assert math.isfinite(float(lg.float().abs().max()))
