@@ -866,7 +866,7 @@ def ssd_parity(device):
     the grouped cases (:func:`ssd_parity_grouped`). Returns the largest
     absolute difference of y from the plain version seen."""
     import torch
-    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.kernels import build, ssd_scan as SS
     from repro_torch.kernels.timing import ssd_inputs
 
     s = SSD_SHAPE
@@ -880,7 +880,8 @@ def ssd_parity(device):
              ((2, 640, 8, 64, 128), bf16, True, False),
              ((2, 1, 80, 64, 128), f32, True, False),
              ((2, 1, 80, 64, 128), bf16, False, True)]
-    if SS._lib().ssd_scan_bf16_max_state() != SS.MAX_BF16_STATE:
+    if build.load("ssd_scan").ssd_scan_bf16_max_state() != \
+            SS.MAX_BF16_STATE:
         raise AssertionError("ssd_scan.MAX_BF16_STATE disagrees with the "
                              "kernel's shared-memory limit")
     worst = 0.0
@@ -1562,14 +1563,14 @@ def decode_graph(engine, app, cfg, tokens, phase):
     state's bytes. The launches here are not the serving path's: the
     counters are put back after."""
     import torch
-    from repro_torch.serving.engine import _COUNTED, _copy_into, _tree
+    from repro_torch.kernels import MODEL_KERNELS as mods
+    from repro_torch.serving.engine import _copy_into, _tree
 
-    mods = _COUNTED                       # the model kernels' modules
     model, params = engine._model(cfg), engine._loaded[app]
     max_len = SERVE_SEQ + SERVE_NEW
     steps = SERVE_NEW - 1
     entry = engine._executables(app, max_len, SERVE_BATCH)
-    embeds = engine._frontend(cfg, tokens)
+    embeds = model.frontend(tokens)
 
     def counts():
         return {m.__name__.rsplit(".", 1)[-1]: dict(

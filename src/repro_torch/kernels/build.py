@@ -1,4 +1,5 @@
-"""Build the CUDA sources under ``csrc/`` with nvcc and load them with ctypes.
+"""Build the CUDA sources under ``csrc/`` with nvcc, load them with ctypes
+and run their entry points.
 
 Each ``csrc/*.cu`` becomes a shared library with a plain C interface in
 ``build/`` next to this file, named by a hash of its source, of every
@@ -6,6 +7,9 @@ Each ``csrc/*.cu`` becomes a shared library with a plain C interface in
 headers' own includes) and of its flags, so a changed source or header
 rebuilds and an unchanged one is reused. The build runs
 at first use (never at import), one nvcc per source, all started together.
+
+Every C entry point is typed from one table, :data:`SIGNATURES`, when its
+library is loaded, and run through :func:`launch`.
 """
 from __future__ import annotations
 
@@ -17,10 +21,13 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "SOURCE_FLAGS", "flags",
-           "build_all", "load", "ptxas_summary"]
+import torch
+
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "SOURCE_FLAGS",
+           "SIGNATURES", "CTYPES", "flags", "build_all", "entry_points",
+           "load", "launch", "ptxas_summary"]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -35,7 +42,52 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 SOURCE_FLAGS = {"hybrid_sweep_step": ("-fmad=false",),
                 "policy_update": ("-fmad=false",)}
 
+#: The C interface of each library: stem -> (its error-string function,
+#: {entry point: (return type, argument types)}), a letter a C type (see
+#: :data:`CTYPES`; spaces only group the letters for the reader). An error-
+#: string function takes an entry point's nonzero return code and gives
+#: the library's message for it (``int`` -> ``const char*``).
+SIGNATURES = {
+    "decode_attention": ("decode_attention_error_string", {
+        "decode_attention_fwd":
+            ("i", "pppp pppp iiiiiiii p ii LLLLLLLL ff p")}),
+    "expert_gather": ("expert_gather_error_string", {
+        "expert_gather_fwd": ("i", "ppppppppp iiiiiiiii p")}),
+    "flash_attention": ("flash_attention_error_string", {
+        "flash_attention_fwd": ("i", "pppp iiiiiii LLLLLLLLL f p"),
+        "flash_attention_hopper_fwd": ("i", "pppp iiiiii LLLLLLLLL f p")}),
+    "hybrid_sweep_step": ("hybrid_error_string", {
+        "hybrid_sweep_step": ("i", "ppppppppppppp pppppppp iii p"),
+        "hybrid_sweep_scan":
+            ("i", "pi pppppppppppp pppppppp p iiii p"),
+        "hybrid_sweep_scan_factored":
+            ("i", "pi ppppppppp ppppp ppppppppp iiiii p")}),
+    "policy_update": ("policy_update_error_string", {
+        "policy_update": ("i", "ppppppp ppppppp iiiii ffffff i p")}),
+    "rglru_scan": ("rglru_scan_error_string", {
+        "rglru_scan_fwd": ("i", "pppp iiii p")}),
+    "ssd_scan": ("ssd_scan_error_string", {
+        "ssd_scan_scratch_bytes": ("L", "iiiiiiii"),
+        "ssd_scan_bf16_max_state": ("i", ""),
+        "ssd_scan_fwd": ("i", "ppppppppp iiiiiiii LLLLLLLLLLL p")}),
+}
+
+#: The ctypes type of each letter of :data:`SIGNATURES`: ``p`` any pointer
+#: (device memory, or the ``cudaStream_t`` passed as ``void*``), ``i``
+#: ``int``, ``L`` ``int64_t``, ``f`` ``float``, ``s`` ``const char*``.
+CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "L": ctypes.c_int64,
+          "f": ctypes.c_float, "s": ctypes.c_char_p}
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def entry_points():
+    """``(stem, name, return letter, argument letters)`` of every C entry
+    point of :data:`SIGNATURES`, the error-string functions included."""
+    for stem, (err, fns) in SIGNATURES.items():
+        for name, (ret, args) in fns.items():
+            yield stem, name, ret, args.replace(" ", "")
+        yield stem, err, "s", "i"
 
 
 def flags(stem: str) -> tuple:
@@ -154,10 +206,39 @@ def build_all() -> Dict[str, dict]:
     return out
 
 
+def _bind(lib, stem: str):
+    """Type every entry point of ``lib``, the library of ``csrc/<stem>.cu``,
+    from :data:`SIGNATURES`."""
+    for s, name, ret, args in entry_points():
+        if s == stem:
+            fn = getattr(lib, name)
+            fn.argtypes = [CTYPES[c] for c in args]
+            fn.restype = CTYPES[ret]
+    return lib
+
+
 def load(stem: str) -> ctypes.CDLL:
-    """The built library of ``csrc/<stem>.cu`` (built on first use)."""
+    """The built library of ``csrc/<stem>.cu`` (built on first use), its
+    entry points typed from :data:`SIGNATURES`."""
     lib = _LIBS.get(stem)
     if lib is None:
         path = build_all()[stem]["path"]
-        lib = _LIBS[stem] = ctypes.CDLL(path)
+        lib = _LIBS[stem] = _bind(ctypes.CDLL(path), stem)
     return lib
+
+
+def launch(stem: str, entry: str, device, *args, what: Optional[str] = None,
+           form: Optional[str] = None) -> None:
+    """Call entry point ``entry`` of ``csrc/<stem>.cu`` with ``args`` and,
+    last, ``device``'s current CUDA stream. A nonzero return raises
+    ``RuntimeError("<what> launch failed (<form> form): <message>")`` (the
+    form's part only with ``form``; ``what`` defaults to ``stem``), the
+    message the library's own error string for the code."""
+    lib = load(stem)
+    with torch.cuda.device(device):
+        rc = getattr(lib, entry)(*args,
+                                 torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        message = getattr(lib, SIGNATURES[stem][0])(rc).decode()
+        how = f" ({form} form)" if form else ""
+        raise RuntimeError(f"{what or stem} launch failed{how}: {message}")

@@ -28,14 +28,13 @@ serves every fill level.
 """
 from __future__ import annotations
 
-import ctypes
 import math
 import operator
 
 import numpy as np
 import torch
 
-from . import refuse_grad
+from . import build, refuse_grad
 
 __all__ = ["LAUNCHES", "LAUNCHES_BY_FORM", "SPLIT_KEYS", "decode_attention",
            "decode_attention_plain", "scratch_tensors"]
@@ -168,25 +167,9 @@ def _scratch(device, B: int, Hq: int, max_splits: int, D: int):
     return bufs
 
 
-def _lib() -> ctypes.CDLL:
-    from . import build
-    lib = build.load("decode_attention")
-    if not getattr(lib, "_typed", False):
-        fn = lib.decode_attention_fwd
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + \
-            [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_int64] * 8 + \
-            [ctypes.c_float] * 2 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.decode_attention_error_string.argtypes = [ctypes.c_int]
-        lib.decode_attention_error_string.restype = ctypes.c_char_p
-        lib._typed = True
-    return lib
-
-
 def _launch(q, k, v, n):
     global LAUNCHES
     _check_cuda_args(q, k, v)
-    lib = _lib()
     B, _, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     form = _form(q, k, v)
@@ -200,17 +183,13 @@ def _launch(q, k, v, n):
     # the reference divides by sqrt(D) as a float32 scalar (CUDA cores);
     # the tensor cores scale the f32 scores by log2(e) / sqrt(D) for exp2
     q_div = float(np.float32(math.sqrt(D)))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.decode_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            *(x.data_ptr() for x in scratch), _FORM_CODE[form],
-            _DTYPE_CODE[q.dtype], B, Hq, Hkv, D, Skv, n, n_ptr, SPLIT_KEYS,
-            n_splits, *strides, q_div, math.log2(math.e) / math.sqrt(D),
-            stream)
-    if rc != 0:
-        raise RuntimeError(f"decode_attention launch failed ({form} form): "
-                           + lib.decode_attention_error_string(rc).decode())
+    build.launch(
+        "decode_attention", "decode_attention_fwd", q.device, q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        *(x.data_ptr() for x in scratch), _FORM_CODE[form],
+        _DTYPE_CODE[q.dtype], B, Hq, Hkv, D, Skv, n, n_ptr, SPLIT_KEYS,
+        n_splits, *strides, q_div, math.log2(math.e) / math.sqrt(D),
+        form=form)
     LAUNCHES += 1
     LAUNCHES_BY_FORM[form] += 1
     return out

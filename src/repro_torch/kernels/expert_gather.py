@@ -14,12 +14,10 @@ either reaches the kernel or the call raises.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 import torch.nn.functional as F
 
-from . import refuse_grad
+from . import build, refuse_grad
 
 __all__ = ["LAUNCHES", "LAUNCHES_BY_FORM", "expert_gather",
            "expert_gather_plain", "splits"]
@@ -118,24 +116,9 @@ def _check_cuda_args(x, ids, w, wi, wg, wo) -> None:
                          "tensor 16-byte aligned")
 
 
-def _lib() -> ctypes.CDLL:
-    from . import build
-    lib = build.load("expert_gather")
-    if not getattr(lib, "_typed", False):
-        fn = lib.expert_gather_fwd
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + \
-            [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.expert_gather_error_string.argtypes = [ctypes.c_int]
-        lib.expert_gather_error_string.restype = ctypes.c_char_p
-        lib._typed = True
-    return lib
-
-
 def _launch(x, ids, w, wi, wg, wo):
     global LAUNCHES
     _check_cuda_args(x, ids, w, wi, wg, wo)
-    lib = _lib()
     ids = ids.to(torch.int64).contiguous()
     w = w.to(torch.float32).contiguous()
     T, D = x.shape
@@ -151,17 +134,12 @@ def _launch(x, ids, w, wi, wg, wo):
     y = torch.empty((T, D), dtype=x.dtype, device=x.device)
     up = torch.empty(T * k * up_splits * mats * Fe, **f32)
     dn = torch.empty(T * k * dn_splits * D, **f32)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.expert_gather_fwd(
-            x.data_ptr(), ids.data_ptr(), w.data_ptr(), wi.data_ptr(),
-            None if wg is None else wg.data_ptr(), wo.data_ptr(),
-            y.data_ptr(), up.data_ptr(), dn.data_ptr(), T, k, E, D, Fe,
-            up_splits, dn_splits, _DTYPE_CODE[x.dtype], _FORM_CODE[form],
-            stream)
-    if rc != 0:
-        raise RuntimeError(f"expert_gather launch failed ({form} form): "
-                           + lib.expert_gather_error_string(rc).decode())
+    build.launch(
+        "expert_gather", "expert_gather_fwd", x.device, x.data_ptr(),
+        ids.data_ptr(), w.data_ptr(), wi.data_ptr(),
+        None if wg is None else wg.data_ptr(), wo.data_ptr(), y.data_ptr(),
+        up.data_ptr(), dn.data_ptr(), T, k, E, D, Fe, up_splits, dn_splits,
+        _DTYPE_CODE[x.dtype], _FORM_CODE[form], form=form)
     LAUNCHES += 1
     LAUNCHES_BY_FORM[form] += 1
     return y

@@ -20,12 +20,11 @@ when the kernels are off.
 """
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
 
-from . import refuse_grad
+from . import build, refuse_grad
 
 __all__ = ["LAUNCHES", "LAUNCHES_BY_FORM", "CHUNKED_Q_THRESHOLD", "sdpa",
            "flash_attention", "flash_attention_plain"]
@@ -171,49 +170,25 @@ def _form(q, k, v) -> str:
     return "hopper" if legal else "mma_sync"
 
 
-def _lib() -> ctypes.CDLL:
-    from . import build
-    lib = build.load("flash_attention")
-    if not getattr(lib, "_typed", False):
-        fn = lib.flash_attention_fwd
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + \
-            [ctypes.c_int64] * 9 + [ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fn = lib.flash_attention_hopper_fwd
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
-            [ctypes.c_int64] * 9 + [ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
-        lib.flash_attention_error_string.restype = ctypes.c_char_p
-        lib._typed = True
-    return lib
-
-
 def _launch(q, k, v, window: int):
     global LAUNCHES
     _check_cuda_args(q, k, v, window)
-    lib = _lib()
     B, S, Hq, D = q.shape
     form = _form(q, k, v)
     out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device)
     strides = [s for x in (q, k, v) for s in x.stride()[:3]]
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if form == "hopper":
-            # 1/sqrt(D) and log2(e) in one scale for exp2
-            rc = lib.flash_attention_hopper_fwd(
-                *ptrs, B, S, Hq, k.shape[2], D, int(window), *strides,
-                math.log2(math.e) / math.sqrt(D), stream)
-        else:
-            # the reference divides by sqrt(hd) as a float32 scalar
-            q_div = float(torch.tensor(math.sqrt(D), dtype=torch.float32))
-            rc = lib.flash_attention_fwd(
-                *ptrs, _DTYPE_CODE[q.dtype], B, S, Hq, k.shape[2], D,
-                int(window), *strides, q_div, stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention launch failed ({form} form): "
-                           + lib.flash_attention_error_string(rc).decode())
+    if form == "hopper":
+        # 1/sqrt(D) and log2(e) in one scale for exp2
+        build.launch("flash_attention", "flash_attention_hopper_fwd",
+                     q.device, *ptrs, B, S, Hq, k.shape[2], D, int(window),
+                     *strides, math.log2(math.e) / math.sqrt(D), form=form)
+    else:
+        # the reference divides by sqrt(hd) as a float32 scalar
+        q_div = float(torch.tensor(math.sqrt(D), dtype=torch.float32))
+        build.launch("flash_attention", "flash_attention_fwd", q.device,
+                     *ptrs, _DTYPE_CODE[q.dtype], B, S, Hq, k.shape[2], D,
+                     int(window), *strides, q_div, form=form)
     LAUNCHES += 1
     LAUNCHES_BY_FORM[form] += 1
     return out

@@ -37,13 +37,13 @@ likewise updated in place and returned first.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
 from ..core import policy_math
+from . import build
 
 __all__ = ["CFG_I32_COLS", "CFG_F32_COLS", "LAUNCHES",
            "POLICY_UPDATE_LAUNCHES", "SCAN_LAUNCHES", "SCAN_LAUNCHES_BY_FORM",
@@ -133,37 +133,17 @@ def _check_cuda_args(args, bin_minutes) -> None:
         raise ValueError("fused_hybrid_sweep_step: n_bins must be >= 1")
 
 
-def _lib() -> ctypes.CDLL:
-    from . import build
-    lib = build.load("hybrid_sweep_step")
-    if not getattr(lib, "_typed", False):
-        fn = lib.hybrid_sweep_step
-        fn.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 3 + \
-            [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.hybrid_error_string.argtypes = [ctypes.c_int]
-        lib.hybrid_error_string.restype = ctypes.c_char_p
-        lib._typed = True
-    return lib
-
-
 def _launch(args, bin_minutes):
     global LAUNCHES
     t_now, cum = args[0], args[2]
     if bin_minutes is None:
         bin_minutes = args[11][:, 2].to(torch.float64).contiguous()
     _check_cuda_args(args, bin_minutes)
-    lib = _lib()
     S, n, n_bins = cum.shape
     outs = [torch.empty_like(x) for x in (args[1], *args[3:10])]
-    with torch.cuda.device(cum.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.hybrid_sweep_step(
-            *(x.data_ptr() for x in (*args, bin_minutes)),
-            *(o.data_ptr() for o in outs), S, n, n_bins, stream)
-    if rc != 0:
-        raise RuntimeError("hybrid_sweep_step launch failed: "
-                           + lib.hybrid_error_string(rc).decode())
+    build.launch("hybrid_sweep_step", "hybrid_sweep_step", cum.device,
+                 *(x.data_ptr() for x in (*args, bin_minutes)),
+                 *(o.data_ptr() for o in outs), S, n, n_bins)
     LAUNCHES += 1
     o_prev, o_oob, o_cvs, o_cvss, o_pre, o_unload, o_cold, o_waste = outs
     return (o_prev, cum, o_oob, o_cvs, o_cvss, o_pre, o_unload, o_cold,
@@ -303,17 +283,6 @@ def _check_scan_args(cols, args, bin_minutes) -> None:
                       cols.new_empty((cum.shape[1],)), *args), bin_minutes)
 
 
-def _scan_lib() -> ctypes.CDLL:
-    lib = _lib()
-    if not getattr(lib, "_scan_typed", False):
-        fn = lib.hybrid_sweep_scan
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + \
-            [ctypes.c_void_p] * 21 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib._scan_typed = True
-    return lib
-
-
 def _scan_launch(cols, args, bin_minutes):
     global SCAN_LAUNCHES
     cfg_f32 = args[10]
@@ -333,19 +302,13 @@ def _scan_launch(cols, args, bin_minutes):
         SCAN_LAUNCHES += 1
         SCAN_LAUNCHES_BY_FORM[form] += 1
         return (*state, consulted)
-    lib = _scan_lib()
     outs = [torch.empty_like(x) for x in (args[0], *args[2:9])]
     consulted = torch.empty((S, n), dtype=torch.bool, device=cum.device)
-    with torch.cuda.device(cum.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.hybrid_sweep_scan(
-            cols.data_ptr(), cols.shape[0],
-            *(x.data_ptr() for x in (*args, bin_minutes)),
-            *(o.data_ptr() for o in outs), consulted.data_ptr(), S, n,
-            n_bins, bpl, stream)
-    if rc != 0:
-        raise RuntimeError("hybrid_sweep_scan launch failed: "
-                           + lib.hybrid_error_string(rc).decode())
+    build.launch("hybrid_sweep_step", "hybrid_sweep_scan", cum.device,
+                 cols.data_ptr(), cols.shape[0],
+                 *(x.data_ptr() for x in (*args, bin_minutes)),
+                 *(o.data_ptr() for o in outs), consulted.data_ptr(), S, n,
+                 n_bins, bpl, what="hybrid_sweep_scan")
     SCAN_LAUNCHES += 1
     SCAN_LAUNCHES_BY_FORM[form] += 1
     o_prev, o_oob, o_cvs, o_cvss, o_pre, o_unload, o_cold, o_waste = outs
@@ -594,17 +557,6 @@ def _check_factored_args(cols, state) -> None:
                 f"{x.device}")
 
 
-def _factored_lib() -> ctypes.CDLL:
-    lib = _lib()
-    if not getattr(lib, "_factored_typed", False):
-        fn = lib.hybrid_sweep_scan_factored
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + \
-            [ctypes.c_void_p] * 23 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib._factored_typed = True
-    return lib
-
-
 def _factored_launch(cols, state, plan: ScanPlan):
     """The ``factored`` form: one launch, a warp per (group, app)."""
     global SCAN_LAUNCHES
@@ -624,19 +576,14 @@ def _factored_launch(cols, state, plan: ScanPlan):
     o_group = [torch.empty_like(x) for x in kin]
     o_config = [torch.empty_like(x) for x in (load_c, unload_c, cold, waste)]
     consulted = torch.empty(cold.shape, dtype=torch.bool, device=cold.device)
-    lib = _factored_lib()
-    with torch.cuda.device(gcum.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.hybrid_sweep_scan_factored(
-            cols.data_ptr(), cols.shape[0],
-            *(x.data_ptr() for x in (prev_t, kcum, *kin, load_c, unload_c,
-                                     cold, waste, *lay[:5],
-                                     o_prev, *o_group, *o_config,
-                                     consulted)),
-            Gk, n, n_bins, plan.bins_per_lane, plan.configs_per_lane, stream)
-    if rc != 0:
-        raise RuntimeError("hybrid_sweep_scan_factored launch failed: "
-                           + lib.hybrid_error_string(rc).decode())
+    build.launch("hybrid_sweep_step", "hybrid_sweep_scan_factored",
+                 gcum.device, cols.data_ptr(), cols.shape[0],
+                 *(x.data_ptr() for x in (prev_t, kcum, *kin, load_c,
+                                          unload_c, cold, waste, *lay[:5],
+                                          o_prev, *o_group, *o_config,
+                                          consulted)),
+                 Gk, n, n_bins, plan.bins_per_lane, plan.configs_per_lane,
+                 what="hybrid_sweep_scan_factored")
     SCAN_LAUNCHES += 1
     SCAN_LAUNCHES_BY_FORM["factored"] += 1
     if lay.k_group is not None:
@@ -752,24 +699,9 @@ def _policy_form(n_bins: int, counts_ptr: int) -> str:
     return "vec4" if n_bins % 4 == 0 and counts_ptr % 16 == 0 else "scalar"
 
 
-def _policy_lib() -> ctypes.CDLL:
-    from . import build
-    lib = build.load("policy_update")
-    if not getattr(lib, "_typed", False):
-        fn = lib.policy_update
-        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + \
-            [ctypes.c_float] * 6 + [ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.policy_update_error_string.argtypes = [ctypes.c_int]
-        lib.policy_update_error_string.restype = ctypes.c_char_p
-        lib._typed = True
-    return lib
-
-
 def _policy_launch(args, knobs):
     global POLICY_UPDATE_LAUNCHES
     _check_policy_args(args)
-    lib = _policy_lib()
     counts = args[0]
     n, n_bins = counts.shape
     outs = [torch.empty_like(x) for x in args[1:5]] + \
@@ -777,20 +709,15 @@ def _policy_launch(args, knobs):
          for dt in (torch.float32, torch.float32, torch.int32)]
     lo, hi = policy_math.margin_factors(knobs["margin"])
     f32 = lambda x: float(np.float32(x))
-    with torch.cuda.device(counts.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.policy_update(
-            *(x.data_ptr() for x in args), *(o.data_ptr() for o in outs),
-            n, n_bins, policy_math.pct_numer(knobs["head_pct"]),
-            policy_math.pct_numer(knobs["tail_pct"]),
-            int(knobs["min_samples"]), float(lo), float(hi),
-            f32(knobs["bin_minutes"]), f32(knobs["range_minutes"]),
-            f32(knobs["cv_threshold"]), f32(knobs["oob_threshold"]),
-            4 if _policy_form(n_bins, counts.data_ptr()) == "vec4" else 1,
-            stream)
-    if rc != 0:
-        raise RuntimeError("policy_update launch failed: "
-                           + lib.policy_update_error_string(rc).decode())
+    build.launch(
+        "policy_update", "policy_update", counts.device,
+        *(x.data_ptr() for x in args), *(o.data_ptr() for o in outs), n,
+        n_bins, policy_math.pct_numer(knobs["head_pct"]),
+        policy_math.pct_numer(knobs["tail_pct"]), int(knobs["min_samples"]),
+        float(lo), float(hi), f32(knobs["bin_minutes"]),
+        f32(knobs["range_minutes"]), f32(knobs["cv_threshold"]),
+        f32(knobs["oob_threshold"]),
+        4 if _policy_form(n_bins, counts.data_ptr()) == "vec4" else 1)
     POLICY_UPDATE_LAUNCHES += 1
     return (counts, *outs)
 

@@ -15,11 +15,9 @@ raises.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from . import refuse_grad
+from . import build, refuse_grad
 
 __all__ = ["LAUNCHES", "LAUNCHES_BY_FORM", "CHUNK", "rglru_scan",
            "rglru_scan_plain"]
@@ -82,37 +80,17 @@ def _form(D: int, *data_ptrs: int) -> str:
     return "scalar"
 
 
-def _lib() -> ctypes.CDLL:
-    from . import build
-    lib = build.load("rglru_scan")
-    if not getattr(lib, "_typed", False):
-        fn = lib.rglru_scan_fwd
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + \
-            [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.rglru_scan_error_string.argtypes = [ctypes.c_int]
-        lib.rglru_scan_error_string.restype = ctypes.c_char_p
-        lib._typed = True
-    return lib
-
-
 def _launch(b_in, a):
     global LAUNCHES
     _check_cuda_args(b_in, a)
-    lib = _lib()
     B, L, D = a.shape
     h = torch.empty_like(b_in)
     h_last = torch.empty((B, D), dtype=b_in.dtype, device=b_in.device)
     form = _form(D, b_in.data_ptr(), a.data_ptr(), h.data_ptr(),
                  h_last.data_ptr())
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.rglru_scan_fwd(b_in.data_ptr(), a.data_ptr(), h.data_ptr(),
-                                h_last.data_ptr(), B, L, D,
-                                4 if form == "vec4" else 1, stream)
-    if rc != 0:
-        raise RuntimeError("rglru_scan launch failed: "
-                           + lib.rglru_scan_error_string(rc).decode())
+    build.launch("rglru_scan", "rglru_scan_fwd", a.device, b_in.data_ptr(),
+                 a.data_ptr(), h.data_ptr(), h_last.data_ptr(), B, L, D,
+                 4 if form == "vec4" else 1)
     LAUNCHES += 1
     LAUNCHES_BY_FORM[form] += 1
     return h, h_last

@@ -24,12 +24,11 @@ runs a short last chunk. The result is the same up to rounding.
 """
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
 
-from . import refuse_grad
+from . import build, refuse_grad
 
 __all__ = ["LAUNCHES", "MAX_BF16_STATE", "MAX_CHUNK", "release_scratch",
            "ssd_scan", "ssd_scan_plain"]
@@ -181,23 +180,6 @@ def _check_cuda_args(x, dt, A, B, C, chunk, initial_state) -> None:
                          f"{MAX_BF16_STATE} wide, got n = {n}")
 
 
-def _lib() -> ctypes.CDLL:
-    from . import build
-    lib = build.load("ssd_scan")
-    if not getattr(lib, "_typed", False):
-        i32, i64, ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
-        lib.ssd_scan_scratch_bytes.argtypes = [i32] * 8
-        lib.ssd_scan_scratch_bytes.restype = i64
-        lib.ssd_scan_bf16_max_state.argtypes = []
-        lib.ssd_scan_bf16_max_state.restype = i32
-        lib.ssd_scan_fwd.argtypes = [ptr] * 9 + [i32] * 8 + [i64] * 11 + [ptr]
-        lib.ssd_scan_fwd.restype = i32
-        lib.ssd_scan_error_string.argtypes = [i32]
-        lib.ssd_scan_error_string.restype = ctypes.c_char_p
-        lib._typed = True
-    return lib
-
-
 def _scratch(dev, nbytes: int) -> torch.Tensor:
     buf = _SCRATCH.get(dev)
     if buf is None or buf.numel() < nbytes:
@@ -221,27 +203,21 @@ def _launch(x, dt, A, B, C, chunk, initial_state):
     global LAUNCHES
     B, C = _grouped(B, C)
     _check_cuda_args(x, dt, A, B, C, chunk, initial_state)
-    lib = _lib()
     b, l, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     dev = x.device
     y = torch.empty((b, l, h, p), dtype=x.dtype, device=dev)
     final = torch.empty((b, h, n, p), dtype=torch.float32, device=dev)
-    scratch = _scratch(dev, lib.ssd_scan_scratch_bytes(
+    scratch = _scratch(dev, build.load("ssd_scan").ssd_scan_scratch_bytes(
         _DTYPES[x.dtype], b, l, h, p, n, chunk, g))
     init_ptr = 0 if initial_state is None else initial_state.data_ptr()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.ssd_scan_fwd(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), init_ptr, y.data_ptr(), final.data_ptr(),
-            scratch.data_ptr(), _DTYPES[x.dtype], b, l, h, p, n, chunk, g,
-            x.stride(0), x.stride(1), x.stride(2), dt.stride(0),
-            dt.stride(1), B.stride(0), B.stride(1), B.stride(2), C.stride(0),
-            C.stride(1), C.stride(2), stream)
-    if rc != 0:
-        raise RuntimeError("ssd_scan launch failed: "
-                           + lib.ssd_scan_error_string(rc).decode())
+    build.launch(
+        "ssd_scan", "ssd_scan_fwd", dev, x.data_ptr(), dt.data_ptr(),
+        A.data_ptr(), B.data_ptr(), C.data_ptr(), init_ptr, y.data_ptr(),
+        final.data_ptr(), scratch.data_ptr(), _DTYPES[x.dtype], b, l, h, p,
+        n, chunk, g, x.stride(0), x.stride(1), x.stride(2), dt.stride(0),
+        dt.stride(1), B.stride(0), B.stride(1), B.stride(2), C.stride(0),
+        C.stride(1), C.stride(2))
     LAUNCHES += 1
     return y, final
 

@@ -35,12 +35,13 @@ from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..distributed import compat, ctx
 from ..kernels import ops as kops
+from ..kernels import ssd_scan
 from ..kernels.ssd_scan import ssd_scan_plain
 from . import layers as L
 
 __all__ = ["ssd_decode_step", "Mamba2Block", "SSMParams", "init",
            "block_apply", "forward", "loss_fn", "init_state", "prefill",
-           "decode_step"]
+           "decode_step", "counters"]
 
 
 def ssd_decode_step(S, x, dt, A, B, C):
@@ -298,3 +299,10 @@ def decode_step(cfg: ModelConfig, params: SSMParams, token, cache):
     x = L.rmsnorm(params.ln_f, x, cfg.norm_eps)
     logits = L.unembed(params.embed, x)[:, 0]
     return logits, {"ssm": ssms, "conv": convs, "pos": cache["pos"] + 1}
+
+
+def counters(cfg: ModelConfig) -> Dict[str, int]:
+    """The counters a request of this family reports, as they stand:
+    ``ssd_launches``, the SSD scan kernel's calls (a prompt pass takes it
+    on the card; a decode step does not)."""
+    return {"ssd_launches": ssd_scan.LAUNCHES}

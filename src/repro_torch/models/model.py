@@ -16,6 +16,8 @@ one stack):
   * ``prefill(params, tokens, max_len, embeds=None)`` — (last-token
     logits, state)
   * ``decode_step(params, token, cache)`` — (logits, state)
+  * ``counters()`` — the counters its requests report, as they stand
+  * ``frontend(tokens)`` — the reference's frontend stub for a prompt
   * ``n_params()`` — analytic parameter count (the weight matrices and
     tables; no norm scales, biases or the recurrent families' vectors)
   * ``param_count(params)`` — the parameters a module holds, counted
@@ -39,9 +41,7 @@ from ..device import resolve_device
 from . import layers as L
 from . import mamba2, moe, nemotron_h, rglru, transformer
 
-__all__ = ["Model", "build", "n_params", "runs_ssd", "runs_moe",
-           "runs_dropless_moe",
-           "INIT_SCHEMES", "TensorSpec"]
+__all__ = ["Model", "build", "n_params", "INIT_SCHEMES", "TensorSpec"]
 
 
 class TensorSpec(NamedTuple):
@@ -67,26 +67,6 @@ INIT_SCHEMES = ("reference", "depth_scaled")
 
 _FAMILIES = {"dense": transformer, "moe": moe, "encdec": transformer,
              "hybrid": rglru, "ssm": mamba2, "nemotron_h": nemotron_h}
-
-
-def runs_ssd(cfg: ModelConfig) -> bool:
-    """Whether the model has Mamba-2 layers, whose prompt pass takes the
-    SSD scan kernel on the card."""
-    return cfg.family == "ssm" or (cfg.family == "nemotron_h"
-                                   and "M" in cfg.layer_pattern)
-
-
-def runs_moe(cfg: ModelConfig) -> bool:
-    """Whether the model has MoE layers (the MoE family's, Nemotron-H's
-    ``E``), whose one-token steps take the gathered-expert kernel on the
-    card (``moe.gathers``)."""
-    return cfg.family == "moe" or runs_dropless_moe(cfg)
-
-
-def runs_dropless_moe(cfg: ModelConfig) -> bool:
-    """Whether the model has dropless MoE layers (Nemotron-H's ``E``),
-    whose prompt pass counts the choices it computes on held experts."""
-    return cfg.family == "nemotron_h" and "E" in cfg.layer_pattern
 
 
 def n_params(cfg: ModelConfig, active_only: bool = False) -> int:
@@ -204,6 +184,28 @@ class Model:
             return transformer.encdec_decode_step(self.cfg, params, token,
                                                   cache)
         return self._m.decode_step(self.cfg, params, token, cache)
+
+    def counters(self) -> Dict[str, int]:
+        """The counters a request of this model reports, as they stand
+        (a request reports their differences over it): from the family's
+        module, where its layers do that work, ``ssd_launches`` (Mamba-2
+        layers), ``held_choices`` (dropless MoE layers) and
+        ``expert_gather_launches`` (MoE layers); none for the others. Host
+        counts: nothing is read from the device."""
+        return self._m.counters(self.cfg)
+
+    def frontend(self, tokens: torch.Tensor):
+        """The reference's modality frontend stub for prompts ``tokens``
+        [B, S]: zero frame embeddings [B, max(frontend_tokens, 1),
+        d_model] (f32, on the tokens' device) for the encoder-decoder's
+        encoder; ``None`` for every other family (a VLM backbone serves
+        text only)."""
+        cfg = self.cfg
+        if cfg.family != "encdec":
+            return None
+        return torch.zeros((tokens.shape[0], max(cfg.frontend_tokens, 1),
+                            cfg.d_model), dtype=torch.float32,
+                           device=tokens.device)
 
     def n_params(self, active_only: bool = False) -> int:
         return n_params(self.cfg, active_only)

@@ -60,14 +60,14 @@ from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig
 from ..distributed import compat, ctx
-from ..kernels.expert_gather import expert_gather
+from ..kernels import expert_gather as eg
 from . import layers as L
 from .transformer import _init_params, _logits
 
 __all__ = ["MoEFFN", "MoEBlock", "MoEParams", "init", "depth_scale_",
            "moe_apply", "moe_block_apply", "forward", "loss_fn", "prefill",
            "decode_step", "SharedExpert", "DroplessMoE", "route_topk",
-           "dropless_apply", "gathers", "HELD_CHOICES"]
+           "dropless_apply", "gathers", "counters", "HELD_CHOICES"]
 
 #: Routed choices the dropless layer's prompt path computed on held experts
 #: in this process (a host count: the path reads its per-expert counts on
@@ -332,9 +332,9 @@ def _moe_gathered(cfg, p, xg, need_aux: bool):
         _, topi, topv = _topk(cfg, p, xg)
         aux = None
     k, dt = cfg.top_k, xg.dtype
-    y = expert_gather(xg.reshape(G * T, D), topi.reshape(G * T, k),
-                      topv.reshape(G * T, k), p.wi.to(dt), p.wg.to(dt),
-                      p.wo.to(dt))
+    y = eg.expert_gather(xg.reshape(G * T, D), topi.reshape(G * T, k),
+                         topv.reshape(G * T, k), p.wi.to(dt), p.wg.to(dt),
+                         p.wo.to(dt))
     return y, aux
 
 
@@ -464,6 +464,13 @@ def decode_step(cfg: ModelConfig, params: MoEParams, token, cache: Dict):
     return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
 
 
+def counters(cfg: ModelConfig) -> Dict[str, int]:
+    """The counters a request of this family reports, as they stand:
+    ``expert_gather_launches``, the gathered-expert kernel's calls (one a
+    MoE layer a one-token step where :func:`gathers` holds)."""
+    return {"expert_gather_launches": eg.LAUNCHES}
+
+
 # ---------------------------------------------------------------------------
 # The dropless layer (sigmoid router, held share, shared expert)
 # ---------------------------------------------------------------------------
@@ -546,8 +553,8 @@ def dropless_apply(cfg: ModelConfig, p: DroplessMoE, x: torch.Tensor):
     held = idx < H
     dt = x.dtype
     if gathers(cfg, x):
-        y = expert_gather(xf, idx, torch.where(held, w, 0.0), p.wi.to(dt),
-                          None, p.wo.to(dt))
+        y = eg.expert_gather(xf, idx, torch.where(held, w, 0.0),
+                             p.wi.to(dt), None, p.wo.to(dt))
     elif S == 1:
         # combine weights [T, H]: a chosen held expert's weight, else 0
         c = (F.one_hot(torch.where(held, idx, H), H + 1)[..., :H]

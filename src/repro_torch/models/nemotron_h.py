@@ -50,7 +50,8 @@ from . import mamba2, moe
 from .transformer import _init_params, _logits
 
 __all__ = ["AttnBlock", "MoEBlock", "NemotronHParams", "kinds", "init",
-           "forward", "loss_fn", "init_state", "prefill", "decode_step"]
+           "forward", "loss_fn", "init_state", "prefill", "decode_step",
+           "counters"]
 
 
 def kinds(cfg: ModelConfig) -> str:
@@ -213,3 +214,18 @@ def decode_step(cfg: ModelConfig, params: NemotronHParams, token, cache):
     logits = _logits(cfg, params, x)[:, 0]
     return logits, {"k": cache["k"], "v": cache["v"], "ssm": ssms,
                     "conv": convs, "pos": pos + 1}
+
+
+def counters(cfg: ModelConfig) -> Dict[str, int]:
+    """The counters a request of this stack reports, as they stand: with
+    Mamba-2 layers, the SSD scan kernel's calls (``ssd_launches``,
+    :func:`mamba2.counters`); with MoE layers, the routed choices the
+    prompt pass computed on held experts (``held_choices``) and the
+    gathered-expert kernel's calls (``expert_gather_launches``,
+    :func:`moe.counters`)."""
+    pat = kinds(cfg)
+    out = mamba2.counters(cfg) if "M" in pat else {}
+    if "E" in pat:
+        out["held_choices"] = moe.HELD_CHOICES
+        out.update(moe.counters(cfg))
+    return out

@@ -38,7 +38,7 @@ from . import layers as L
 __all__ = ["rglru_scan_ref", "rglru_decode", "RecBlock", "MLPBlock",
            "SuperBlock", "HybridParams", "rec_apply", "attn_apply_local",
            "sblock_apply", "init", "forward", "loss_fn", "init_cache",
-           "prefill", "decode_step"]
+           "prefill", "decode_step", "counters"]
 
 _C = 8.0  # RG-LRU "c" constant
 
@@ -439,3 +439,8 @@ def decode_step(cfg: ModelConfig, params: HybridParams, token, cache):
     x = L.rmsnorm(params.ln_f, x, cfg.norm_eps)
     logits = L.unembed(params.embed, x)[:, 0]
     return logits, {"blocks": bstates, "tail": tail_state, "pos": pos + 1}
+
+
+def counters(cfg: ModelConfig) -> Dict[str, int]:
+    """The counters a request of this family reports: none."""
+    return {}

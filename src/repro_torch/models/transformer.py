@@ -49,7 +49,7 @@ from . import layers as L
 __all__ = ["DenseBlock", "DenseParams", "EncDecBlock", "EncDecParams", "init",
            "block_apply", "forward", "loss_fn", "prefill", "decode_step",
            "encdec_init", "encode", "encdec_forward", "encdec_loss",
-           "encdec_prefill", "encdec_decode_step"]
+           "encdec_prefill", "encdec_decode_step", "counters"]
 
 
 # ---------------------------------------------------------------------------
@@ -379,3 +379,8 @@ def encdec_decode_step(cfg: ModelConfig, params: EncDecParams, token,
     logits = _encdec_logits(cfg, params, x)[:, 0]
     return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1,
                     "enc": enc}
+
+
+def counters(cfg: ModelConfig) -> Dict[str, int]:
+    """The counters a request of this family reports: none."""
+    return {}

@@ -62,23 +62,14 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..distributed import ctx
-from ..kernels import (decode_attention, expert_gather, flash_attention,
-                       rglru_scan, ssd_scan)
-from ..models import Model, build, moe
+from ..kernels import add_launches, decode_attention, launch_counts, \
+    ssd_scan
+from ..models import Model, build
 from ..models.layers import compute_dtype, fp32_at_use
-from ..models.model import runs_dropless_moe, runs_moe, runs_ssd
 from .registry import Registry
 from .spans import span
 
 __all__ = ["ServeEngine", "Executable"]
-
-#: The model kernels whose wrappers count their launches (``LAUNCHES`` and,
-#: where they keep one, ``LAUNCHES_BY_FORM``). A graph replay makes no
-#: Python call, so an entry takes back what its capture counted (nothing
-#: ran then) and adds it once per replay.
-_COUNTED = (flash_attention, decode_attention, rglru_scan, ssd_scan,
-            expert_gather)
-
 
 #: Most bytes of one pinned host chunk the engine packs an image's
 #: parameters into. PyTorch's pinned allocator rounds every allocation up
@@ -182,18 +173,6 @@ def _placed(params: nn.Module, device: torch.device,
     return copy.deepcopy(params, memo)
 
 
-def _launch_counts():
-    return [(m.LAUNCHES, dict(getattr(m, "LAUNCHES_BY_FORM", {})))
-            for m in _COUNTED]
-
-
-def _add_launches(delta, sign: int = 1) -> None:
-    for m, (n, forms) in zip(_COUNTED, delta):
-        m.LAUNCHES += sign * n
-        for form, c in forms.items():
-            m.LAUNCHES_BY_FORM[form] += sign * c
-
-
 def _tree(fn, a, *rest):
     """``fn`` over the tensor leaves of a decode state (dicts and lists of
     tensors, ``pos`` among them), with the same leaves of ``rest``."""
@@ -273,7 +252,7 @@ class Executable:
         with torch.inference_mode():
             if self.graph is not None:
                 self.graph.replay()
-                _add_launches(self._per_replay)
+                add_launches(self._per_replay)
             elif self.device.type == "cuda":
                 with span("serve.capture"):
                     self._capture()
@@ -293,13 +272,12 @@ class Executable:
             # repro-lint: ignore[nondeterminism] -- the capture's seconds
             # are reported (capture_s); no token depends on them
             t0 = time.perf_counter()
-            before = _launch_counts()
+            before = launch_counts()
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, stream=side):
                 out = self._step()
-            delta = [(n1 - n0, {f: c - f0[f] for f, c in f1.items()})
-                     for (n0, f0), (n1, f1) in zip(before, _launch_counts())]
-            _add_launches(delta, -1)             # recorded, not run
+            delta = launch_counts(since=before)
+            add_launches(delta, -1)              # recorded, not run
             out.copy_(logits)
             side.synchronize()
             # repro-lint: ignore[nondeterminism] -- end of the capture
@@ -330,13 +308,10 @@ class ServeEngine:
         #: seconds of the last ``generate``'s prefill and decode phases and,
         #: on the card, of its capture (0.0 where its entry was cached);
         #: counters of the same request: ``state_bytes`` (the decode state:
-        #: KV caches, SSM and conv states), and where the model has the
-        #: work, ``ssd_launches`` (SSD scan kernel calls in the prefill),
-        #: ``held_choices`` (routed choices its prefill computed on held
-        #: experts, from the dropless layer's own host count) and
-        #: ``expert_gather_launches`` (gathered-expert kernel calls: one a
-        #: MoE layer a decode step where the step takes it, graph replays
-        #: counted)
+        #: KV caches, SSM and conv states) and the differences over it of
+        #: the model's own counters (``Model.counters``: where the model has
+        #: the work, ``ssd_launches``, ``held_choices`` and
+        #: ``expert_gather_launches``, graph replays counted)
         self.last_times: Dict[str, float] = {}
         #: host bytes the last ``load`` copied to the device
         self.last_load_bytes = 0
@@ -411,7 +386,8 @@ class ServeEngine:
         self._drop_executables(app_id)
         if self._loaded.pop(app_id, None) is None:
             return
-        ssd = lambda a: runs_ssd(self.registry.get(a).cfg)
+        ssd = lambda a: "ssd_launches" in self._model(
+            self.registry.get(a).cfg).counters()
         if ssd(app_id) and not any(ssd(a) for a in self._loaded):
             ssd_scan.release_scratch(self.device)
 
@@ -419,16 +395,6 @@ class ServeEngine:
         return app_id in self._loaded
 
     # -- inference -------------------------------------------------------------
-
-    def _frontend(self, cfg: ModelConfig, tokens: torch.Tensor):
-        """The reference's modality frontend stub: zero frame embeddings
-        [B, max(frontend_tokens, 1), d_model] (f32) for the
-        encoder-decoder's encoder; ``None`` for every other family."""
-        if cfg.family != "encdec":
-            return None
-        return torch.zeros((tokens.shape[0], max(cfg.frontend_tokens, 1),
-                            cfg.d_model), dtype=torch.float32,
-                           device=self.device)
 
     def generate(self, app_id: str, tokens, max_new: int = 8,
                  max_len: int = 128) -> Tuple[torch.Tensor, float]:
@@ -451,7 +417,6 @@ class ServeEngine:
             raise RuntimeError("ServeEngine.generate runs on one device; "
                                "under a mesh decode through the model's "
                                "decode_step (distributed.dist_decode)")
-        ep = self.registry.get(app_id)
         tokens = torch.as_tensor(tokens, device=self.device)
         B, S = tokens.shape
         if S + max_new - 1 > max_len:
@@ -461,15 +426,11 @@ class ServeEngine:
         entry = self._executables(app_id, max_len, B)
         capture = self.device.type == "cuda" and entry.graph is None \
             and max_new > 1
-        ssd0, held0 = ssd_scan.LAUNCHES, moe.HELD_CHOICES
-        gather0 = expert_gather.LAUNCHES
+        counts0 = entry.model.counters()
         with torch.inference_mode():
             with span("serve.prefill"):
-                embeds = self._frontend(ep.cfg, tokens)
-                outs = [entry.prefill(tokens, embeds)]
+                outs = [entry.prefill(tokens, entry.model.frontend(tokens))]
                 self._sync()
-                ssd_n = ssd_scan.LAUNCHES - ssd0
-                held_n = moe.HELD_CHOICES - held0
             # repro-lint: ignore[nondeterminism] -- prefill/decode split
             t1 = time.perf_counter()
             with span("serve.decode"):
@@ -484,25 +445,11 @@ class ServeEngine:
                            "decode_s": t2 - t1 - capture_s}
         if self.device.type == "cuda":
             self.last_times["capture_s"] = capture_s
-        self.last_times.update(self._counters(
-            ep.cfg, entry, ssd_n, held_n, expert_gather.LAUNCHES - gather0))
-        return result, t2 - t0
-
-    @staticmethod
-    def _counters(cfg: ModelConfig, entry: Executable, ssd_n: int,
-                  held_n: int, gather_n: int) -> Dict[str, int]:
-        """``last_times``' counters of the request just served, each where
-        the model has the work (host counts: nothing is read from the
-        device)."""
         leaves = []
         _tree(lambda t: leaves.append(t) if isinstance(
             t, torch.Tensor) and t.dim() else None, entry.state)
-        out = {"state_bytes": sum(t.numel() * t.element_size()
-                                  for t in leaves)}
-        if runs_ssd(cfg):
-            out["ssd_launches"] = ssd_n
-        if runs_dropless_moe(cfg):
-            out["held_choices"] = held_n
-        if runs_moe(cfg):
-            out["expert_gather_launches"] = gather_n
-        return out
+        self.last_times["state_bytes"] = sum(t.numel() * t.element_size()
+                                             for t in leaves)
+        self.last_times.update((k, n - counts0[k]) for k, n in
+                               entry.model.counters().items())
+        return result, t2 - t0

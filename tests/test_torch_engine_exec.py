@@ -33,7 +33,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import configs
+from repro_torch import configs, kernels
 from repro_torch.interop import model_params_from_numpy
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.models import build
@@ -144,7 +144,7 @@ def test_entry_decode_equals_the_eager_loop(family):
     eng.load("app-0")
     params, model = eng._loaded["app-0"], eng._model(cfg)
     tokens = torch.from_numpy(_inputs(cfg, 3)[0])
-    embeds = eng._frontend(cfg, tokens)
+    embeds = model.frontend(tokens)
     max_len = S + STEPS
     with torch.inference_mode():
         logits, state = model.prefill(params, tokens, max_len, embeds=embeds)
@@ -234,22 +234,25 @@ def test_generate_under_a_mesh_raises(monkeypatch):
 
 def test_launch_counts_are_added_per_replay_and_taken_back():
     """What a capture counted is taken back (nothing ran) and added once
-    per replay, by kernel and by form."""
-    before = port_engine._launch_counts()
+    per replay, by kernel and by form (``kernels.launch_counts``,
+    ``kernels.add_launches``, which the entry's capture and replay use)."""
+    before = kernels.launch_counts()
     delta = [(0, {f: 0 for f in forms}) for _, forms in before]
-    i = port_engine._COUNTED.index(DA)
+    i = kernels.MODEL_KERNELS.index(DA)
     delta[i] = (3, {"tensor_cores": 3, "cuda_cores": 0})
     try:
-        port_engine._add_launches(delta)
-        port_engine._add_launches(delta)
+        kernels.add_launches(delta)
+        kernels.add_launches(delta)
         assert DA.LAUNCHES == before[i][0] + 6
         assert DA.LAUNCHES_BY_FORM["tensor_cores"] == \
             before[i][1]["tensor_cores"] + 6
-        port_engine._add_launches(delta, -1)
+        assert kernels.launch_counts(since=before)[i] == \
+            (6, {"tensor_cores": 6, "cuda_cores": 0})
+        kernels.add_launches(delta, -1)
         assert DA.LAUNCHES == before[i][0] + 3
     finally:
-        port_engine._add_launches(delta, -1)
-    assert port_engine._launch_counts() == before
+        kernels.add_launches(delta, -1)
+    assert kernels.launch_counts() == before
 
 
 # ---------------------------------------------------------------------------
@@ -257,12 +260,7 @@ def test_launch_counts_are_added_per_replay_and_taken_back():
 # ---------------------------------------------------------------------------
 
 
-_counted = port_engine._launch_counts
-
-
-def _minus(a, b):
-    return [(n1 - n0, {k: v - f0[k] for k, v in f1.items()})
-            for (n1, f1), (n0, f0) in zip(a, b)]
+_counted = kernels.launch_counts
 
 
 @pytest.mark.gpu
@@ -284,7 +282,7 @@ def test_graph_decode_equals_eager_bit_for_bit():
         eng.load("app-0")
         params, model = eng._loaded["app-0"], eng._model(cfg)
         tokens = torch.from_numpy(_inputs(cfg, 3)[0]).cuda()
-        embeds = eng._frontend(cfg, tokens)
+        embeds = model.frontend(tokens)
         max_len = S + new
         c0 = _counted()
         with torch.inference_mode():
@@ -297,13 +295,13 @@ def test_graph_decode_equals_eager_bit_for_bit():
                 want.append(tok)
                 want_logits.append(lg.clone())
         torch.cuda.synchronize()
-        eager = _minus(_counted(), c0)
+        eager = _counted(since=c0)
         want = torch.stack(want, dim=1)
         for load in range(2):
             c0 = _counted()
             out, _ = eng.generate("app-0", tokens, max_new=new,
                                   max_len=max_len)
-            assert _minus(_counted(), c0) == eager, (family, load)
+            assert _counted(since=c0) == eager, (family, load)
             assert eng.last_times["capture_s"] > 0.0
             assert torch.equal(out, want), (family, load)
             entry = eng._executables("app-0", max_len, 2)
@@ -315,7 +313,7 @@ def test_graph_decode_equals_eager_bit_for_bit():
                 got.append(entry.decode())
                 logits.append(entry.logits.clone())
             torch.cuda.synchronize()
-            assert _minus(_counted(), c0) == eager, (family, load)
+            assert _counted(since=c0) == eager, (family, load)
             assert torch.equal(torch.stack(got, dim=1), want), family
             assert all(torch.equal(a, b) for a, b in zip(logits,
                                                          want_logits))

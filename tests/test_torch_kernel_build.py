@@ -1,8 +1,15 @@
 """``repro_torch.kernels.build`` without nvcc: a library's name follows its
 source, the ``csrc`` headers the source includes (directly or through
 another header) and its flags, so a changed header cannot reuse a stale
-library; and the ptxas log parser that ``chip_smoke.py`` prints registers
-and spills with."""
+library; the ptxas log parser that ``chip_smoke.py`` prints registers
+and spills with; and the signature table that types every C entry point,
+held to the ``extern "C"`` prototypes of ``csrc/*.cu`` (ctypes passes
+whatever it is told, so a miscounted or mistyped argument would reach the
+kernel with no error), and applied to a library as it is loaded."""
+import ctypes
+import re
+from types import SimpleNamespace
+
 import pytest
 
 from repro_torch.kernels import build
@@ -77,3 +84,80 @@ def test_ptxas_summary_names_each_kernel():
         "decode_attention_core_kernel<bf16,256>": {"registers": 70,
                                                    "spill_bytes": 0},
     }
+
+
+# -- the signature table ---------------------------------------------------
+
+_PROTOTYPE = re.compile(r"^([A-Za-z_][\w \t*]*?[ \t*])([A-Za-z_]\w*)\s*"
+                        r"\(([^)]*)\)\s*\{", re.M)
+
+
+def _letter(ctype: str) -> str:
+    """The table's letter of a C type (no parameter name)."""
+    t = " ".join(ctype.replace("*", " * ").split())
+    if t == "const char *":
+        return "s"
+    if t.endswith("*"):
+        return "p"
+    return {"int": "i", "int64_t": "L", "float": "f"}[t.replace("const ", "")]
+
+
+def _exported(stem: str) -> dict:
+    """``{name: (return letter, argument letters)}`` of every function
+    defined at the top of the ``extern "C"`` blocks of ``csrc/<stem>.cu``."""
+    text = (build.CSRC_DIR / f"{stem}.cu").read_text()
+    text = re.sub(r"/\*.*?\*/", "", re.sub(r"//[^\n]*", "", text), flags=re.S)
+    out = {}
+    for m in re.finditer(r'extern\s+"C"\s*\{', text):
+        i, depth = m.end(), 1
+        while depth:
+            depth += {"{": 1, "}": -1}.get(text[i], 0)
+            i += 1
+        block = text[m.end():i - 1]
+        for f in _PROTOTYPE.finditer(block):
+            if block[:f.start()].count("{") != block[:f.start()].count("}"):
+                continue                          # inside a function body
+            ret, name, params = f.groups()
+            params = [p.strip() for p in params.split(",")]
+            types = [p if p.endswith("*") else re.sub(r"\s*\w+$", "", p)
+                     for p in params if p not in ("", "void")]
+            assert name not in out, f"{stem}.cu exports {name} twice"
+            out[name] = (_letter(ret), "".join(_letter(t) for t in types))
+    return out
+
+
+@pytest.mark.parametrize("stem,name,ret,args",
+                         list(build.entry_points()),
+                         ids=[f"{stem}.{name}" for stem, name, *_ in
+                              build.entry_points()])
+def test_signature_matches_the_c_prototype(stem, name, ret, args):
+    exported = _exported(stem)
+    assert name in exported, f"csrc/{stem}.cu exports no {name}"
+    want_ret, want_args = exported[name]
+    assert len(args) == len(want_args), (name, args, want_args)
+    assert [build.CTYPES[c] for c in args] == \
+        [build.CTYPES[c] for c in want_args], (name, args, want_args)
+    assert build.CTYPES[ret] is build.CTYPES[want_ret], (name, ret)
+
+
+def test_every_exported_function_is_in_the_table_once():
+    table = [(stem, name) for stem, name, *_ in build.entry_points()]
+    assert len(table) == len(set(table))
+    assert {stem for stem, _ in table} == \
+        {p.stem for p in build.CSRC_DIR.glob("*.cu")}
+    exported = [(p.stem, name) for p in build.CSRC_DIR.glob("*.cu")
+                for name in _exported(p.stem)]
+    assert sorted(exported) == sorted(table)
+
+
+def test_bind_types_a_library_from_the_table():
+    fns = {name: SimpleNamespace(argtypes=None, restype=None)
+           for stem, name, *_ in build.entry_points() if stem == "ssd_scan"}
+    build._bind(SimpleNamespace(**fns), "ssd_scan")
+    assert fns["ssd_scan_scratch_bytes"].argtypes == [ctypes.c_int] * 8
+    assert fns["ssd_scan_scratch_bytes"].restype is ctypes.c_int64
+    assert fns["ssd_scan_bf16_max_state"].argtypes == []
+    assert fns["ssd_scan_error_string"].restype is ctypes.c_char_p
+    fwd = fns["ssd_scan_fwd"].argtypes
+    assert fwd == [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + \
+        [ctypes.c_int64] * 11 + [ctypes.c_void_p]

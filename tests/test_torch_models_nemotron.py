@@ -41,7 +41,7 @@ from repro_torch import configs
 from repro_torch.kernels import ssd_scan as S
 from repro_torch.models import moe
 from repro_torch.models.mamba2 import ssd_decode_step
-from repro_torch.models.model import Model, TensorSpec, n_params, runs_ssd
+from repro_torch.models.model import Model, TensorSpec, n_params
 from repro_torch.serving import engine as port_engine
 from repro_torch.serving import registry as port_registry
 
@@ -361,8 +361,9 @@ def test_unload_keeps_the_ssd_scratch_while_an_ssd_endpoint_is_loaded(
     ssm = configs.reduced(configs.get("mamba2-2.7b")).with_(use_kernels=True)
     hyb = _small(use_kernels=True)
     dense = configs.reduced(configs.get("qwen2-7b")).with_(use_kernels=True)
-    assert runs_ssd(ssm) and runs_ssd(hyb) and not runs_ssd(dense)
-    assert not runs_ssd(hyb.with_(layer_pattern="EE**EE"))
+    ssd = lambda cfg: "ssd_launches" in Model(cfg).counters()
+    assert ssd(ssm) and ssd(hyb) and not ssd(dense)
+    assert not ssd(hyb.with_(layer_pattern="EE**EE"))
     for order in (("app-0", "app-1"), ("app-1", "app-0")):
         eng = _engine([ssm, hyb, dense])
         for app in ("app-0", "app-1", "app-2"):

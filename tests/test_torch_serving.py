@@ -37,7 +37,7 @@ from repro_torch import configs as port_configs
 from repro_torch.core import experiment as port_experiment
 from repro_torch.core import policy as port_policy
 from repro_torch.interop import model_params_from_numpy
-from repro_torch.models.model import runs_moe, runs_ssd
+from repro_torch.models import Model
 from repro_torch.serving import engine as port_engine
 from repro_torch.serving import registry as port_registry
 from repro_torch.serving import warmpool as port_warmpool
@@ -244,12 +244,12 @@ def test_engine_generates_the_reference_tokens(ref, arch, n_layers):
     assert eng.load(app) > 0.0 and eng.is_loaded(app)
     got, seconds = eng.generate(app, torch.from_numpy(tokens),
                                 max_new=max_new, max_len=S + max_new)
-    # the request's counters: its decode state's bytes, the SSD kernel's
-    # calls where the model has Mamba-2 layers, and the gathered-expert
-    # kernel's where it has MoE layers
-    counters = {"state_bytes"} | ({"ssd_launches"} if runs_ssd(cfg)
-                                  else set()) | (
-        {"expert_gather_launches"} if runs_moe(cfg) else set())
+    # the request's counters: its decode state's bytes and the model's
+    # own, the SSD kernel's calls where it has Mamba-2 layers and the
+    # gathered-expert kernel's where it has MoE layers
+    counters = {"state_bytes"} | set(Model(cfg).counters())
+    assert ("ssd_launches" in counters) == (arch == "mamba2-2.7b")
+    assert ("expert_gather_launches" in counters) == (arch == "olmoe-1b-7b")
     assert seconds > 0.0 and set(eng.last_times) == {"prefill_s",
                                                      "decode_s"} | counters
     assert got.shape == (2, max_new)
