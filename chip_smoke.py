@@ -65,6 +65,14 @@ port's main paths:
     Nemotron's decode shapes and a ragged f32 one, two runs bit for bit,
     and every expert no live pair chose filled with NaN leaving the output
     unchanged;
+  * the rotary-and-append kernel (phase ``rope_append_parity``, after the
+    gathered-expert kernel's) against the plain chain it replaces
+    (``layers.rope`` of q and k, ``layers.write_rows`` of k and v) bit for
+    bit at Qwen2-7B's and OLMoE-1B-7B's decode steps and 4,096-token
+    prefills, Nemotron-3-Nano's decode append (no RoPE) and an f32 case;
+    the serving phases of the attention families count its launches, one
+    a cached self-attention layer a prefill and a decode step (28 x 16 a
+    Qwen2-7B request);
   * the paper's default hybrid, ARIMA on, over ``azure_like(100_000,
     days=7, seed=0)`` (phase ``arima_point``): the histogram pass, then
     the forecast post-pass of the apps the scan flags as consulting the
@@ -134,7 +142,8 @@ version and, where one exists, the one PyTorch call computing the same
 function (the decode kernel with ``kv_len`` on the device, as the serving
 graphs launch it, beside the host-int form; the fleet tick per call and
 back to back; the gathered-expert kernel beside ``torch.bmm`` over experts
-gathered beforehand; the RG-LRU scan by
+gathered beforehand; the rotary-and-append kernel beside the plain chain it
+replaces, with that chain's device operations a call; the RG-LRU scan by
 CUDA-graph replay and with its host work, the sweep scan's factored form
 at the sweep point beside its register form). Each phase prints one JSON
 line; any mismatch raises. The last lines are the kernel table, the
@@ -288,6 +297,7 @@ NO_SPILL_KERNELS = {
     "expert_gather": ("expert_up_kernel<bf16,2>", "expert_up_kernel<bf16,1>",
                       "expert_down_kernel<bf16,2>",
                       "expert_down_kernel<bf16,1>"),
+    "rope_append": ("rope_append_kernel<bf16,8>",),
     "hybrid_sweep_step": tuple(
         f"hybrid_sweep_scan_factored_kernel<{bpl},{cpl}>"
         for bpl in (2, 8) for cpl in (1, 2))}
@@ -446,6 +456,34 @@ EXPERT_GATHER_TIMED = ("olmoe", "nemotron", "nemotron_6_live")
 EXPERT_GATHER_TOL = {"bfloat16": (1e-3, 8e-3), "float32": (2e-6, 2e-5)}
 OLMOE_GATHER_PER_REQUEST = OLMOE_LAYERS * (SERVE_NEW - 1)
 NEMOTRON_GATHER_PER_REQUEST = 23 * (SERVE_NEW - 1)
+# The rotary-and-append kernel (kernels/rope_append.py): each cached
+# self-attention layer's RoPE of q and k and its cache write in one launch,
+# a layer for the prefill and for each decode step: 28 x 16 a serve_qwen2
+# request, 16 x 16 serve_olmoe, 12 x 16 serve_seamless's decoder, 6 x 16
+# serve_nemotron (an append alone: no RoPE there). RecurrentGemma decodes
+# its local attention against a ring buffer of its own and Mamba-2 has no
+# attention: none. Its cases (B, S, Hq, Hkv, hd, theta, rotate, dtype), at
+# the cells' batch 1: Qwen2-7B's and OLMoE-1B-7B's decode step (S 1 at
+# the device position ROPE_APPEND_DECODE_AT) and 4,096-token prefill (host
+# position 0), Nemotron-3-Nano's decode append, and an f32 prefill at head
+# dim 78 (one element a load, a half of 39); the caches hold
+# ROPE_APPEND_MAX_LEN rows. The kernel's q and caches must equal the plain
+# chain's on the card bit for bit.
+ROPE_APPEND_CASES = {
+    "qwen2_decode": (1, 1, 28, 4, 128, 1e6, True, "bfloat16"),
+    "qwen2_prefill": (1, 4096, 28, 4, 128, 1e6, True, "bfloat16"),
+    "olmoe_decode": (1, 1, 16, 16, 128, 1e4, True, "bfloat16"),
+    "olmoe_prefill": (1, 4096, 16, 16, 128, 1e4, True, "bfloat16"),
+    "nemotron_decode": (1, 1, 32, 2, 128, 1e4, False, "bfloat16"),
+    "ragged_f32": (2, 300, 6, 3, 78, 1e4, True, "float32")}
+ROPE_APPEND_TIMED = ("qwen2_decode", "qwen2_prefill", "olmoe_decode",
+                     "olmoe_prefill")
+ROPE_APPEND_MAX_LEN = SERVE_SEQ + SERVE_NEW
+ROPE_APPEND_DECODE_AT = 4100
+QWEN2_ROPE_PER_REQUEST = QWEN2_LAYERS * SERVE_NEW
+OLMOE_ROPE_PER_REQUEST = OLMOE_LAYERS * SERVE_NEW
+SEAMLESS_ROPE_PER_REQUEST = SEAMLESS_DEC_LAYERS * SERVE_NEW
+NEMOTRON_ROPE_PER_REQUEST = NEMOTRON_ATTN_PER_REQUEST * SERVE_NEW
 # The fleet's policy-update tick: one tick per event column of the scale
 # trace (1M apps, <= 64 columns), idle times in the paper's 240 one-minute
 # bins.
@@ -1749,6 +1787,8 @@ def _kernel_class(name: str) -> str:
         return "attention_kernel"
     if "rglru_scan" in name:
         return "scan_kernel"
+    if "rope_append" in name:
+        return "rope_append_kernel"
     if any(s in name.lower() for s in ("gemm", "cutlass", "xmma", "nvjet")):
         return "matmul"
     return "other"
@@ -3936,6 +3976,139 @@ def time_expert_gather(device, ptxas):
     return out
 
 
+def rope_append_inputs(case, device, seed):
+    """q, k, v, the caches, the positions and the first row of a case of
+    ROPE_APPEND_CASES: a decode step at the device position
+    ROPE_APPEND_DECODE_AT (as the serve engine's graph holds it), a prefill
+    at host position 0."""
+    import torch
+    from repro_torch.models import layers
+    B, S, Hq, Hkv, hd, theta, rotate, dtype = ROPE_APPEND_CASES[case]
+    g = torch.Generator(device=device).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    mk = lambda *s: torch.randn(*s, generator=g, device=device).to(dt)
+    q, k, v = mk(B, S, Hq, hd), mk(B, S, Hkv, hd), mk(B, S, Hkv, hd)
+    ck = mk(B, ROPE_APPEND_MAX_LEN, Hkv, hd)
+    cv = mk(B, ROPE_APPEND_MAX_LEN, Hkv, hd)
+    if S == 1:
+        pos = layers.device_pos(ROPE_APPEND_DECODE_AT, device)
+        positions = layers.step_positions(pos, B, device)
+    else:
+        pos = 0
+        positions = torch.arange(S, device=device).expand(B, S)
+    return q, k, v, ck, cv, positions, pos
+
+
+def rope_append_chain(q, k, v, ck, cv, positions, pos, theta, rotate):
+    """The plain chain ``attention_apply`` runs without the kernel
+    (``layers.rope`` of q and k, ``layers.write_rows`` of k and v); returns
+    the rotated q."""
+    from repro_torch.models import layers
+    if rotate:
+        q = layers.rope(q, positions, theta)
+        k = layers.rope(k, positions, theta)
+    layers.write_rows(ck, pos, k)
+    layers.write_rows(cv, pos, v)
+    return q
+
+
+def rope_append_parity(device):
+    """The rotary-and-append kernel against the plain chain at every case
+    of ROPE_APPEND_CASES: q, ck and cv equal bit for bit (each line counts
+    the elements that differ and the largest difference). Returns the
+    number of cases."""
+    import torch
+    from repro_torch.kernels import rope_append as RA
+    lines = {}
+    with uncounted(RA):
+        for i, case in enumerate(ROPE_APPEND_CASES):
+            theta, rotate = ROPE_APPEND_CASES[case][5:7]
+            q, k, v, ck, cv, positions, pos = rope_append_inputs(
+                case, device, 70 + i)
+            ck1, cv1 = ck.clone(), cv.clone()
+            want = rope_append_chain(q.clone(), k, v, ck1, cv1, positions,
+                                     pos, theta, rotate)
+            got = RA.rope_append(q, k, v, ck, cv, positions, pos, theta,
+                                 rotate)
+            torch.cuda.synchronize()
+            line = {}
+            for name, a, b in (("q", got, want), ("ck", ck, ck1),
+                               ("cv", cv, cv1)):
+                d = (a.float() - b.float()).abs()
+                line[name] = dict(equal=torch.equal(a, b),
+                                  differing=int((a != b).sum()),
+                                  max_abs_diff=float(d.max()))
+            lines[case] = line
+            if not all(x["equal"] for x in line.values()):
+                raise AssertionError(f"rope_append {case}: {line}")
+    emit("rope_append_parity", cases=ROPE_APPEND_CASES, **lines)
+    return len(lines)
+
+
+def device_ops(fn):
+    """Device operations (kernels, copies, fills) one call of ``fn`` runs,
+    by torch.profiler; None where it records no device events (late in a
+    long process it may record none, or fewer than ran; a short process
+    that calls :func:`time_rope_append` alone reads them whole)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA)
+    return n or None
+
+
+def time_rope_append(device, ptxas):
+    """The rotary-and-append kernel at ROPE_APPEND_TIMED: device ms a call
+    by CUDA-graph replay (median of 3) and ms a call with the wrapper's host
+    work, beside the plain chain it replaces (the same two ways, and its
+    device operations a call) and the bytes bound (q read and written
+    where it rotates, k and v read and written into the caches once)."""
+    import torch
+    from repro_torch.kernels import rope_append as RA
+    from repro_torch.kernels.timing import graph_ms, launch_ms
+
+    out = {}
+    for i, case in enumerate(ROPE_APPEND_TIMED):
+        B, S, Hq, Hkv, hd, theta, rotate, dtype = ROPE_APPEND_CASES[case]
+        q, k, v, ck, cv, positions, pos = rope_append_inputs(case, device,
+                                                             80 + i)
+        run = lambda: RA.rope_append(q, k, v, ck, cv, positions, pos,
+                                     theta, rotate)
+        plain = lambda: rope_append_chain(q, k, v, ck, cv, positions, pos,
+                                          theta, rotate)
+        with uncounted(RA):
+            graph = sorted(graph_ms(run, 20) for _ in range(3))
+            call_ms = launch_ms(run, 20)
+            ops = device_ops(run)
+        plain_graph = sorted(graph_ms(plain, 20) for _ in range(3))
+        plain_call = launch_ms(plain, 20)
+        plain_ops = device_ops(plain)
+        heads = (Hq if rotate else 0) + 2 * Hkv
+        nbytes = 2 * B * S * heads * hd * q.element_size()
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        out[case] = dict(kernel_ms=graph[1], graph_ms_runs=graph,
+                         call_ms=call_ms, device_ops=ops,
+                         plain_ms=plain_graph[1],
+                         plain_graph_ms_runs=plain_graph,
+                         plain_call_ms=plain_call,
+                         plain_device_ops=plain_ops,
+                         bytes=nbytes, bound_ms=bound_ms, bound_by="bytes",
+                         share_of_bound=bound_ms / graph[1],
+                         achieved_bytes_per_s=nbytes / (graph[1] * 1e-3))
+    emit("times_rope_append", cases={c: ROPE_APPEND_CASES[c]
+                                     for c in ROPE_APPEND_TIMED},
+         timed_by="CUDA graph replay (device only), median of 3", **out,
+         ptxas=ptxas.get("rope_append"))
+    return out
+
+
 def time_policy_update(columns, device, ptxas):
     """The policy-update kernel and its plain version over the scale
     trace's ticks replayed from an empty fleet: ms a tick per call (CUDA
@@ -4606,6 +4779,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import histogram as H
     from repro_torch.kernels import rglru_scan as R
+    from repro_torch.kernels import rope_append as RA
     from repro_torch.kernels import ssd_scan as SS
     device = torch.device("cuda")
     # the plain versions' f32 products in full f32, as the kernels compute
@@ -4639,6 +4813,7 @@ def main() -> int:
     ssd_err = ssd_parity(device)
     decode_err = decode_parity(device)
     gather_err = expert_gather_parity(device)
+    rope_cases = rope_append_parity(device)
     trace, launches, launches_by_form, e2e = scale_point(device)
     sweep_cols = sweep_columns(trace, device)
     max_err = max(max_err, scan_parity(sweep_cols, device))
@@ -4689,7 +4864,8 @@ def main() -> int:
     qwen2_launches, qwen2_forms, n_qwen2, f = serve(
         device, "serve_qwen2", "qwen2-7b", "q7",
         {"flash_attention": (FA, QWEN2_ATTN_PER_REQUEST),
-         "decode_attention": (DA, QWEN2_DECODE_PER_REQUEST)},
+         "decode_attention": (DA, QWEN2_DECODE_PER_REQUEST),
+         "rope_append": (RA, QWEN2_ROPE_PER_REQUEST)},
         SERVE_QWEN2_LOGITS_REL_TOL, decode_steps=SERVE_QWEN2_DECODE_STEPS)
     serve_qwen2_s = time.perf_counter() - t_serve
     failed += f
@@ -4699,7 +4875,8 @@ def main() -> int:
         device, "serve_olmoe", "olmoe-1b-7b", "ol",
         {"flash_attention": (FA, OLMOE_ATTN_PER_REQUEST),
          "decode_attention": (DA, OLMOE_DECODE_PER_REQUEST),
-         "expert_gather": (EG, OLMOE_GATHER_PER_REQUEST)},
+         "expert_gather": (EG, OLMOE_GATHER_PER_REQUEST),
+         "rope_append": (RA, OLMOE_ROPE_PER_REQUEST)},
         SERVE_MOE_LOGITS_REL_TOL, decode_steps=SERVE_QWEN2_DECODE_STEPS,
         init="depth_scaled")
     serve_olmoe_s = time.perf_counter() - t_serve
@@ -4709,7 +4886,8 @@ def main() -> int:
     seamless_launches, seamless_forms, n_seamless, f = serve(
         device, "serve_seamless", "seamless-m4t-medium", "sm",
         {"flash_attention": (FA, SEAMLESS_ATTN_PER_REQUEST),
-         "decode_attention": (DA, SEAMLESS_DECODE_PER_REQUEST)},
+         "decode_attention": (DA, SEAMLESS_DECODE_PER_REQUEST),
+         "rope_append": (RA, SEAMLESS_ROPE_PER_REQUEST)},
         SERVE_ENCDEC_LOGITS_REL_TOL, decode_steps=SERVE_QWEN2_DECODE_STEPS)
     serve_seamless_s = time.perf_counter() - t_serve
     failed += f
@@ -4720,25 +4898,26 @@ def main() -> int:
         {"ssd_scan": (SS, NEMOTRON_SSD_PER_REQUEST),
          "flash_attention": (FA, NEMOTRON_ATTN_PER_REQUEST),
          "decode_attention": (DA, NEMOTRON_DECODE_PER_REQUEST),
-         "expert_gather": (EG, NEMOTRON_GATHER_PER_REQUEST)},
+         "expert_gather": (EG, NEMOTRON_GATHER_PER_REQUEST),
+         "rope_append": (RA, NEMOTRON_ROPE_PER_REQUEST)},
         SERVE_NEMOTRON_LOGITS_REL_TOL, decode_steps=SERVE_QWEN2_DECODE_STEPS)
     serve_nemotron_s = time.perf_counter() - t_serve
     failed += f
     release_host_memory()
     t_train = time.perf_counter()
-    train_launches, f = train_smollm(device, (H, FA, DA, R, SS, EG))
+    train_launches, f = train_smollm(device, (H, FA, DA, R, SS, EG, RA))
     train_s = time.perf_counter() - t_train
     failed += f
     release_host_memory()
     # the multi-device layers: the ZeRO step on a one-rank mesh (no kernel
     # of the port launches there, as in train_smollm), the dry-run's cells
     # from the host, and whether gloo can carry two ranks on the card
-    reset_counts(H, FA, DA, R, SS, EG)
+    reset_counts(H, FA, DA, R, SS, EG, RA)
     t_phase = time.perf_counter()
     failed += mesh_train(device)
     mesh_train_s = time.perf_counter() - t_phase
     mesh_launches = {f"{m.__name__.rsplit('.', 1)[-1]}.{k}": v
-                     for m in (H, FA, DA, R, SS, EG)
+                     for m in (H, FA, DA, R, SS, EG, RA)
                      for k, v in vars(m).items()
                      if k.endswith("LAUNCHES") and isinstance(v, int)}
     if any(mesh_launches.values()):
@@ -4772,6 +4951,7 @@ def main() -> int:
     pu_ms, pu_back_ms, pu_plain_ms, pu_bound_ms, pu_bound_by = \
         time_policy_update(policy_cols, device, ptxas)
     eg = time_expert_gather(device, ptxas)
+    ra = time_rope_append(device, ptxas)
 
     csrc = "src/repro_torch/kernels/csrc/"
     print(json.dumps({"kernels": [{
@@ -4919,7 +5099,32 @@ def main() -> int:
         "library_ms": eg["olmoe"]["library_ms"],
         **{name: {k: eg[name][k] for k in (
             "kernel_ms", "plain_ms", "library_ms", "bound_ms")}
-           for name in ("nemotron", "nemotron_6_live")}}]}), flush=True)
+           for name in ("nemotron", "nemotron_6_live")}}, {
+        "name": "rope_append", "route": "cuda",
+        "source": csrc + "rope_append.cu",
+        "replaces": None,
+        "replaces_note": "no TPU kernel: the reference leaves RoPE and the "
+                         "cache write to XLA",
+        "train_launches": train_launches["rope_append.LAUNCHES"],
+        # the attention families' prefills and decode steps; ms, plain_ms
+        # and bound_ms at Qwen2-7B's batch-1 decode step (the plain chain's
+        # ms by graph replay too), its prefill and OLMoE's beside them
+        "launches": qwen2_launches["rope_append"]
+        + olmoe_launches["rope_append"] + seamless_launches["rope_append"]
+        + nemotron_launches["rope_append"],
+        "launches_by_path": {"qwen2": qwen2_launches["rope_append"],
+                             "olmoe": olmoe_launches["rope_append"],
+                             "seamless": seamless_launches["rope_append"],
+                             "nemotron": nemotron_launches["rope_append"]},
+        "bit_equal_cases": rope_cases,
+        "ms": ra["qwen2_decode"]["kernel_ms"],
+        "plain_ms": ra["qwen2_decode"]["plain_ms"],
+        "plain_device_ops": ra["qwen2_decode"]["plain_device_ops"],
+        "bound_ms": ra["qwen2_decode"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        **{name: {k: ra[name][k] for k in (
+            "kernel_ms", "plain_ms", "plain_device_ops", "bound_ms")}
+           for name in ROPE_APPEND_TIMED[1:]}}]}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start,
          scale_point_seconds=e2e["seconds"], serve_seconds=serve_s,
          serve_requests=n_requests, serve_mamba2_seconds=serve_mamba_s,

@@ -35,11 +35,11 @@ def refuse_grad(name: str, *tensors) -> None:
 
 # after refuse_grad: each of them imports it from here
 from . import (decode_attention, expert_gather,  # noqa: E402
-               flash_attention, rglru_scan, ssd_scan)
+               flash_attention, rglru_scan, rope_append, ssd_scan)
 
 #: The modules of the kernels a model's step launches.
 MODEL_KERNELS = (flash_attention, decode_attention, rglru_scan, ssd_scan,
-                 expert_gather)
+                 expert_gather, rope_append)
 
 
 def launch_counts(since=None) -> list:

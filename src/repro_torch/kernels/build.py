@@ -66,6 +66,8 @@ SIGNATURES = {
         "policy_update": ("i", "ppppppp ppppppp iiiii ffffff i p")}),
     "rglru_scan": ("rglru_scan_error_string", {
         "rglru_scan_fwd": ("i", "pppp iiii p")}),
+    "rope_append": ("rope_append_error_string", {
+        "rope_append_fwd": ("i", "ppppppp L iiiii LLL f iiii p")}),
     "ssd_scan": ("ssd_scan_error_string", {
         "ssd_scan_scratch_bytes": ("L", "iiiiiiii"),
         "ssd_scan_bf16_max_state": ("i", ""),

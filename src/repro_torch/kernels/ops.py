@@ -9,7 +9,8 @@ from .decode_attention import decode_attention
 from .flash_attention import flash_attention
 from .histogram import fused_hybrid_step, policy_update
 from .rglru_scan import rglru_scan
+from .rope_append import rope_append
 from .ssd_scan import ssd_scan
 
 __all__ = ["decode_attention", "flash_attention", "fused_hybrid_step",
-           "policy_update", "rglru_scan", "ssd_scan"]
+           "policy_update", "rglru_scan", "rope_append", "ssd_scan"]

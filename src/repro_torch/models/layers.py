@@ -343,7 +343,9 @@ def attention_apply(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     With ``cache = {"k", "v": [B, max_len, Hkv, hd], "pos": ...}`` (one
     layer's pair; ``pos`` the prefill's host int 0, or a decode step's 0-d
     device tensor): this step's K/V are written IN PLACE at ``pos``
-    (:func:`write_rows`) and the queries attend over the cache,
+    (:func:`write_rows`; under ``use_kernels``, off a mesh, the rotation of
+    q and k and both writes are one ``rope_append`` call, whose CPU version
+    is that same chain) and the queries attend over the cache,
     ``_sdpa(q, ck, cv, causal, q_offset=pos, kv_len=pos+S)`` as in the
     reference; the caller advances ``pos``. The cache's capacity is the
     caller's to respect (``ServeEngine.generate`` checks it on the host):
@@ -363,7 +365,11 @@ def attention_apply(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     if kv_source is not None:
         out = _sdpa(q, k, v, causal=False, window=0, q_offset=0)
         return linear(p.wo, out.reshape(B, S, cfg.n_heads * hd))
-    if use_rope:
+    sharded = cache is not None and dist_decode.applicable(
+        cache["k"].shape[1], S)
+    fused = cache is not None and cfg.use_kernels and not sharded \
+        and not isinstance(q, DTensor)
+    if use_rope and not fused:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     flash_ok = S % 128 == 0 and hd % 8 == 0 and causal
@@ -375,8 +381,10 @@ def attention_apply(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     else:
         pos = cache["pos"]
         ck, cv = cache["k"], cache["v"]
-        sharded = dist_decode.applicable(ck.shape[1], S)
-        if not sharded:
+        if fused:
+            q = kops.rope_append(q, k, v, ck, cv, positions, pos,
+                                 cfg.rope_theta, rotate=use_rope)
+        elif not sharded:
             write_rows(ck, pos, k)
             write_rows(cv, pos, v)
         kernels = cfg.use_kernels and not window

@@ -189,8 +189,10 @@ class Model:
         """The counters a request of this model reports, as they stand
         (a request reports their differences over it): from the family's
         module, where its layers do that work, ``ssd_launches`` (Mamba-2
-        layers), ``held_choices`` (dropless MoE layers) and
-        ``expert_gather_launches`` (MoE layers); none for the others. Host
+        layers), ``held_choices`` (dropless MoE layers),
+        ``expert_gather_launches`` (MoE layers) and
+        ``rope_append_launches`` (cached self-attention layers: dense, MoE,
+        encoder-decoder, Nemotron-H's attention); none for the others. Host
         counts: nothing is read from the device."""
         return self._m.counters(self.cfg)
 

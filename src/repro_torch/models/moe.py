@@ -61,6 +61,7 @@ from torch.distributed.tensor import DTensor
 from ..configs.base import ModelConfig
 from ..distributed import compat, ctx
 from ..kernels import expert_gather as eg
+from ..kernels import rope_append
 from . import layers as L
 from .transformer import _init_params, _logits
 
@@ -467,8 +468,11 @@ def decode_step(cfg: ModelConfig, params: MoEParams, token, cache: Dict):
 def counters(cfg: ModelConfig) -> Dict[str, int]:
     """The counters a request of this family reports, as they stand:
     ``expert_gather_launches``, the gathered-expert kernel's calls (one a
-    MoE layer a one-token step where :func:`gathers` holds)."""
-    return {"expert_gather_launches": eg.LAUNCHES}
+    MoE layer a one-token step where :func:`gathers` holds), and
+    ``rope_append_launches``, the rotary-and-append kernel's launches (one
+    an attention layer a prefill and a decode step on the card)."""
+    return {"expert_gather_launches": eg.LAUNCHES,
+            "rope_append_launches": rope_append.LAUNCHES}
 
 
 # ---------------------------------------------------------------------------

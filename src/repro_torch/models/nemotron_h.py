@@ -45,6 +45,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..kernels import expert_gather, rope_append
 from . import layers as L
 from . import mamba2, moe
 from .transformer import _init_params, _logits
@@ -221,11 +222,15 @@ def counters(cfg: ModelConfig) -> Dict[str, int]:
     Mamba-2 layers, the SSD scan kernel's calls (``ssd_launches``,
     :func:`mamba2.counters`); with MoE layers, the routed choices the
     prompt pass computed on held experts (``held_choices``) and the
-    gathered-expert kernel's calls (``expert_gather_launches``,
-    :func:`moe.counters`)."""
+    gathered-expert kernel's calls (``expert_gather_launches``); with
+    attention layers, the rotary-and-append kernel's launches
+    (``rope_append_launches``, here an append alone: the layers have no
+    RoPE)."""
     pat = kinds(cfg)
     out = mamba2.counters(cfg) if "M" in pat else {}
     if "E" in pat:
         out["held_choices"] = moe.HELD_CHOICES
-        out.update(moe.counters(cfg))
+        out["expert_gather_launches"] = expert_gather.LAUNCHES
+    if "*" in pat:
+        out["rope_append_launches"] = rope_append.LAUNCHES
     return out

@@ -44,6 +44,7 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..distributed import ctx
+from ..kernels import rope_append
 from . import layers as L
 
 __all__ = ["DenseBlock", "DenseParams", "EncDecBlock", "EncDecParams", "init",
@@ -382,5 +383,8 @@ def encdec_decode_step(cfg: ModelConfig, params: EncDecParams, token,
 
 
 def counters(cfg: ModelConfig) -> Dict[str, int]:
-    """The counters a request of this family reports: none."""
-    return {}
+    """The counters a request of this family reports, as they stand:
+    ``rope_append_launches``, the rotary-and-append kernel's launches (one
+    a cached self-attention layer a prefill and a decode step on the
+    card)."""
+    return {"rope_append_launches": rope_append.LAUNCHES}

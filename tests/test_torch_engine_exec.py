@@ -19,10 +19,13 @@ position that its captured decode step rests on.
     ``unload`` and a re-``load`` drop the app's entries; a prompt that
     would overrun ``max_len`` raises before any step; ``generate`` under a
     mesh raises; the launch counters' arithmetic for replays;
+  * the families whose attention decodes through a KV cache count the
+    rotary-and-append kernel's launches in ``Model.counters()``;
   * on a CUDA card (``gpu``, skipped elsewhere) at reduced bf16 configs:
     graph decode equal to eager decode bit for bit in every family, again
     after an unload and reload (a second capture), with the counted
-    launches per request equal to the eager path's.
+    launches per request equal to the eager path's; a dense graph's
+    replays count one rotary-and-append launch an attention layer.
 
 ``tests/test_torch_serving.py`` holds ``generate``'s tokens to the
 reference's ``ServeEngine``.
@@ -219,8 +222,27 @@ def test_prompt_overrunning_max_len_raises_before_any_step(family):
     out, _ = eng.generate("app-0", toks, max_new=3, max_len=12)
     assert out.shape == (2, 3)
     counters = {"state_bytes"} | ({"ssd_launches"} if family == "ssm"
-                                  else set())
+                                  else {"rope_append_launches"})
     assert set(eng.last_times) == {"prefill_s", "decode_s"} | counters
+    if family == "dense":                    # plain version: no launch
+        assert eng.last_times["rope_append_launches"] == 0
+
+
+@pytest.mark.parametrize("family", list(FAMILIES) + ["nemotron_h"])
+def test_attention_families_count_rope_append_launches(family):
+    """``Model.counters()`` carries the rotary-and-append kernel's launches
+    for every family whose attention layers decode through a KV cache
+    (dense, MoE, encoder-decoder, Nemotron-H's GQA layers), read from the
+    kernel's module; not for RecurrentGemma (its local attention decodes
+    against a ring buffer of its own) or Mamba-2."""
+    from repro_torch.kernels import rope_append as RA
+    cfg = configs.reduced(configs.get("nemotron-3-nano-30b-a3b")) \
+        if family == "nemotron_h" else _cfg(family)
+    counters = build(cfg).counters()
+    if family in ("hybrid", "ssm"):
+        assert "rope_append_launches" not in counters
+    else:
+        assert counters["rope_append_launches"] == RA.LAUNCHES
 
 
 def test_generate_under_a_mesh_raises(monkeypatch):
@@ -261,6 +283,49 @@ def test_launch_counts_are_added_per_replay_and_taken_back():
 
 
 _counted = kernels.launch_counts
+
+
+@pytest.mark.gpu
+def test_dense_graph_replays_count_rope_append_once_a_layer():
+    """Reduced Qwen2-7B in bf16 with the kernels at batch 1: the entry's
+    decode graph gives the eager greedy tokens bit for bit, and each of its
+    replays counts one rotary-and-append launch an attention layer (the
+    request's ``last_times`` one a layer for the prefill and for each
+    step)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the decode step's graph is "
+                    "captured there only")
+    from repro_torch.kernels import rope_append as RA
+    new = 9
+    cfg = _cfg("dense", dtype="bfloat16").with_(n_layers=3)
+    reg = port_registry.Registry()
+    reg.register(port_registry.ModelEndpoint("app-0", cfg, seed=5))
+    eng = port_engine.ServeEngine(reg, device="cuda")
+    eng.load("app-0")
+    params, model = eng._loaded["app-0"], eng._model(cfg)
+    tokens = torch.from_numpy(_inputs(cfg, 3)[0][:1]).cuda()
+    max_len = S + new
+    with torch.inference_mode():
+        lg, state = model.prefill(params, tokens, max_len)
+        tok = torch.argmax(lg, dim=-1)[:, 0]
+        want = [tok]
+        for _ in range(new - 1):
+            lg, state = model.decode_step(params, tok, state)
+            tok = torch.argmax(lg, dim=-1)
+            want.append(tok)
+    want = torch.stack(want, dim=1)
+    out, _ = eng.generate("app-0", tokens, max_new=new, max_len=max_len)
+    assert torch.equal(out, want)
+    assert eng.last_times["rope_append_launches"] == cfg.n_layers * new
+    entry = eng._executables("app-0", max_len, 1)
+    assert entry.graph is not None
+    entry.prefill(tokens, None)
+    i = kernels.MODEL_KERNELS.index(RA)
+    for _ in range(new - 1):
+        c0 = _counted()
+        entry.decode()
+        assert _counted(since=c0)[i] == (cfg.n_layers, {})
+    eng.unload("app-0")
 
 
 @pytest.mark.gpu

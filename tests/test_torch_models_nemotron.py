@@ -398,8 +398,11 @@ def test_generate_reports_the_counters():
     # one-token steps through the gathered experts: the plain version on
     # the CPU counts no kernel call
     assert times["expert_gather_launches"] == 0
-    for other, has in (("qwen2-7b", set()), ("mamba2-2.7b", {"ssd_launches"}),
-                       ("olmoe-1b-7b", {"expert_gather_launches"})):
+    # the attention layers' append: the plain chain on the CPU
+    assert times["rope_append_launches"] == 0
+    rope = {"rope_append_launches"}
+    for other, has in (("qwen2-7b", rope), ("mamba2-2.7b", {"ssd_launches"}),
+                       ("olmoe-1b-7b", {"expert_gather_launches"} | rope)):
         cfg = configs.reduced(configs.get(other)).with_(use_kernels=True)
         eng = _engine([cfg])
         eng.load("app-0")
